@@ -1,0 +1,40 @@
+"""dlrover_wuqiong_tpu_torch — the PyTorch and CUDA port of dlrover_wuqiong_tpu.
+
+Parity: each module keeps the name of its counterpart in the JAX package
+(``dlrover_wuqiong_tpu/<same path>``), which stays the reference.  The port
+imports ``torch`` and nothing of JAX or of the JAX package; what it needs
+from a JAX-free module there, it keeps as its own copy.
+
+What is ported so far is the int8 serving path:
+
+  serving.LocalServer / SlotScheduler   request queue -> slots -> results
+  serving.ServingEngine                 slot KV cache, admit, decode windows
+  rl.generation.forward_step            the cached GPT decode step
+  ops.quantization                      blockwise int8 pair (CUDA kernels
+                                        in csrc/, built by _build.py)
+  models.gpt.GPTConfig / init_params    GPT-2 configs, seeded flax-layout init
+  convert.params_from_jax               a flax param tree -> torch tensors
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a GPU a default-device call raises.  Importing the package starts
+no CUDA context.
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None):
+    """``torch.device`` for `device`, defaulting to ``cuda``.
+
+    Raises when CUDA is asked for (explicitly or by default) and absent:
+    the port never falls back to the CPU on its own.
+    """
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev

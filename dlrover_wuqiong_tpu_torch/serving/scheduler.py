@@ -1,0 +1,178 @@
+"""Host-side slot scheduler: admission, window bookkeeping, telemetry.
+
+Parity: dlrover_wuqiong_tpu/serving/scheduler.py (`request_trace_id` :34,
+`SlotScheduler` :55, `LocalServer` :154), over the port's engine.  All
+scheduling decisions happen at window boundaries — admissions,
+retirements, deadline checks and ledger credits — never inside a decode
+window.
+
+The scheduler owns everything per request: remaining-token budgets,
+output accumulation, deadlines, the serving ledger marks
+(telemetry/serving.py) and the per-request trace.  Trace ids are derived
+from the request id (md5), so a request re-admitted on another worker
+joins the same trace.
+
+Over-generation is by design: a decode window emits K tokens for every
+active slot, and a request that finishes mid-window has its surplus
+tokens discarded here.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+from typing import Dict, List
+
+from ..common.messages import ServeRequest, ServeResult
+from ..telemetry import spans as tspans
+from ..telemetry.serving import get_serve_ledger
+
+
+def request_trace_id(request_id: str) -> str:
+    """Deterministic trace id: spans for one request form one tree even
+    when its lifecycle spans two worker processes (kill + re-admit)."""
+    return hashlib.md5(request_id.encode()).hexdigest()[:16]
+
+
+def _span_for(request_id: str, name: str, attrs: Dict):
+    """Record a lifecycle span under the request's own trace."""
+    with tspans.extract({"trace_id": request_trace_id(request_id),
+                         "span_id": ""}):
+        tspans.span_event(name, {"request_id": request_id, **attrs})
+
+
+class _Slot:
+    def __init__(self, req: ServeRequest, t_admit: float):
+        self.req = req
+        self.tokens: List[int] = []
+        self.t_admit = t_admit
+        self.t_first = 0.0
+
+
+class SlotScheduler:
+    """Drives one ServingEngine: queue → slots → results."""
+
+    def __init__(self, engine, ledger=None):
+        self.engine = engine
+        self.ledger = ledger or get_serve_ledger()
+        self.queue: List[ServeRequest] = []
+        self.slots: Dict[int, _Slot] = {}
+        self.results: List[ServeResult] = []
+
+    # ------------------------------------------------------------ intake
+
+    def submit(self, req: ServeRequest):
+        self.ledger.count("submitted")
+        self.queue.append(req)
+
+    def pending(self) -> int:
+        return len(self.queue)
+
+    def active(self) -> int:
+        return len(self.slots)
+
+    def idle(self) -> bool:
+        return not self.queue and not self.slots
+
+    # ------------------------------------------------------------ window
+
+    def _admit_one(self, slot: int, req: ServeRequest):
+        eng = self.engine
+        t0 = time.monotonic()
+        with self.ledger.window("prefill"):
+            first = eng.admit(slot, list(req.prompt), int(req.seed),
+                              temperature=float(req.temperature),
+                              max_new_tokens=int(req.max_new_tokens))
+        st = _Slot(req, t0)
+        st.t_first = time.monotonic()  # first token rides the admit
+        st.tokens.append(first)
+        self.slots[slot] = st
+        self.ledger.note_admit(req.request_id)
+        self.ledger.count("tokens_out")  # the admit's first token
+        # the admit prefill produces the first token in the same dispatch
+        self.ledger.note_first_token(req.request_id)
+        _span_for(req.request_id, "serve:admit",
+                  {"slot": slot, "prompt_len": len(req.prompt)})
+        if len(st.tokens) >= max(1, int(req.max_new_tokens)):
+            self._finish(slot, "length")
+
+    def _finish(self, slot: int, reason: str):
+        st = self.slots.pop(slot)
+        self.engine.retire(slot)
+        now = time.monotonic()
+        res = ServeResult(
+            request_id=st.req.request_id,
+            tokens=[int(t) for t in st.tokens],
+            finish_reason=reason,
+            latency_s=now - st.t_admit,
+            ttft_s=st.t_first - st.t_admit)
+        self.results.append(res)
+        # tokens_out was already credited as tokens were produced (admit
+        # + windows) — counting len(tokens) here would double-count
+        self.ledger.note_finish(st.req.request_id)
+        _span_for(st.req.request_id, "serve:finish",
+                  {"slot": slot, "tokens": len(st.tokens),
+                   "finish_reason": reason,
+                   "latency_s": res.latency_s})
+
+    def step(self) -> int:
+        """One boundary + one fused window.  Returns generated-token
+        count (0 when fully idle)."""
+        with self.ledger.window("admission"):
+            for slot in self.engine.free_slots():
+                if not self.queue:
+                    break
+                self._admit_one(slot, self.queue.pop(0))
+        if not self.slots:
+            return 0
+        with self.ledger.window("decode"):
+            out = self.engine.decode_window()  # (K, S)
+        produced = 0
+        k = out.shape[0]
+        for slot in list(self.slots):
+            st = self.slots[slot]
+            want = max(1, int(st.req.max_new_tokens)) - len(st.tokens)
+            take = min(k, want)  # surplus window tokens are discarded
+            st.tokens.extend(int(t) for t in out[:take, slot])
+            produced += take
+            self.ledger.count("tokens_out", take)
+            if len(st.tokens) >= max(1, int(st.req.max_new_tokens)):
+                self._finish(slot, "length")
+            elif st.req.deadline_s and \
+                    time.monotonic() - st.t_admit > st.req.deadline_s:
+                self._finish(slot, "deadline")
+        return produced
+
+    def take_results(self) -> List[ServeResult]:
+        out, self.results = self.results, []
+        return out
+
+
+class LocalServer:
+    """In-process serving front: submit requests, run windows until
+    drained, collect results."""
+
+    def __init__(self, engine):
+        self.scheduler = SlotScheduler(engine)
+
+    def submit(self, request_id: str, prompt: List[int],
+               max_new_tokens: int = 16, seed: int = 0,
+               temperature: float = 1.0):
+        self.scheduler.submit(ServeRequest(
+            request_id=request_id, prompt=list(prompt),
+            max_new_tokens=max_new_tokens, seed=seed,
+            temperature=temperature, submitted_at=time.time()))
+
+    def drain(self, max_windows: int = 10_000) -> Dict[str, List[int]]:
+        """Run windows until every submitted request finished; returns
+        {request_id: tokens}."""
+        out: Dict[str, List[int]] = {}
+        windows = 0
+        while not self.scheduler.idle():
+            if windows >= max_windows:
+                raise RuntimeError(f"drain exceeded {max_windows} windows")
+            self.scheduler.step()
+            windows += 1
+            for res in self.scheduler.take_results():
+                out[res.request_id] = list(res.tokens)
+        return out

@@ -1,0 +1,117 @@
+"""The port stands alone: no JAX, no JAX package, no silent CPU fallback.
+
+- Importing every module of dlrover_wuqiong_tpu_torch (in a fresh
+  interpreter) loads no ``jax``/``flax``/``optax`` module and no module of
+  the JAX package, and starts no CUDA context.
+- An AST scan of the package finds no such import anywhere, including
+  imports deferred into function bodies.
+- Entry points default to ``cuda`` and raise where CUDA is absent.
+- The kernel build uses the sm_90a target and IEEE division.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from dlrover_wuqiong_tpu_torch import _build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "dlrover_wuqiong_tpu_torch")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "dlrover_wuqiong_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN_ROOTS
+
+
+def _package_modules():
+    mods = []
+    for root, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(
+                    ".__init__"))
+    return sorted(mods)
+
+
+def test_import_loads_no_jax_and_no_cuda():
+    code = (
+        "import importlib, json, sys, torch\n"
+        f"mods = {_package_modules()!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "print(json.dumps({'mods': sorted(sys.modules),"
+        " 'cuda': torch.cuda.is_initialized()}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    leaked = [m for m in rec["mods"] if _forbidden(m)]
+    assert leaked == []
+    assert rec["cuda"] is False
+    assert "dlrover_wuqiong_tpu_torch.serving.engine" in rec["mods"]
+
+
+def test_ast_scan_finds_no_forbidden_import():
+    seen = []
+    for mod in _package_modules():
+        path = os.path.join(REPO, *mod.split(".")) + (
+            ".py" if os.path.isfile(os.path.join(REPO, *mod.split("."))
+                                    + ".py") else os.sep + "__init__.py")
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            seen.extend(names)
+            bad = [n for n in names if _forbidden(n)]
+            assert not bad, f"{path}:{node.lineno} imports {bad}"
+    assert "torch" in seen  # the scan did walk the package
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without a GPU a default-device call raises; nothing falls back."""
+    from dlrover_wuqiong_tpu_torch import resolve_device
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPTConfig, init_params
+    from dlrover_wuqiong_tpu_torch.serving import ServeSpec, ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPTConfig.nano()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(cfg)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(cfg, params, ServeSpec())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_nvcc_command_targets_sm90a_without_fast_math(monkeypatch):
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    cmd = _build.nvcc_command("int8_blockwise", "out.so")
+    assert cmd[0] == "nvcc"
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and "-O3" in cmd
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert cmd[-1].endswith(os.path.join("csrc", "int8_blockwise.cu"))
+
+
+def test_library_path_keyed_by_source_hash():
+    p1 = _build.library_path("int8_blockwise")
+    assert p1 == _build.library_path("int8_blockwise")
+    assert os.path.dirname(p1) == _build.BUILD_DIR
+    assert os.path.basename(p1).startswith("int8_blockwise-")
+    for src in _build.SOURCES.values():
+        assert os.path.isfile(os.path.join(PKG, src))
