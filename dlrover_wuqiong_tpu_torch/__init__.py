@@ -1,19 +1,35 @@
-"""dlrover_wuqiong_tpu_torch — the PyTorch and CUDA port of dlrover_wuqiong_tpu.
+"""dlrover_wuqiong_tpu_torch: the PyTorch and CUDA port of dlrover_wuqiong_tpu.
 
 Parity: each module keeps the name of its counterpart in the JAX package
 (``dlrover_wuqiong_tpu/<same path>``), which stays the reference.  The port
 imports ``torch`` and nothing of JAX or of the JAX package; what it needs
 from a JAX-free module there, it keeps as its own copy.
 
-What is ported so far is the int8 serving path:
+Ported so far, the int8 serving path:
 
   serving.LocalServer / SlotScheduler   request queue -> slots -> results
   serving.ServingEngine                 slot KV cache, admit, decode windows
   rl.generation.forward_step            the cached GPT decode step
   ops.quantization                      blockwise int8 pair (CUDA kernels
-                                        in csrc/, built by _build.py)
+                                        in csrc/int8_blockwise.cu)
+
+and the one-device training path:
+
+  auto.accelerate.auto_accelerate       model + optimizer -> train step
+  trainer.train_step                    TrainState, make_train_step
+                                        (accumulation, fused K steps), adamw
+  models.gpt.GPT / cross_entropy_loss   GPT-2 as nn.Modules, flax names
+  models.attention / models.fp8         the flash route, flax's Dense
+  ops.remat                             remat "full" per block
+  ops.flash_attention                   forward + fused / split backward
+                                        (CUDA kernels in
+                                        csrc/flash_attention.cu)
+
+shared by both:
+
   models.gpt.GPTConfig / init_params    GPT-2 configs, seeded flax-layout init
-  convert.params_from_jax               a flax param tree -> torch tensors
+  convert                               flax tree <-> tensors <-> GPT
+  _build                                nvcc -> ctypes, at first use
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU a default-device call raises.  Importing the package starts

@@ -8,8 +8,9 @@ with a plain C interface (no PyTorch headers, so a build takes seconds)::
 
 ``<digest>`` hashes the source and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  No ``--use_fast_math``:
-the kernels rely on IEEE division.  Builds happen at first use, never at
-import, and several sources build in parallel through `build_all`.
+the kernels rely on IEEE division and on accurate ``exp2f``/``logf``.
+Builds happen at first use, never at import, and several sources build
+in parallel through `build_all`.
 
 The build directory ``_build/`` sits in the package and is git-ignored.
 ``nvcc`` is taken from ``$CUDA_HOME/bin``, then ``PATH``, then
@@ -32,6 +33,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 #: kernel library name -> source, relative to the package
 SOURCES: Dict[str, str] = {
     "int8_blockwise": os.path.join("csrc", "int8_blockwise.cu"),
+    "flash_attention": os.path.join("csrc", "flash_attention.cu"),
 }
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")

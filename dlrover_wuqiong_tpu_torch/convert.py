@@ -1,8 +1,18 @@
-"""Converts a flax parameter tree into the port's tree of torch tensors.
+"""Converts parameters between a flax tree, the port's tensor tree and `GPT`.
 
 Parity: the tree that dlrover_wuqiong_tpu/models/gpt.py:204
 (`GPT.init_params`) returns, as consumed by
-dlrover_wuqiong_tpu/rl/generation.py:91 (`forward_step`).
+dlrover_wuqiong_tpu/rl/generation.py:91 (`forward_step`) and by the
+serving engine's ``sync_from_trainer``
+(dlrover_wuqiong_tpu/serving/engine.py).
+
+- `params_from_jax`: a flax tree of numpy arrays -> the same nested dict of
+  tensors (the serving engine's input).
+- `load_params`: such a tree (numpy arrays or tensors) -> a
+  ``models.gpt.GPT``'s parameters, matched by path (``h_0/attn/c_attn/
+  kernel`` is the parameter ``h_0.attn.c_attn.kernel``).
+- `export_params`: a `GPT`'s parameters -> the nested dict
+  ``ServingEngine.sync_from_trainer`` takes, as detached copies.
 
 The paths stay the same (``h_<i>/attn/c_attn/kernel``, ``ln_1/scale``,
 ``wte/embedding``, ...) and so does every layout: a Dense kernel stays
@@ -23,6 +33,16 @@ import torch
 from . import resolve_device
 
 
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> the same nested dict of tensors on
     `device` (default ``cuda``), values and dtypes unchanged."""
@@ -34,3 +54,45 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
         return torch.from_numpy(np.array(node, copy=True)).to(device)
 
     return rec(tree)
+
+
+@torch.no_grad()
+def load_params(model: torch.nn.Module, tree: Mapping, device=None):
+    """Put every parameter of `model` on `device` (default ``cuda``) with the
+    value of the same path in `tree`; returns `model`.  The tree must hold
+    exactly the model's parameters, with the same shapes."""
+    device = resolve_device(device)
+    flat = _flatten(tree)
+    names = dict(model.named_parameters())
+    if set(flat) != set(names):
+        raise ValueError(
+            f"parameter tree does not match the model: missing "
+            f"{sorted(set(names) - set(flat))}, unexpected "
+            f"{sorted(set(flat) - set(names))}")
+    srcs = {}
+    for name, p in names.items():
+        src = flat[name]
+        if not torch.is_tensor(src):
+            src = torch.from_numpy(np.array(src, copy=True))
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                             f"{tuple(p.shape)}")
+        srcs[name] = src
+    model.to_empty(device=device)
+    for name, p in model.named_parameters():
+        p.copy_(srcs[name])
+    return model
+
+
+@torch.no_grad()
+def export_params(model: torch.nn.Module) -> Dict[str, Any]:
+    """`model`'s parameters as a nested flax-layout dict of detached
+    copies (a live trainer keeps updating its own tensors in place)."""
+    tree: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = p.detach().clone()
+    return tree

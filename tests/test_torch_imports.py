@@ -5,8 +5,11 @@
   the JAX package, and starts no CUDA context.
 - An AST scan of the package finds no such import anywhere, including
   imports deferred into function bodies.
-- Entry points default to ``cuda`` and raise where CUDA is absent.
-- The kernel build uses the sm_90a target and IEEE division.
+- Entry points default to ``cuda`` and raise where CUDA is absent; that
+  includes the training path (`auto_accelerate`, `GPT.init_params`) and
+  the flash-attention kernels, which never take a CPU tensor.
+- The kernel build holds both CUDA sources and uses the sm_90a target,
+  IEEE division and accurate transcendentals (no fast math).
 """
 
 import ast
@@ -56,7 +59,10 @@ def test_import_loads_no_jax_and_no_cuda():
     leaked = [m for m in rec["mods"] if _forbidden(m)]
     assert leaked == []
     assert rec["cuda"] is False
-    assert "dlrover_wuqiong_tpu_torch.serving.engine" in rec["mods"]
+    for mod in ("serving.engine", "ops.flash_attention", "models.gpt",
+                "models.attention", "models.fp8", "ops.remat",
+                "trainer.train_step", "auto.accelerate"):
+        assert f"dlrover_wuqiong_tpu_torch.{mod}" in rec["mods"]
 
 
 def test_ast_scan_finds_no_forbidden_import():
@@ -98,14 +104,49 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_nvcc_command_targets_sm90a_without_fast_math(monkeypatch):
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.ops import flash_attention as tfa
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        auto_accelerate(GPT(GPTConfig.nano()))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPT(GPTConfig.nano()).init_params()
+    x = torch.zeros((1, 64, 64), dtype=torch.bfloat16)
+    tfa.reset_launches()
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        tfa._fa_forward_kernel(x, x, x, True, 0.125)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        tfa._fa_backward_kernel(x, x, x, x, x[..., 0].float(), x, True,
+                                0.125, None, "fused")
+    assert sum(tfa.LAUNCHES.values()) == 0
+
+
+def _check_nvcc_command(monkeypatch, name):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
-    cmd = _build.nvcc_command("int8_blockwise", "out.so")
+    cmd = _build.nvcc_command(name, "out.so")
     assert cmd[0] == "nvcc"
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-O3" in cmd
-    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    assert cmd[-1].endswith(os.path.join("csrc", "int8_blockwise.cu"))
+    assert not any("fast_math" in c or "fast-math" in c or "ftz" in c
+                   for c in cmd)
+    assert cmd[-1].endswith(os.path.join("csrc", f"{name}.cu"))
+
+
+def test_nvcc_command_targets_sm90a_without_fast_math(monkeypatch):
+    _check_nvcc_command(monkeypatch, "int8_blockwise")
+
+
+def test_flash_attention_builds_with_sm90a_without_fast_math(monkeypatch):
+    _check_nvcc_command(monkeypatch, "flash_attention")
+
+
+def test_sources_hold_both_kernel_files():
+    assert set(_build.SOURCES) == {"int8_blockwise", "flash_attention"}
+    assert {os.path.basename(p) for p in _build.SOURCES.values()} == {
+        "int8_blockwise.cu", "flash_attention.cu"}
 
 
 def test_library_path_keyed_by_source_hash():
