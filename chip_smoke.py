@@ -23,11 +23,15 @@ Phases, in order; a failure in any of them exits non-zero:
    no key), d = 128, and d = 48 through the public API; every row of
    every output within `FA_TOL` of its own norm, lse within `FA_LSE_TOL`.
    Three faults planted into the plain version at GPT-2's shape must
-   each break `FA_TOL`.  Two runs of each backward route are bitwise
-   equal.  Then each kernel's time at GPT-2's shape beside its plain
-   version, its bound and ``scaled_dot_product_attention`` (forward;
-   forward + backward for the backward kernels), a yardstick the port
-   never calls.
+   each break `FA_TOL`.  The fused route's dq equals the split route's
+   bitwise.  In the ragged, sq < sk and sq > sk cases the fused backward
+   is launched once more into outputs filled with NaN: every value must
+   come back finite and bitwise equal to the wrapper's (each output row
+   is written by some block).  Two runs of each backward route are
+   bitwise equal.  Then each kernel's time at GPT-2's shape beside its
+   plain version, its bound and ``scaled_dot_product_attention``
+   (forward; forward + backward for the backward kernels), a yardstick
+   the port never calls.
 4. The serving path: GPT-2 124M at full width, bf16 compute, seeded
    random weights, ``ServeSpec(max_slots=8, max_len=512,
    max_prompt_len=128, fused_tokens=8, quant="int8")``; 16 requests
@@ -258,6 +262,9 @@ FA_CASES = [  # name, bh, sq, sk, d, causal
 FA_TOL = 2e-2
 FA_FLOOR = 1e-2
 FA_LSE_TOL = 1e-3
+# cases with edges a block could leave unwritten: ragged tiles, the causal
+# diagonal offset both ways, queries that see no key (sq > sk)
+FA_NAN_CASES = ("ragged", "sq<sk", "sq>sk")
 
 
 def fa_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -327,6 +334,17 @@ def planted_faults(torch, tfa, q, k, v, o, lse, do, scale, ref):
             "dk/dv skip a query tile": [(dk_f, ref[1]), (dv_f, ref[2])]}
 
 
+def fused_into(torch, tfa, q, k, v, o, lse, do, causal, scale, outs):
+    """The fused backward launched into the given (dq, dk, dv), as the
+    wrapper launches it but not counted in its launches."""
+    bh, sq, d = q.shape
+    delta = tfa._delta(o, do, None)
+    tfa._check_rc(tfa._lib().fa_backward_fused_bf16(
+        *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)), bh, sq,
+        k.shape[1], d, int(causal), scale * tfa.LOG2E, scale,
+        torch.cuda.current_stream().cuda_stream), "flash backward")
+
+
 def check_flash(torch, tfa):
     """Each flash kernel against its plain version on the card; returns
     {kernel: max absolute error}, over all cases and outputs.  Ends with
@@ -372,6 +390,12 @@ def check_flash(torch, tfa):
         check(lse_err <= FA_LSE_TOL, f"{tag}: lse err {lse_err}")
         msg = [note("flash_attention_fwd", [(o, ro)], tag),
                f"lse {lse_err:.2e}"]
+        if len(grads) == 2:
+            # the fused kernel's dq role runs the dq kernel's per-tile code
+            # over the kv tiles in the same order
+            check(torch.equal(grads["fused"][0], grads["split"][0]),
+                  f"{tag}: fused dq differs from the dq kernel's bitwise")
+            msg.append("fused dq == split dq bitwise")
         for route, g in grads.items():
             check(all(bool(torch.isfinite(t).all()) for t in g),
                   f"{tag}: non-finite {route} gradients")
@@ -381,6 +405,17 @@ def check_flash(torch, tfa):
             else:
                 msg.append(note("flash_attention_bwd_dq", pairs[:1], tag))
                 msg.append(note("flash_attention_bwd_dkv", pairs[1:], tag))
+        if name in FA_NAN_CASES:
+            outs = [torch.full_like(t, float("nan")) for t in grads["fused"]]
+            fused_into(torch, tfa, q, k, v, o, lse, do, causal, scale, outs)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in outs),
+                  f"{tag}: the fused backward left NaN-filled values "
+                  f"unwritten")
+            check(all(torch.equal(a, b) for a, b in zip(outs, grads["fused"])),
+                  f"{tag}: the fused backward into NaN-filled outputs differs "
+                  f"from the wrapper's")
+            msg.append("fused writes every value")
         print(f"{tag}: " + ", ".join(msg) + f" (worst row ||kernel - "
               f"plain|| / ||plain||, tolerance {FA_TOL})")
         if name == "gpt2":
@@ -442,7 +477,6 @@ def time_flash(torch, tfa):
     # split pair's two kernels are timed apart
     delta = tfa._delta(o, do, None)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    acc = torch.empty(q.shape, dtype=torch.float32, device="cuda")
     lib = tfa._lib()
     ins = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
     tail = [bh, sq, sk, d, 1, scale * tfa.LOG2E, scale,
@@ -462,7 +496,7 @@ def time_flash(torch, tfa):
          lambda: tfa._fa_forward_plain(q, k, v, True, scale),
          4 * mat + row, 2 * 2 * d * pairs, lib_fwd),
         ("flash_attention_bwd_fused",
-         launch(lib.fa_backward_fused_bf16, dq, dk, dv, acc), plain_bwd,
+         launch(lib.fa_backward_fused_bf16, dq, dk, dv), plain_bwd,
          7 * mat + 2 * row, 5 * 2 * d * pairs, lib_bwd),
         ("flash_attention_bwd_dq", launch(lib.fa_backward_dq_bf16, dq),
          plain_bwd, 5 * mat + 2 * row, 3 * 2 * d * pairs, lib_bwd),
@@ -964,8 +998,8 @@ def main():
               f"{t['ms']:.4f} ms on the card ({t['ms_host_paced']:.4f} ms "
               f"as issued), plain {t['plain_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bytes']} B, "
-              f"{t['flop']} FLOP), scaled_dot_product_attention "
-              f"{t['library_ms']:.4f} ms")
+              f"{t['flop']} FLOP, {t['flop'] / t['ms'] / 1e9:.1f} TFLOP/s), "
+              f"scaled_dot_product_attention {t['library_ms']:.4f} ms")
 
     # phase 4 — warm-up (cuBLAS handles, allocator) on a throwaway engine
     reqs = make_requests(np, seed=0, vocab=50257)

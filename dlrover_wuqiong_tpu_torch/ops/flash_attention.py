@@ -24,7 +24,13 @@ Semantics pinned from the JAX version:
   ``bwd_block_q``/``bwd_block_k`` when nonzero), else the split dq and
   dk/dv pair; ``DWT_FA_NO_FUSED`` forces the split pair.  The block
   arguments choose the route only: the CUDA kernels choose their own tiles
-  (64 rows; see ``csrc/flash_attention.cu``).
+  (64 rows; see ``csrc/flash_attention.cu``).  On the card the fused
+  route is one launch that does the split pair's work in two roles of
+  independent blocks (dk/dv per kv tile, dq per q tile, each with a
+  two-stage cp.async pipeline): it recomputes S and dP in both roles,
+  7 products where the Pallas fused kernel takes 5, and needs no scratch
+  and no atomics, so its dq, dk and dv are bitwise reproducible and its
+  dq equals the split route's.
 
 Each step is a wrapper over two versions of one computation:
 
@@ -70,6 +76,15 @@ LAUNCHES: Dict[str, int] = {
 _KERNEL_HEAD_DIMS = (64, 128)
 _LIB: Optional[ctypes.CDLL] = None
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: argtypes of each C entry point of csrc/flash_attention.cu (all return int)
+_SIGNATURES = {
+    "fa_forward_bf16": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "fa_backward_dq_bf16": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
+    "fa_backward_dkv_bf16": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    "fa_backward_fused_bf16": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
+}
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -80,14 +95,7 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("flash_attention")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        sig = {
-            "fa_forward_bf16": [p] * 5 + [i] * 5 + [f, p],
-            "fa_backward_dq_bf16": [p] * 7 + [i] * 5 + [f, f, p],
-            "fa_backward_dkv_bf16": [p] * 8 + [i] * 5 + [f, f, p],
-            "fa_backward_fused_bf16": [p] * 10 + [i] * 5 + [f, f, p],
-        }
-        for name, args in sig.items():
+        for name, args in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -245,11 +253,9 @@ def _fa_backward_kernel(q, k, v, o, lse, do, causal: bool, scale: float,
         ins = (qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), dob.data_ptr(),
                lse.data_ptr(), delta.data_ptr())
         if route == "fused":
-            acc = torch.empty((bh, sq, d), dtype=torch.float32,
-                              device=q.device)
             _check_rc(lib.fa_backward_fused_bf16(
-                *ins, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                acc.data_ptr(), *common), "flash_attention_bwd_fused")
+                *ins, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common),
+                "flash_attention_bwd_fused")
             LAUNCHES["flash_attention_bwd_fused"] += 1
         else:
             _check_rc(lib.fa_backward_dq_bf16(*ins, dq.data_ptr(), *common),

@@ -50,6 +50,15 @@ LAUNCHES: Dict[str, int] = {
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _LIB: Optional[ctypes.CDLL] = None
 
+_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
+#: argtypes of each C entry point of csrc/int8_blockwise.cu (all return int)
+_SIGNATURES = {
+    **{f"quantize_int8_blockwise_{sfx}": [_P, _I64, _I64, _P, _P, _P]
+       for sfx in _SUFFIX.values()},
+    **{f"dequantize_int8_blockwise_{sfx}": [_P, _P, _I64, _P, _P]
+       for sfx in _SUFFIX.values()},
+}
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -60,13 +69,9 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("int8_blockwise")
-        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        for sfx in _SUFFIX.values():
-            fn = getattr(lib, f"quantize_int8_blockwise_{sfx}")
-            fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr]
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"dequantize_int8_blockwise_{sfx}")
-            fn.argtypes = [ptr, ptr, i64, ptr, ptr]
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
