@@ -20,18 +20,23 @@ Phases, in order; a failure in any of them exits non-zero:
 3b. The four flash-attention kernels against their plain versions on the
    card, bf16 inputs: GPT-2's training shape (288, 1024, 1024, 64)
    causal, a ragged causal case, non-causal, sq < sk, sq > sk (rows with
-   no key), d = 128, and d = 48 through the public API; every row of
-   every output within `FA_TOL` of its own norm, lse within `FA_LSE_TOL`.
-   Three faults planted into the plain version at GPT-2's shape must
-   each break `FA_TOL`.  The fused route's dq equals the split route's
-   bitwise.  In the ragged, sq < sk and sq > sk cases the fused backward
-   is launched once more into outputs filled with NaN: every value must
-   come back finite and bitwise equal to the wrapper's (each output row
-   is written by some block).  Two runs of each backward route are
-   bitwise equal.  Then each kernel's time at GPT-2's shape beside its
-   plain version, its bound and ``scaled_dot_product_attention``
-   (forward; forward + backward for the backward kernels), a yardstick
-   the port never calls.
+   no key), d = 128, d = 48 through the public API, and two cases for the
+   forward's 128-row q tiles (a tile whose upper 64 rows lie past sq; a
+   tile whose rows see no key up to row 119); every row of every output
+   within `FA_TOL` of its own norm, lse within `FA_LSE_TOL`.  Three
+   faults planted into the plain version at GPT-2's shape must each
+   break `FA_TOL`.  The fused route's dq equals the split route's
+   bitwise.  In the ragged, sq < sk, sq > sk and the two q-tile cases the
+   forward and the fused backward are launched once more into outputs
+   filled with NaN: every value must come back bitwise equal to the
+   wrapper's (each output row is written by some block).  Two runs of the
+   forward and of each backward route are bitwise equal.  The forward's
+   registers, spills and shared memory (``nvcc -Xptxas -v`` on the
+   committed source).  Then each kernel's time at GPT-2's shape beside
+   its plain version, its bound and ``scaled_dot_product_attention``
+   (forward, timed in turns with the forward kernel; forward + backward
+   for the backward kernels), a yardstick the port never calls, and the
+   host time of one forward call.
 4. The serving path: GPT-2 124M at full width, bf16 compute, seeded
    random weights, ``ServeSpec(max_slots=8, max_len=512,
    max_prompt_len=128, fused_tokens=8, quant="int8")``; 16 requests
@@ -123,6 +128,20 @@ def cuda_ms(torch, fn, iters: int, device_paced: bool = True,
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, iters: int = 50) -> float:
+    """Host time to enqueue one fn() (the card asleep meanwhile, so the
+    queue never pushes back), microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def bound_ms(n_bytes: int, n_ops: int,
@@ -241,6 +260,11 @@ FA_CASES = [  # name, bh, sq, sk, d, causal
     ("sq>sk", 16, 512, 256, 64, True),  # the first 256 rows see no key
     ("d128", 16, 256, 256, 128, True),
     ("ragged_d48", 12, 200, 200, 48, True),  # odd d, ragged tiles
+    # the forward's 128-row q tiles, two warpgroups of 64 rows: the second
+    # tile's upper warpgroup lies wholly past sq; rows 0-119 see no key, so
+    # the first tile's second warpgroup mixes empty and live rows
+    ("half_tile", 16, 192, 192, 64, True),
+    ("sq>sk_mixed", 16, 320, 200, 64, True),
 ]
 # Tolerance of a flash kernel against its plain version on the same bf16
 # inputs, per row: a head's row of o or dq, a key's row of dk or dv.
@@ -263,8 +287,60 @@ FA_TOL = 2e-2
 FA_FLOOR = 1e-2
 FA_LSE_TOL = 1e-3
 # cases with edges a block could leave unwritten: ragged tiles, the causal
-# diagonal offset both ways, queries that see no key (sq > sk)
-FA_NAN_CASES = ("ragged", "sq<sk", "sq>sk")
+# diagonal offset both ways, queries that see no key (sq > sk), q tiles
+# part past sq or part without keys
+FA_NAN_CASES = ("ragged", "sq<sk", "sq>sk", "half_tile", "sq>sk_mixed")
+
+
+def fwd_smem_bytes(d: int) -> int:
+    """Dynamic shared memory the forward's launcher asks for (fwd_smem in
+    csrc/flash_attention.cu): 1 KB of alignment, a ring of 3 stages of
+    one K and one V tile (128 rows at d = 64, 64 at d = 128), two q and
+    two output staging tiles of 128 rows, 10 mbarriers."""
+    bk = 128 if d == 64 else 64
+    return 1024 + 3 * 2 * bk * d * 2 + 4 * 128 * d * 2 + 10 * 8
+
+
+def ptxas_start(_build):
+    """nvcc -Xptxas -v over the committed flash source, beside the build;
+    returns (process, the throwaway library's path)."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_build.BUILD_DIR, f"ptxas_report.{os.getpid()}.so")
+    cmd = _build.nvcc_command("flash_attention", out)
+    return subprocess.Popen(cmd[:1] + ["-Xptxas", "-v"] + cmd[1:],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), out
+
+
+def ptxas_forward(started) -> dict:
+    """The forward kernel's registers, spills and shared memory at d = 64
+    and 128 from ptxas, and any wgmma serialisation it reports."""
+    import re
+
+    proc, path = started
+    log, _ = proc.communicate()
+    if os.path.exists(path):
+        os.remove(path)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{log[-4000:]}")
+    lines = log.splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"fa_fwd_kernelILi(\d+)", line)
+        if "Compiling entry" in line and m:
+            props = " ".join(x.strip() for x in lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", props)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", props)
+            d = int(m.group(1))
+            out[d] = {"registers": int(regs.group(1)) if regs else None,
+                      "spill_stores": int(spill.group(1)) if spill else None,
+                      "spill_loads": int(spill.group(2)) if spill else None,
+                      "dynamic_smem_bytes": fwd_smem_bytes(d)}
+    out["wgmma_notes"] = [ln.split("ptxas info    : ")[-1][:120]
+                          for ln in lines
+                          if "fa_fwd_kernel" in ln and "(C75" in ln]
+    check(64 in out and 128 in out, "ptxas printed no forward kernel")
+    return out
 
 
 def fa_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -332,6 +408,16 @@ def planted_faults(torch, tfa, q, k, v, o, lse, do, scale, ref):
     return {"forward skips a key tile": [(o_f, o)],
             "dq skips a key tile": [(dq_f, ref[0])],
             "dk/dv skip a query tile": [(dk_f, ref[1]), (dv_f, ref[2])]}
+
+
+def forward_into(torch, tfa, q, k, v, causal, scale, o, lse):
+    """The forward launched into the given o and lse, as the wrapper
+    launches it but not counted in its launches."""
+    bh, sq, d = q.shape
+    tfa._check_rc(tfa._lib().fa_forward_bf16(
+        *(t.data_ptr() for t in (q, k, v, o, lse)), bh, sq, k.shape[1], d,
+        int(causal), scale * tfa.LOG2E,
+        torch.cuda.current_stream().cuda_stream), "flash forward")
 
 
 def fused_into(torch, tfa, q, k, v, o, lse, do, causal, scale, outs):
@@ -406,6 +492,14 @@ def check_flash(torch, tfa):
                 msg.append(note("flash_attention_bwd_dq", pairs[:1], tag))
                 msg.append(note("flash_attention_bwd_dkv", pairs[1:], tag))
         if name in FA_NAN_CASES:
+            o_n, lse_n = torch.full_like(o, float("nan")), \
+                torch.full_like(lse, float("nan"))
+            forward_into(torch, tfa, q, k, v, causal, scale, o_n, lse_n)
+            torch.cuda.synchronize()
+            check(torch.equal(o_n, o) and torch.equal(
+                lse_n.view(torch.int32), lse.view(torch.int32)),
+                f"{tag}: the forward into NaN-filled o and lse left values "
+                f"unwritten or differs from the wrapper's")
             outs = [torch.full_like(t, float("nan")) for t in grads["fused"]]
             fused_into(torch, tfa, q, k, v, o, lse, do, causal, scale, outs)
             torch.cuda.synchronize()
@@ -415,7 +509,7 @@ def check_flash(torch, tfa):
             check(all(torch.equal(a, b) for a, b in zip(outs, grads["fused"])),
                   f"{tag}: the fused backward into NaN-filled outputs differs "
                   f"from the wrapper's")
-            msg.append("fused writes every value")
+            msg.append("forward and fused write every value")
         print(f"{tag}: " + ", ".join(msg) + f" (worst row ||kernel - "
               f"plain|| / ||plain||, tolerance {FA_TOL})")
         if name == "gpt2":
@@ -488,11 +582,15 @@ def time_flash(torch, tfa):
 
     plain_bwd = lambda: tfa._fa_backward_plain(q, k, v, o, lse, do, True,
                                                 scale)
-    lib_fwd = cuda_ms(torch, sdpa_fwd, 10)
+    # the forward and SDPA's forward in turns (kernel, SDPA, SDPA, kernel):
+    # the claim on the forward is their ratio, so both share the card's
+    # state
+    fwd = lambda: tfa._fa_forward_kernel(q, k, v, True, scale)
+    turns = [cuda_ms(torch, f, 20) for f in (fwd, sdpa_fwd, sdpa_fwd, fwd)]
+    lib_fwd = (turns[1] + turns[2]) / 2
     lib_bwd = cuda_ms(torch, sdpa_fwd_bwd, 10)
     rows = (  # name, fn, plain, bytes, operations (matmuls x 2 d pairs)
-        ("flash_attention_fwd",
-         lambda: tfa._fa_forward_kernel(q, k, v, True, scale),
+        ("flash_attention_fwd", fwd,
          lambda: tfa._fa_forward_plain(q, k, v, True, scale),
          4 * mat + row, 2 * 2 * d * pairs, lib_fwd),
         ("flash_attention_bwd_fused",
@@ -507,11 +605,26 @@ def time_flash(torch, tfa):
     res = {}
     for name, fn, plain, nbytes, ops, lib_ms in rows:
         b, by = bound_ms(nbytes, ops, BF16_TC_OPS_PER_S)
-        res[name] = {"ms": cuda_ms(torch, fn, 20),
+        res[name] = {"ms": ((turns[0] + turns[3]) / 2
+                            if name == "flash_attention_fwd"
+                            else cuda_ms(torch, fn, 20)),
                      "ms_host_paced": cuda_ms(torch, fn, 20, False),
                      "plain_ms": cuda_ms(torch, plain, 2),
                      "bound_ms": b, "bound_by": by, "bytes": nbytes,
                      "flop": ops, "library_ms": lib_ms}
+    res["flash_attention_fwd"]["turns_ms"] = turns
+    # host time of one C call: the forward's launcher encodes four tensor
+    # maps and queries the device, the fused backward's does neither; and
+    # the forward through its wrapper (checks, output allocation)
+    o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
+    fwd_c = lambda: tfa._check_rc(lib.fa_forward_bf16(
+        *(t.data_ptr() for t in (q, k, v, o2, lse2)), bh, sq, sk, d, 1,
+        scale * tfa.LOG2E, torch.cuda.current_stream().cuda_stream),
+        "flash forward")
+    res["flash_attention_fwd"]["host_us"] = {
+        "c_call": host_us(torch, fwd_c), "wrapper": host_us(torch, fwd)}
+    res["flash_attention_bwd_fused"]["host_us"] = {
+        "c_call": host_us(torch, rows[1][1])}
     return res
 
 
@@ -974,6 +1087,7 @@ def main():
 
     # phase 2
     t0 = time.monotonic()
+    ptxas = ptxas_start(_build)
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.monotonic() - t0:.2f} s")
 
@@ -991,8 +1105,19 @@ def main():
               f"({t['bound_by']}, {t['bytes']} B)")
 
     # phase 3b
+    fwd_ptxas = ptxas_forward(ptxas)
+    print("ptxas: flash forward (registers at launch; setmaxnreg gives the "
+          "consumers 240, the producer 24): " + json.dumps(fwd_ptxas))
     fa_err = check_flash(torch, tfa)
     fa_times = time_flash(torch, tfa)
+    turns = fa_times["flash_attention_fwd"]["turns_ms"]
+    print(f"timing: forward vs scaled_dot_product_attention's forward in "
+          f"turns (kernel, SDPA, SDPA, kernel): "
+          f"{', '.join(f'{x:.4f}' for x in turns)} ms; ratio "
+          f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.3f}")
+    print("timing: host us to issue one call: forward " + json.dumps(
+        fa_times["flash_attention_fwd"]["host_us"]) + ", fused backward "
+        + json.dumps(fa_times["flash_attention_bwd_fused"]["host_us"]))
     for name, t in fa_times.items():
         print(f"timing: {name} at (288, 1024, 1024, 64) causal: "
               f"{t['ms']:.4f} ms on the card ({t['ms_host_paced']:.4f} ms "

@@ -29,19 +29,48 @@
 //
 // What bounds them (computed at GPT-2's step: bh = 288, s = 1024, D = 64,
 // causal; H100 SXM data sheet, 989 TFLOP/s bf16, 3.35 TB/s): the forward
-// moves ~152 MB for ~39 GFLOP and is bound by bytes (45 us); the fused
+// reads q, k, v and writes o and lse, 152.2 MB (45.4 us), for 38.7 GFLOP
+// of products (39.1 us), so it is bound by bytes, barely; the fused
 // backward moves ~267 MB for ~97 GFLOP, dq ~58 and dk/dv ~77 GFLOP, all
 // bound by operations (98, 59 and 78 us).  All four sit near the card's
-// ridge point, so the tensor cores are the resource to keep fed.  The
-// design, simple on purpose:
+// ridge point, so the tensor cores are the resource to keep fed.
+//
+// The forward (fa_fwd_kernel) is written for Hopper's asynchronous units:
+//   - products: wgmma m64nNk16 bf16 -> f32 by warpgroups of 4 warps, B from
+//     shared memory by descriptor (K K-major, V MN-major through the
+//     transpose bit), A from registers (the pre-scaled q, and p packed
+//     from the S accumulator, whose layout is the mma.sync C layout);
+//   - loads: TMA boxes of 64 columns in the 128-byte swizzle, from 3-D
+//     tensor maps (D, s, bh) built by the launcher (so a ragged tile's
+//     rows come back zero), into a ring of 3 stages of one K and one V
+//     tile, guarded by a `full` (bytes in) and an `empty` (8 consumer
+//     warps out) mbarrier per stage; q the same way into two buffers; o
+//     out through a swizzled staging tile and a TMA store;
+//   - schedule: a persistent block per SM, 3 warpgroups: one producer
+//     thread issues every TMA load, two consumer warpgroups own 64 q rows
+//     each of a 128-row work item; items go heaviest causal tiles first
+//     within groups of heads small enough for L2, alternating direction
+//     per round (FwdItems).  A consumer issues tile j's Q K^T with tile
+//     j-1's P V and runs tile j's softmax while P V flies
+//     (FlashAttention-3's in-warpgroup overlap); the two warpgroups run
+//     independently and fill each other's gaps;
+//   - tiles and memory: kv tiles of 128 rows at D = 64 (64 at D = 128),
+//     so S and O take 64 + 32 floats a thread (32 + 64); dynamic shared
+//     memory is 96 KB of ring + four 16 KB q and staging tiles + 1 KB of
+//     alignment at D = 64 (164,944 B; 230,480 B at D = 128, under the
+//     232,448 a block may have): one block an SM;
+//   - registers: 384 threads launch with 168 each; setmaxnreg leaves the
+//     producer 24 and gives the consumers 240 (nvcc -Xptxas -v: no spill);
+//   - softmax: exp2 by ex2.approx.ftz for p (subnormal p flushed to 0, a
+//     value no sum next to the row max's 1 can see), one reciprocal per
+//     row for o = acc / l.
+// The backward kernels keep the first design, simple on purpose:
 //   - 4 warps per block, each owns 16 rows of a 64-row tile; products are
 //     mma.sync m16n8k16 bf16 -> f32 with ldmatrix fragment loads from
 //     shared memory rows padded by 8 bf16 (conflict-free ldmatrix);
-//   - tiles come in with cp.async (16 B per thread per copy).  The
-//     forward, dq and dk/dv kernels keep one buffer per operand and wait
-//     for each tile: latency is hidden by the other resident blocks;
-//   - forward: one block per (bh, 64-row q tile), heaviest causal tiles
-//     first; m, l and the output accumulator stay in registers;
+//   - tiles come in with cp.async (16 B per thread per copy).  The dq and
+//     dk/dv kernels keep one buffer per operand and wait for each tile:
+//     latency is hidden by the other resident blocks;
 //   - dq: one block per (bh, q tile), loop over kv tiles, dq in registers;
 //   - dk/dv: one block per (bh, kv tile), loop over q tiles, dk and dv in
 //     registers.
@@ -85,22 +114,25 @@
 //     design, 1.61 ms at GPT-2's step).  With dq summed over kv tiles and
 //     dk/dv over q tiles by different blocks, each role recomputes S and
 //     dP: 135.4 GFLOP of products for the function's 96.7 at GPT-2's step.
-//   - next: wgmma (warpgroup products from shared memory, the only way to
-//     the tensor cores' full rate) fed by TMA into an mbarrier ring from a
-//     producer warp, which frees the registers and issue slots that
+//   - next: the forward's wgmma, mbarrier and TMA helpers for it (products
+//     from shared memory, the only way to the tensor cores' full rate, fed
+//     by a producer), which frees the registers and issue slots that
 //     ldmatrix and address arithmetic take now; then FlashAttention-3's one
 //     role, dq added in float32 in device memory under a per-tile
 //     semaphore that fixes the order of the kv tiles (deterministic, 5
 //     products, but blocks wait on each other).
 //
 // Every entry point launches on the caller's stream and returns
-// cudaGetLastError() (or the error of cudaFuncSetAttribute); the Python
-// wrapper raises when it is not 0.
+// cudaGetLastError() (or the error of cudaFuncSetAttribute, of the
+// device query or of the tensor-map encoding); the Python wrapper raises
+// when it is not 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -273,136 +305,612 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
 }
 
 // ------------------------------------------------------------------ forward
+// Hopper's asynchronous pieces, used by the forward: mbarriers, TMA tile
+// loads and warpgroup products (wgmma).
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the barriers' initialisation visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the producer's arrival: the phase also waits for `bytes` of TMA data
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed (the
+// loop stays inside the asm, so the compiler sees no divergent branch)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// a predicated arrival, with no branch around it
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// named barrier `id` of n threads (its own warps included)
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// move registers between warpgroups (all 4 warps of one execute it)
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// TMA: the box of `map` at (c0, c1, c2) into shared memory at dst, counted
+// on `bar`; elements outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA: shared memory at src into the box of `map` at (c0, c1, c2); the
+// box's elements outside the tensor are not written.  One bulk group per
+// store, committed by the same thread.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wait until this thread's TMA stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// wait until this thread's TMA stores are complete
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// orders this thread's generic writes to shared memory before later
+// async-proxy (TMA) reads of it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed wgmma groups of this warp are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the wgmma's fence, commit or wait
+template <int NT>
+__device__ __forceinline__ void reg_fence(float (&c)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(c[i][e])::"memory");
+}
+
+template <int NT>
+__device__ __forceinline__ void reg_fence(uint32_t (&c)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(c[i][e])::"memory");
+}
+
+// Shared-memory matrix descriptor of a wgmma B operand in the layout a
+// SWIZZLE_128B TMA box writes: rows of 128 B (64 bf16), 8-row atoms of
+// 1024 B, the 16-byte chunks of row r XOR-swizzled by r % 8, every tile
+// 1024-B aligned.  Fields: start address >> 4 (bits 0-13), leading byte
+// offset >> 4 (16-29: the next 64-column slab of an MN-major operand;
+// unused by a K-major one), stride byte offset >> 4 (32-45: the next
+// 8-row atom, 1024 B), layout 1 = 128-byte swizzle (62-63).  A K-major
+// operand steps its k16 slices by 32 B inside the 128-B row; the swizzle
+// is applied to the address bits, so the base offset (49-51) stays 0.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (m64 x N, f32) (+)= a (m64 x k16 bf16 in registers) * B (k16 x N bf16
+// in shared memory, by descriptor; kTransB 0: K-major, 1: MN-major);
+// accumulate 0 overwrites d.  Per warp w of the warpgroup, d holds rows
+// 16w + (g | g+8), columns 8i + 2t, +1 as d[i][0..3] and a holds the
+// mma.sync A fragment of rows 16w..16w+15: the C and A layouts above.
+#define WG_ACC4(i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      :
+        WG_ACC4(0), WG_ACC4(1), WG_ACC4(2), WG_ACC4(3),
+        WG_ACC4(4), WG_ACC4(5), WG_ACC4(6), WG_ACC4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[16][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      :
+        WG_ACC4(0), WG_ACC4(1), WG_ACC4(2), WG_ACC4(3),
+        WG_ACC4(4), WG_ACC4(5), WG_ACC4(6), WG_ACC4(7),
+        WG_ACC4(8), WG_ACC4(9), WG_ACC4(10), WG_ACC4(11),
+        WG_ACC4(12), WG_ACC4(13), WG_ACC4(14), WG_ACC4(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate), "n"(kTransB));
+}
+
+#undef WG_ACC4
+
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma(float (&d)[N / 8][4],
+                                      const uint32_t (&a)[4], uint64_t desc,
+                                      int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_n64<kTransB>(d, a, desc, accumulate);
+  else
+    wgmma_n128<kTransB>(d, a, desc, accumulate);
+}
+
+// The forward's shapes: a block takes 128 q rows, two consumer warpgroups
+// of 64, and one producer warpgroup; kv tiles of 128 rows at D = 64 and 64
+// at D = 128 (S and O then take 64 + 32 and 32 + 64 floats a thread); a
+// stage holds one K and one V tile (32 KB either way); two q tiles and two
+// output staging tiles take D / 4 KB each; all in 64-column slabs of the
+// 128-byte swizzle.  Registers: the launch gives 168 a thread; the
+// producer gives back all but 24 and the consumers take 240.
+constexpr int kFwdThreads = 384;
+constexpr int kFwdBQ = 128;
+constexpr int kFwdStages = 3;
+constexpr int kFwdProducerRegs = 24;
+constexpr int kFwdConsumerRegs = 240;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
-              const bf16* __restrict__ V, bf16* __restrict__ O,
-              float* __restrict__ LSE, int sq, int sk, int causal,
-              float scale_log2) {
-  constexpr int BQ = kTile, BK = kTile, LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LD;
-  bf16* sV = sK + BK * LD;
+__host__ __device__ constexpr int fwd_bk() { return D == 64 ? 128 : 64; }
+template <int D>
+__host__ __device__ constexpr int fwd_stage_bytes() {
+  return 2 * fwd_bk<D>() * D * 2;
+}
+template <int D>
+__host__ __device__ constexpr int fwd_q_bytes() { return kFwdBQ * D * 2; }
+template <int D>
+__host__ __device__ constexpr size_t fwd_smem() {  // + 1024: align the ring
+  return 1024 + kFwdStages * fwd_stage_bytes<D>() + 4 * fwd_q_bytes<D>() +
+         (2 * kFwdStages + 4) * sizeof(uint64_t);
+}
 
-  const int nqt = (sq + BQ - 1) / BQ;
-  const int q0 = (nqt - 1 - blockIdx.x) * BQ;  // heavy causal tiles first
-  const size_t bh = blockIdx.y;
-  const int off = sk - sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* Qb = Q + bh * sq * D;
-  const bf16* Kb = K + bh * sk * D;
-  const bf16* Vb = V + bh * sk * D;
+// kv tiles of BK rows seen by the 64 rows from r0 (causal: up to the last
+// row's diagonal, the rows past sq left out; all otherwise); 0 when r0 is
+// past sq
+__device__ __forceinline__ int fwd_num_kv(int r0, int sq, int sk, int causal,
+                                          int BK) {
+  if (r0 >= sq) return 0;
+  const int kv_end = causal ? min(sk, min(r0 + 64, sq) + sk - sq) : sk;
+  return kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
+}
 
-  load_rows<D>(sQ, LD, Qb, q0, sq, BQ);
-  cp_async_wait_all();
-  __syncthreads();
-  scale_rows<D>(sQ, LD, BQ, scale_log2);
+// S = Q K^T for one kv tile: A = the pre-scaled q fragments, B = the K
+// tile (K-major), k16 slices across the 64-column slabs
+template <int D, int BK>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 8][4],
+                                         const uint32_t (&qa)[D / 16][4],
+                                         const unsigned char* sK) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma<BK, 0>(s, qa[kk],
+                 sw128_desc(sK + (kk / 4) * BK * 128 + (kk % 4) * 32, 16),
+                 kk > 0);
+}
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-  zero(acc);
-  const int row_a = q0 + warp * 16 + g;  // this thread's rows: row_a, +8
-  const int kv_end = causal ? min(sk, q0 + BQ + off) : sk;
-  const int nkv = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
+// O += P V for one kv tile: A = p in registers, B = the V tile (MN-major:
+// its 64-column slabs are the leading byte offset apart, its 8-row atoms
+// 1024 B)
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 8][4],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         const unsigned char* sV) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma<D, 1>(acc, pa[kk], sw128_desc(sV + kk * 16 * 128, BK * 128), 1);
+}
 
-  for (int j = 0; j < nkv; ++j) {
-    const int kv0 = j * BK;
-    __syncthreads();  // previous tile's readers are done (and sQ scaled)
-    load_rows<D>(sK, LD, Kb, kv0, sk, BK);
-    load_rows<D>(sV, LD, Vb, kv0, sk, BK);
-    cp_async_wait_all();
-    __syncthreads();
+// a consumer warp is done with a stage: its lane 0 arrives
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  mbar_arrive_if(bar, (threadIdx.x & 31) == 0);
+}
 
-    float s[BK / 8][4];
-    zero(s);
-#pragma unroll
-    for (int kb = 0; kb < D / 16; ++kb) {
-      uint32_t a[4];
-      ld_a(a, sQ, LD, warp * 16, kb * 16, lane);
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t b[4];
-        ld_b_n(b, sK, LD, np * 16, kb * 16, lane);
-        mma(s[2 * np], a, b[0], b[1]);
-        mma(s[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    const bool masked =
-        kv0 + BK > sk || (causal && kv0 + BK - 1 > q0 + off);
-    if (masked) {
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kv0 + nt * 8 + 2 * t + (e & 1);
-          const int row = row_a + (e >> 1) * 8;
-          if (col >= sk || (causal && col > row + off)) s[nt][e] = kNegInf;
-        }
-    }
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = exp2f(m[h] - mx[h]);
-      m[h] = mx[h];
-    }
+// 2^x by the special-function unit, subnormal results flushed to 0: the
+// softmax's p, which never needs a value below 2^-126 next to its row
+// max's 1
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one kv tile at kv0, in place on the S accumulator:
+// mask (only a tile that straddles the diagonal or the ragged edge), the
+// new row max over the quad, alpha = exp2(m_old - m_new), p = exp2(s -
+// m_new) left in s, l = l * alpha + rowsum(p).  A row that has seen no key
+// yet (m = -1e30) takes its p against 0, so its masked entries give 0 and
+// not exp2(0); elsewhere a masked entry gives exp2(-1e30 - m) = 0.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 8][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int kv0,
+                                             int r0, int row_a, int sk,
+                                             int off, int causal) {
+  const int t = threadIdx.x & 3;
+  if (kv0 + BK > sk || (causal && kv0 + BK - 1 > r0 + off)) {
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        // a row with no visible key so far has m = -1e30: exp2(0) would
-        // count its masked entries
-        const float p = (masked && s[nt][e] <= kNegInf)
-                            ? 0.f
-                            : exp2f(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        rs[e >> 1] += p;
+        const int col = kv0 + nt * 8 + 2 * t + (e & 1);
+        const int row = row_a + (e >> 1) * 8;
+        if (col >= sk || (causal && col > row + off)) s[nt][e] = kNegInf;
       }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dt][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s, kk);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        ld_b_k(b, sV, LD, kk * 16, dp * 16, lane);
-        mma(acc[2 * dp], a, b[0], b[1]);
-        mma(acc[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
   }
-
+  float mx[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f}, base[2];
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int row = row_a + h * 8;
-    if (row >= sq) continue;
-    const float ls = l[h] > 0.f ? l[h] : 1.f;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(O + (bh * sq + row) * D);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      orow[(dt * 8 + 2 * t) / 2] =
-          pack_bf16(acc[dt][2 * h] / ls, acc[dt][2 * h + 1] / ls);
-    if (t == 0)
-      LSE[bh * sq + row] =
-          l[h] > 0.f ? m[h] * kInvLog2e + logf(ls) : -INFINITY;
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    alpha[h] = exp2f(m[h] - mx[h]);
+    m[h] = mx[h];
+    base[h] = mx[h] <= kNegInf ? 0.f : mx[h];
   }
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2_ftz(s[nt][e] - base[e >> 1]);
+      s[nt][e] = p;
+      rs[e >> 1] += p;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+}
+
+// q <- bf16(f32(q) * scale_log2) into the A fragments of Q K^T for the 16
+// rows of this warp from row0 of the q tile in shared memory (64-column
+// slabs of 128 rows in the 128-byte swizzle, as TMA wrote them): ldmatrix,
+// as ld_a, with each 16-byte chunk's column XOR-ed by its row
+template <int D>
+__device__ __forceinline__ void read_q(uint32_t (&qa)[D / 16][4],
+                                       const unsigned char* sQ, int row0,
+                                       float scale_log2) {
+  const int lane = threadIdx.x & 31, r = row0 + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = (kk % 4) * 2 + (lane >> 4);
+    ldsm_x4(qa[kk], reinterpret_cast<const bf16*>(
+                        sQ + (kk / 4) * kFwdBQ * 128 + r * 128 +
+                        ((c ^ (r & 7)) << 4)));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) qa[kk][e] = scale_pair(qa[kk][e], scale_log2);
+  }
+}
+
+// The work items of a launch are the (bh, 128-row q tile) pairs (at most
+// 2^31 - 2^16, checked at launch, so no index below overflows).  They go in groups of gh heads that span
+// two rounds of the G blocks (gh = 2 G / nqt), so the K and V of the heads
+// in flight stay in L2; inside a group, heaviest causal tiles first.  Block
+// b takes item i * G + b in even rounds i and i * G + G - 1 - b in odd
+// ones, so a block's heavy item of one round meets a light one in the
+// next.
+struct FwdItems {
+  int nbh, nqt, total, gh;
+  __device__ FwdItems(int nbh_, int nqt_)
+      : nbh(nbh_), nqt(nqt_), total(nbh_ * nqt_),
+        gh(max(1, 2 * static_cast<int>(gridDim.x) / nqt_)) {}
+  // item i of this block: false past the last one, else its head and
+  // first q row
+  __device__ bool get(int i, int& bh, int& q0) const {
+    const int G = gridDim.x, b = blockIdx.x;
+    const int w = i * G + ((i & 1) ? G - 1 - b : b);
+    if (w >= total) return false;
+    const int group = w / (gh * nqt), in = w - group * gh * nqt;
+    const int heads = min(gh, nbh - group * gh);  // the last group may be short
+    bh = group * gh + in % heads;
+    q0 = (nqt - 1 - in / heads) * kFwdBQ;
+    return true;
+  }
+};
+
+// Persistent: one block per SM walks its work items (FwdItems).  Warpgroup
+// 2 is the producer: one thread issues the TMA loads of each item's q tile
+// (two buffers, each with its own `full` and `empty` mbarriers; item i + 1's
+// q goes out before item i's kv tiles) and of each kv tile's K and V into a
+// ring of kFwdStages stages that runs on across items, a `full` mbarrier
+// per stage counting the bytes in and an `empty` one counting the 8
+// consumer warps out.  Warpgroups 0 and 1 are consumers of 64 q rows each.
+// A consumer reads its q rows once per item with ldmatrix, pre-scales them
+// in registers and keeps them as wgmma A fragments (so no generic write to
+// shared memory precedes an async-proxy read of the operands), and runs
+// FlashAttention-3's in-warpgroup overlap: tile j's S = Q K^T and tile
+// j-1's O += P V are issued together, tile j's softmax runs while P V is
+// in flight, and O is rescaled after it lands.  The two warpgroups run
+// independently, so one's softmax and per-item work overlap the other's
+// products.  m, l and O stay in registers in the accumulator layout (the
+// mma.sync C layout, so c_to_a packs p into A).  O goes out through a
+// swizzled staging tile and one TMA store per warpgroup, which also drops
+// the rows past sq.  Role indices go through __shfl_sync so that the
+// compiler knows them warp-uniform: a wgmma on a path it thinks divergent
+// is serialised.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+fa_fwd_kernel(const __grid_constant__ CUtensorMap tmQ,
+              const __grid_constant__ CUtensorMap tmK,
+              const __grid_constant__ CUtensorMap tmV,
+              const __grid_constant__ CUtensorMap tmO,
+              float* __restrict__ LSE, int nbh, int sq, int sk, int causal,
+              float scale_log2) {
+  constexpr int BK = fwd_bk<D>(), S = kFwdStages;
+  constexpr int kStage = fwd_stage_bytes<D>();  // K's slabs, then V's
+  constexpr int kSlab = BK * 128;               // a 64-column slab of K or V
+  constexpr int kQSlab = kFwdBQ * 128;          // ... of the q or O tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = ring + S * kStage;  // two q tiles: item i in i % 2
+  unsigned char* sO = sQ + 2 * fwd_q_bytes<D>();  // two staging tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(sO + 2 * fwd_q_bytes<D>());
+  uint64_t* empty = full + S;
+  uint64_t* q_full = empty + S;  // per q buffer
+  uint64_t* q_empty = q_full + 2;
+
+  const FwdItems items(nbh, (sq + kFwdBQ - 1) / kFwdBQ);
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&q_full[b], 1);
+      mbar_init(&q_empty[b], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer; no wait counts on a loop's length
+    regs_dec<kFwdProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      tma_prefetch(&tmQ);
+      tma_prefetch(&tmK);
+      tma_prefetch(&tmV);
+      // the q tile of item i + 1 goes out before the kv tiles of item i
+      auto load_q = [&](int i, int bh, int q0) {
+        const int b = i & 1;
+        if (i >= 2) mbar_wait(&q_empty[b], ((i >> 1) - 1) & 1);
+        mbar_arrive_expect_tx(&q_full[b], fwd_q_bytes<D>());
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_3d(sQ + b * fwd_q_bytes<D>() + c * kQSlab, &tmQ,
+                      &q_full[b], 64 * c, q0, bh);
+      };
+      int it = 0;  // kv tiles issued so far: the ring position
+      int bh, q0, bh_next, q0_next;
+      bool more = items.get(0, bh, q0);
+      if (more) load_q(0, bh, q0);
+      for (int i = 0; more; ++i, bh = bh_next, q0 = q0_next) {
+        more = items.get(i + 1, bh_next, q0_next);
+        if (more) load_q(i + 1, bh_next, q0_next);
+        const int nkv = max(fwd_num_kv(q0, sq, sk, causal, BK),
+                            fwd_num_kv(q0 + 64, sq, sk, causal, BK));
+        for (int j = 0; j < nkv; ++j, ++it) {
+          const int st = it % S;
+          if (it >= S) mbar_wait(&empty[st], ((it / S) & 1) ^ 1);
+          unsigned char* dst = ring + st * kStage;
+          mbar_arrive_expect_tx(&full[st], kStage);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_3d(dst + c * kSlab, &tmK, &full[st], 64 * c, j * BK,
+                        bh);
+            tma_load_3d(dst + kStage / 2 + c * kSlab, &tmV, &full[st],
+                        64 * c, j * BK, bh);
+          }
+        }
+      }
+    }
+    return;
+  }
+  regs_inc<kFwdConsumerRegs>();
+
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x >> 5) & 3, 0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int off = sk - sq;
+  const int rw = wg * 64 + warp * 16 + g;  // this thread's rows in a tile
+  const bool leader = (threadIdx.x & 127) == 0;  // issues the O stores
+  const int my_group = 1 + wg;  // named barrier of this warpgroup
+  uint32_t qa[D / 16][4];
+  float acc[D / 8][4], s[BK / 8][4];
+  uint32_t pa[BK / 16][4];
+  zero(s);
+  int it = 0;  // kv tiles consumed so far: the ring position
+  int bh, q0;
+  for (int i = 0; items.get(i, bh, q0); ++i) {
+    const int r0 = q0 + wg * 64;  // this warpgroup's first row
+    const int row_a = q0 + rw;    // this thread's rows: row_a, +8
+    const int nkv = max(fwd_num_kv(q0, sq, sk, causal, BK),
+                        fwd_num_kv(q0 + 64, sq, sk, causal, BK));
+    const int nw = fwd_num_kv(r0, sq, sk, causal, BK);
+    mbar_wait(&q_full[i & 1], (i >> 1) & 1);
+    read_q<D>(qa, sQ + (i & 1) * fwd_q_bytes<D>(), wg * 64 + warp * 16,
+              scale_log2);
+    release(&q_empty[i & 1]);
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    zero(acc);
+    if (nw > 0) {  // tile 0: S, softmax, p
+      mbar_wait(&full[it % S], (it / S) & 1);
+      reg_fence(s);
+      wgmma_fence();
+      issue_qk<D, BK>(s, qa, ring + (it % S) * kStage);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s);
+      softmax_tile<BK>(s, m, l, alpha, 0, r0, row_a, sk, off, causal);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) c_to_a(pa[kk], s, kk);
+    }
+    for (int j = 1; j < nw; ++j) {
+      const int st = (it + j) % S, prev = (it + j - 1) % S;
+      mbar_wait(&full[st], ((it + j) / S) & 1);
+      reg_fence(acc);
+      reg_fence(pa);
+      wgmma_fence();
+      issue_qk<D, BK>(s, qa, ring + st * kStage);
+      wgmma_commit();
+      issue_pv<D, BK>(acc, pa, ring + prev * kStage + kStage / 2);
+      wgmma_commit();
+      wgmma_wait<1>();  // S of tile j is in; P V of tile j-1 may still fly
+      reg_fence(s);
+      softmax_tile<BK>(s, m, l, alpha, j * BK, r0, row_a, sk, off, causal);
+      wgmma_wait<0>();  // P V of tile j-1 is in: its stage is free
+      reg_fence(acc);
+      reg_fence(pa);
+      release(&empty[prev]);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dt][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) c_to_a(pa[kk], s, kk);
+    }
+    if (nw > 0) {  // P V of the last tile
+      const int st = (it + nw - 1) % S;
+      reg_fence(acc);
+      reg_fence(pa);
+      wgmma_fence();
+      issue_pv<D, BK>(acc, pa, ring + st * kStage + kStage / 2);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+      release(&empty[st]);
+    }
+    // tiles only the other warpgroup sees: let them through the ring
+    for (int j = nw; j < nkv; ++j) {
+      mbar_wait(&full[(it + j) % S], ((it + j) / S) & 1);
+      release(&empty[(it + j) % S]);
+    }
+    it += nkv;
+
+    // O = acc / l into staging tile i % 2 (this warpgroup's 64 rows, 16-
+    // byte chunks XOR-swizzled by row as TMA expects), then one TMA store;
+    // lse straight to device memory.  Before the barrier the leader waits
+    // until item i - 1's store has read its tile, which item i + 1 writes.
+    unsigned char* sOi = sO + (i & 1) * fwd_q_bytes<D>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const float ls = l[h] > 0.f ? l[h] : 1.f, inv = 1.f / ls;
+      const int r = rw + h * 8;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<uint32_t*>(sOi + (dt / 8) * kQSlab + r * 128 +
+                                     (((dt % 8) ^ (r & 7)) << 4) + 4 * t) =
+            pack_bf16(acc[dt][2 * h] * inv, acc[dt][2 * h + 1] * inv);
+      const int row = row_a + h * 8;
+      if (t == 0 && row < sq)
+        LSE[static_cast<size_t>(bh) * sq + row] =
+            l[h] > 0.f ? m[h] * kInvLog2e + logf(ls) : -INFINITY;
+    }
+    fence_proxy_async();
+    if (leader) tma_store_wait_read();
+    named_sync(my_group, 128);
+    if (leader && r0 < sq) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_store_3d(&tmO, sOi + c * kQSlab + wg * 64 * 128, 64 * c, r0, bh);
+    }
+  }
+  if (leader) tma_store_wait();
 }
 
 // ------------------------------------------------------------- backward: dq
@@ -938,17 +1446,87 @@ int prepare(Kern kern, size_t smem) {
       static_cast<int>(smem)));
 }
 
+// cuTensorMapEncodeTiled, a driver API function, reached through the
+// runtime's entry-point query: the library needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// TMA map of a (bh, s, D) bf16 tensor as 3-D (D, s, bh), boxes of 64
+// columns x `rows` rows x 1 head in the 128-byte swizzle: a load's rows
+// past s come back zero, never the next head's, and a store's are dropped
+int encode_map(CUtensorMap* map, const void* base, int bh, int s, int D,
+               int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(s) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int sq, int sk, int causal,
                float scale_log2, cudaStream_t stream) {
-  const size_t smem = 3 * kTile * (D + 8) * sizeof(bf16);
+  // TMA moves q, k, v and o from and to 16-byte aligned addresses
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
+      15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap tmQ, tmK, tmV, tmO;
+  memset(&tmK, 0, sizeof(tmK));
+  memset(&tmV, 0, sizeof(tmV));
+  if (int rc = encode_map(&tmQ, q, bh, sq, D, kFwdBQ)) return rc;
+  if (int rc = encode_map(&tmO, o, bh, sq, D, 64)) return rc;
+  if (sk > 0) {  // with no keys no block loads a kv tile
+    if (int rc = encode_map(&tmK, k, bh, sk, D, fwd_bk<D>())) return rc;
+    if (int rc = encode_map(&tmV, v, bh, sk, D, fwd_bk<D>())) return rc;
+  }
+  constexpr size_t smem = fwd_smem<D>();
   auto kern = fa_fwd_kernel<D>;
   if (int rc = prepare(kern, smem)) return rc;
-  dim3 grid((sq + kTile - 1) / kTile, bh);
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, sq, sk,
-      causal, scale_log2);
+  const long long items =
+      static_cast<long long>((sq + kFwdBQ - 1) / kFwdBQ) * bh;
+  if (items > 0x7fff0000LL) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  if (int rc = static_cast<int>(cudaGetDevice(&dev))) return rc;
+  if (int rc = static_cast<int>(cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev)))
+    return rc;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  kern<<<grid, kFwdThreads, smem, stream>>>(tmQ, tmK, tmV, tmO, lse, bh, sq,
+                                            sk, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

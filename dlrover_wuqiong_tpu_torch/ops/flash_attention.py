@@ -24,7 +24,9 @@ Semantics pinned from the JAX version:
   ``bwd_block_q``/``bwd_block_k`` when nonzero), else the split dq and
   dk/dv pair; ``DWT_FA_NO_FUSED`` forces the split pair.  The block
   arguments choose the route only: the CUDA kernels choose their own tiles
-  (64 rows; see ``csrc/flash_attention.cu``).  On the card the fused
+  (see ``csrc/flash_attention.cu``: the forward is a persistent Hopper
+  kernel of 128-row q tiles, wgmma products and TMA loads; the backward
+  kernels use 64-row tiles).  On the card the fused
   route is one launch that does the split pair's work in two roles of
   independent blocks (dk/dv per kv tile, dq per q tile, each with a
   two-stage cp.async pipeline): it recomputes S and dP in both roles,
