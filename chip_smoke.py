@@ -12,11 +12,18 @@ Phases, in order; a failure in any of them exits non-zero:
    (sm_90a), one nvcc per source, all started together, timed.
 3. The int8 pair against its plain PyTorch versions on the card: GPT-2's
    ``wte`` (50304x768) and ``c_fc`` (768x3072), in float32 and bfloat16,
-   a ragged size and an all-zero block.  q must match exactly, scales and
+   a ragged size and an all-zero block, one tensor a call (the quantize
+   kernel's one-leaf case), and a dequantize of a q one byte off a
+   16-byte boundary.  Then the grouped quantize in one launch over
+   GPT-2 124M's 50 matrices plus a ragged leaf, an all-zero block and a
+   leaf at storage offset 1, in float32 and bfloat16, against per-leaf
+   plain quantizes, and the flat dequantize of its store against
+   per-leaf plain dequantizes.  q must match exactly, scales and
    dequantized values bitwise.  Then each kernel's time, its plain
    version's time and its bound, at the serving path's shapes: all 50
-   weight matrices of GPT-2 124M, as one engine build (quantize) and one
-   dispatch (dequantize) need them.
+   weight matrices of GPT-2 124M in one grouped quantize (engine build)
+   and one flat dequantize (dispatch), in turns with the loop of 50
+   one-leaf calls.
 3b. The four flash-attention kernels against their plain versions on the
    card, bf16 inputs: GPT-2's training shape (288, 1024, 1024, 64)
    causal, a ragged causal case, non-causal, sq < sk, sq > sk (rows with
@@ -30,7 +37,10 @@ Phases, in order; a failure in any of them exits non-zero:
    forward and the fused backward are launched once more into outputs
    filled with NaN: every value must come back bitwise equal to the
    wrapper's (each output row is written by some block).  Two runs of the
-   forward and of each backward route are bitwise equal.  The forward's
+   forward and of each backward route are bitwise equal, and so are the
+   outputs of q, k, v and dO at storage offset 1 (realigned by the
+   wrapper) and of the aligned operands, for the forward and both
+   backward routes at GPT-2's shape.  The forward's
    registers, spills and shared memory (``nvcc -Xptxas -v`` on the
    committed source).  Then each kernel's time at GPT-2's shape beside
    its plain version, its bound and ``scaled_dot_product_attention``
@@ -43,8 +53,9 @@ Phases, in order; a failure in any of them exits non-zero:
    (prompts of 16-128 tokens, 64 new tokens, half greedy, half at
    temperature 0.8) through ``LocalServer``, with the kernels' launch
    counts set to 0 just before the engine is built and read just after
-   the drain.  Checks: every request has 64 in-vocabulary tokens, both
-   kernels ran (dequantize 50 times per dispatch), and one greedy
+   the drain.  Checks: every request has 64 in-vocabulary tokens, one
+   quantize launch at the engine build and one dequantize launch per
+   dispatch (the dispatches counted at the drain), and one greedy
    request decoded alone on the same engine gives its busy-batch tokens.
    A profiled pass gives the device's busy share and launches per step.
    The same traffic with ``quant=""`` runs beside it, in turns with
@@ -207,42 +218,128 @@ def check_kernels(torch, tq):
                       f"dequantize dtype/shape wrong for {tag}")
                 check(torch.equal(dk.view(ints), dp.view(ints)),
                       f"dequantize differs bitwise for {tag} -> {out}")
+                if name == "ragged":
+                    # q one byte past a 16-byte boundary: the wrapper
+                    # realigns it for the kernel's 16-byte loads
+                    dm = tq.dequantize_int8_blockwise(
+                        offset1(torch, qk), sk, x.numel(), tuple(x.shape),
+                        out)
+                    torch.cuda.synchronize()
+                    check(torch.equal(dm.view(ints), dk.view(ints)),
+                          f"dequantize of a misaligned q differs for {tag}")
         print(f"kernels: {name} {tuple(x32.shape)} f32+bf16 match plain "
               f"bitwise")
     return err_q, err_d
 
 
-def time_kernels(torch, tq, params):
+def offset1(torch, t):
+    """t's values in a tensor that starts one element into its storage, so
+    its address is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_grouped(torch, tq, mats):
+    """The grouped quantize (one launch) and the flat dequantize against
+    the per-leaf plain versions on the card, bitwise: GPT-2 124M's 50
+    matrices plus a ragged leaf, an all-zero block and a float32 leaf at
+    storage offset 1 (the scalar path), in float32 and bfloat16.  Returns
+    the max errors of q and scales, and of dequantized values."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    zero = torch.randn(3 * 256, generator=gen, device="cuda")
+    zero[256:512] = 0.0
+    extra = [torch.randn(100_003, generator=gen, device="cuda") * 3.0, zero,
+             offset1(torch, torch.randn((333, 77), generator=gen,
+                                        device="cuda"))]
+    check(extra[2].data_ptr() % 16 != 0, "the offset leaf is aligned")
+    err_q = err_d = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [t.to(dtype) for t in mats + extra[:2]]
+        xs.append(extra[2] if dtype == torch.float32
+                  else offset1(torch, extra[2].to(dtype)))
+        tag = f"grouped/{str(dtype).split('.')[-1]}"
+        before = tq.LAUNCHES["quantize_int8_blockwise"]
+        qk, sk, first = tq.quantize_int8_blockwise_grouped(xs)
+        check(tq.LAUNCHES["quantize_int8_blockwise"] == before + 1,
+              f"{tag}: the grouped quantize took more than one launch")
+        qp, sp, first_p = tq._quantize_grouped_plain(xs)
+        torch.cuda.synchronize()
+        check(first == first_p and qk.shape == qp.shape
+              and sk.shape == sp.shape, f"{tag}: store layouts differ")
+        err_q = max(err_q, (qk.int() - qp.int()).abs().max().item(),
+                    (sk - sp).abs().max().item())
+        check(torch.equal(qk, qp), f"{tag}: q differs from per-leaf plain")
+        check(torch.equal(sk.view(torch.int32), sp.view(torch.int32)),
+              f"{tag}: scales differ bitwise from per-leaf plain")
+        z = first[len(mats) + 1] + 1
+        check(sk[z].item() == 1.0 and not qk[z].any(),
+              f"{tag}: all-zero block must have scale 1 and q 0")
+        ends = first[1:] + [qk.shape[0]]
+        for out in (torch.float32, torch.bfloat16):
+            flat = tq.dequantize_int8_blockwise(qk, sk, qk.numel(),
+                                                (qk.numel(),), out)
+            torch.cuda.synchronize()
+            ints = torch.int32 if out == torch.float32 else torch.int16
+            for x, r0, r1 in zip(xs, first, ends):
+                got = flat[r0 * 256:r0 * 256 + x.numel()].view(x.shape)
+                want = tq._dequantize_plain(qp[r0:r1], sp[r0:r1], x.numel(),
+                                            tuple(x.shape), out)
+                err_d = max(err_d,
+                            (got.float() - want.float()).abs().max().item())
+                check(torch.equal(got.view(ints), want.view(ints)),
+                      f"{tag}: flat dequantize -> {out} differs bitwise "
+                      f"from per-leaf plain at a leaf of {tuple(x.shape)}")
+        print(f"kernels: {tag} quantize of {len(xs)} leaves in one launch "
+              f"and the flat dequantize (f32 and bf16 out) match per-leaf "
+              f"plain bitwise")
+        del qk, sk, qp, sp, flat, xs
+    return err_q, err_d
+
+
+def time_kernels(torch, tq, mats):
     """Kernel, plain and bound times at the serving path's shapes: the 50
-    matrices of GPT-2 124M, quantized from float32 masters (engine build)
-    and dequantized to bf16 (one dispatch)."""
-    mats = [t for t in leaves(params) if t.dim() >= 2]
-    check(len(mats) == 50, f"expected 50 weight matrices, got {len(mats)}")
-    stored = [tq.quantize_int8_blockwise(t) for t in mats]
-    rows = sum(q.shape[0] for q, _ in stored)
+    matrices of GPT-2 124M, quantized from float32 masters in one grouped
+    launch (engine build) and dequantized to bf16 in one flat launch (one
+    dispatch).  Beside them, in turns (grouped, loop, loop, grouped), the
+    loop of 50 one-leaf calls of the same kernels."""
+    q, s, first = tq.quantize_int8_blockwise_grouped(mats)
+    ends = first[1:] + [q.shape[0]]
+    stored = [(q[a:b], s[a:b]) for a, b in zip(first, ends)]
+    rows = q.shape[0]
     elems = sum(t.numel() for t in mats)
 
-    def quant(fn):
-        return lambda: [fn(t) for t in mats]
-
     def deq(fn):
-        return lambda: [fn(q, s, t.numel(), tuple(t.shape), torch.bfloat16)
-                        for (q, s), t in zip(stored, mats)]
+        return lambda: [fn(qi, si, t.numel(), tuple(t.shape), torch.bfloat16)
+                        for (qi, si), t in zip(stored, mats)]
 
     res = {}
     q_bytes = elems * 4 + rows * 256 + rows * 4
     d_bytes = rows * 256 + rows * 4 + elems * 2
     # per element: quantize abs, max, divide, round, clamp; dequantize
     # convert, multiply, round to bf16
-    for name, kfn, pfn, nbytes, ops in (
-            ("quantize_int8_blockwise", quant(tq.quantize_int8_blockwise),
-             quant(tq._quantize_plain), q_bytes, 5 * rows * 256),
-            ("dequantize_int8_blockwise", deq(tq.dequantize_int8_blockwise),
-             deq(tq._dequantize_plain), d_bytes, 3 * elems)):
+    for name, kfn, loop, pfn, nbytes, ops in (
+            ("quantize_int8_blockwise",
+             lambda: tq.quantize_int8_blockwise_grouped(mats),
+             lambda: [tq.quantize_int8_blockwise(t) for t in mats],
+             lambda: tq._quantize_grouped_plain(mats), q_bytes,
+             5 * rows * 256),
+            ("dequantize_int8_blockwise",
+             lambda: tq.dequantize_int8_blockwise(
+                 q, s, q.numel(), (q.numel(),), torch.bfloat16),
+             deq(tq.dequantize_int8_blockwise),
+             lambda: tq._dequantize_plain(q, s, q.numel(), (q.numel(),),
+                                          torch.bfloat16),
+             d_bytes, 3 * elems)):
         b, by = bound_ms(nbytes, ops)
-        res[name] = {"ms": cuda_ms(torch, kfn, 10),
-                     "ms_host_paced": cuda_ms(torch, kfn, 10, False),
-                     # one pass: ~600 launches, inside the launch queue
+        turns = [cuda_ms(torch, f, 10) for f in (kfn, loop, loop, kfn)]
+        paced = [cuda_ms(torch, f, 10, False) for f in (kfn, loop, loop, kfn)]
+        res[name] = {"ms": (turns[0] + turns[3]) / 2,
+                     "ms_host_paced": (paced[0] + paced[3]) / 2,
+                     "loop_ms": (turns[1] + turns[2]) / 2,
+                     "loop_ms_host_paced": (paced[1] + paced[2]) / 2,
+                     "turns_ms": turns, "turns_ms_host_paced": paced,
                      "plain_ms": cuda_ms(torch, pfn, 1),
                      "bound_ms": b, "bound_by": by, "bytes": nbytes}
     return res, elems
@@ -539,6 +636,27 @@ def check_flash(torch, tfa):
         check(all(torch.equal(x, y) for x, y in zip(a, b)),
               f"flash {route} backward differs between two runs")
     print("flash: forward and both backward routes bitwise deterministic")
+    # q, k, v and dO each one element into their storage (2 bytes off a
+    # 16-byte boundary): the wrapper realigns them, so every output equals
+    # the aligned call's bitwise
+    qm, km, vm, dom = (offset1(torch, t) for t in (q, k, v, do))
+    check(all(t.data_ptr() % 16 for t in (qm, km, vm, dom)),
+          "the offset operands are aligned")
+    om, lsem = tfa._fa_forward_kernel(qm, km, vm, True, 0.125)
+    torch.cuda.synchronize()
+    check(torch.equal(om, o) and torch.equal(lsem, lse),
+          "flash forward of misaligned operands differs from the aligned")
+    for route in ("fused", "split"):
+        a = tfa._fa_backward_kernel(q, k, v, o, lse, do, True, 0.125, None,
+                                    route)
+        b = tfa._fa_backward_kernel(qm, km, vm, o, lse, dom, True, 0.125,
+                                    None, route)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"flash {route} backward of misaligned operands differs "
+              f"from the aligned")
+    print("flash: q, k, v and dO at storage offset 1: forward, fused and "
+          "split backward equal the aligned calls bitwise")
     return errs
 
 
@@ -1096,12 +1214,21 @@ def main():
     cfg = GPTConfig.gpt2()
     params = init_params(cfg, seed=0)
     torch.cuda.synchronize()
-    times, elems = time_kernels(torch, tq, params)
+    mats = [t for t in leaves(params) if t.dim() >= 2]
+    check(len(mats) == 50, f"expected 50 weight matrices, got {len(mats)}")
+    grouped_err = check_grouped(torch, tq, mats)
+    err_q, err_d = max(err_q, grouped_err[0]), max(err_d, grouped_err[1])
+    times, elems = time_kernels(torch, tq, mats)
+    del mats
     check(elems == 124_354_560, f"GPT-2 124M has {elems} matrix elements")
     for name, t in times.items():
-        print(f"timing: {name} over 50 matrices: {t['ms']:.4f} ms on the "
-              f"card ({t['ms_host_paced']:.4f} ms as the host issues it), "
-              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        print(f"timing: {name} over 50 matrices in one launch: "
+              f"{t['ms']:.4f} ms on the card ({t['ms_host_paced']:.4f} ms "
+              f"as the host issues it); the loop of 50 one-leaf calls "
+              f"{t['loop_ms']:.4f} ms ({t['loop_ms_host_paced']:.4f} ms as "
+              f"issued); turns (grouped, loop, loop, grouped) "
+              f"{', '.join(f'{x:.4f}' for x in t['turns_ms'])} ms; plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}, {t['bytes']} B)")
 
     # phase 3b
@@ -1137,12 +1264,14 @@ def main():
         check(len(toks) == NEW_TOKENS, f"{rid} has {len(toks)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in toks),
               f"{rid} has out-of-vocabulary tokens")
-    n_layer_mats = 2 + 4 * cfg.n_layer
-    check(launches["quantize_int8_blockwise"] == n_layer_mats,
-          f"quantize launches {launches} != {n_layer_mats} at engine build")
-    check(launches["dequantize_int8_blockwise"]
-          == n_layer_mats * engine.dispatches,
-          f"dequantize launches {launches} != 50 x {engine.dispatches}")
+    # one grouped quantize at the engine build, one flat dequantize per
+    # dispatch; the dispatches counted at the drain, before the lone
+    # request below adds its own
+    dispatches = m_int8["dispatches"]
+    check(launches["quantize_int8_blockwise"] == 1,
+          f"quantize launches {launches} != 1 at engine build")
+    check(launches["dequantize_int8_blockwise"] == dispatches,
+          f"dequantize launches {launches} != {dispatches} dispatches")
     greedy = next(r for r in reqs if r["temperature"] == 0.0)
     from dlrover_wuqiong_tpu_torch.serving import LocalServer
 
@@ -1151,7 +1280,7 @@ def main():
     check(alone.drain()["alone"] == out[greedy["request_id"]],
           "a greedy request alone differs from the busy batch")
     print("serving: 16 requests x 64 tokens; busy batch == alone; "
-          f"launches {launches} over {engine.dispatches} dispatches")
+          f"launches {launches} over {dispatches} dispatches")
     prof = profile_window(torch, engine, reqs)
     if isinstance(prof["device_busy_ms_per_window"], float):
         prof["device_busy_share"] = (prof["device_busy_ms_per_window"]
@@ -1201,8 +1330,10 @@ def main():
             "max_abs_err": err, "ms": t["ms"],
             "ms_host_paced": t["ms_host_paced"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
-            "timed_work": "the 50 weight matrices of GPT-2 124M",
+            "library_ms": None, "loop_ms": t["loop_ms"],
+            "loop_ms_host_paced": t["loop_ms_host_paced"],
+            "timed_work": "one grouped launch over the 50 weight matrices "
+                          "of GPT-2 124M",
             "launches_in": "serving, 16 requests",
         })
     src = "dlrover_wuqiong_tpu_torch/csrc/flash_attention.cu"

@@ -1,24 +1,54 @@
 // Blockwise absmax int8 quantize / dequantize for Hopper (sm_90a).
 //
 // Replaces the Pallas pair in dlrover_wuqiong_tpu/ops/quantization.py:
-//   _quant_kernel   (:69-75, launched by quantize_int8_blockwise :97)
-//   _dequant_kernel (:78-79, launched by dequantize_int8_blockwise :120)
+//   _quant_kernel   (:69, launched by quantize_int8_blockwise :97)
+//   _dequant_kernel (:78, launched by dequantize_int8_blockwise :120)
 //
-// Both are bound by device memory, not by arithmetic: a few operations per
-// byte against the ~295 the H100 needs before its ALUs become the limit.
-// The design therefore moves each byte once, in 16-byte accesses:
-//   - quantize: one warp per 256-element row, 8 values per lane (one 16 B
-//     load for bf16, two for f32); the row absmax is a warp-shuffle max,
-//     so no shared memory and no second pass.  The zero padding of the
-//     last row is synthesised in registers instead of being copied in.
-//   - dequantize: one thread per 16 int8 values (one 16 B load), writing
-//     the output dtype directly and only the first `size` elements, so
-//     the trim, reshape and cast of the JAX wrapper cost no extra pass.
+// What bounds them: bytes.  Quantize does ~5 float32 operations per
+// element for 5.02 bytes moved (f32 in, int8 and a scale out), dequantize
+// 3 for 3.02 (int8 in, bf16 out), against the ~20 float32 operations per
+// byte the H100 can do at its memory rate (67 TFLOP/s over 3.35 TB/s).
+//
+// Why one launch per tensor missed the bound.  Serving stores GPT-2 124M's
+// 50 weight matrices as int8.  48 of them hold 0.59M-2.36M elements, so
+// dequantizing one moves 1.8-7.1 MB: 0.5-2.1 us at 3.35 TB/s, about what a
+// launch spends filling the card and draining it.  50 launches a dispatch
+// lost ~3.6 us each to that, on top of 50 wrapper calls on the host.
+//
+// The design: one stream of work, one launch.
+//   - The store is one flat (R, 256) int8 q and one (R, 1) float32 scale,
+//     each leaf a range of whole rows, so every leaf starts 16-byte
+//     aligned.  A serving dispatch dequantizes all R rows in ONE launch
+//     and the leaves are views of its output.
+//   - dequantize: no persistent loop.  Block b converts the 512 chunks
+//     from b * 512 on, two a thread, and the grid covers every chunk.  A
+//     chunk is 16 bytes of output (8 bf16 values from 8 bytes of q, 4 f32
+//     from 4), so each store instruction of a warp writes 512 contiguous
+//     bytes.  A thread issues both loads of q and their rows' scales
+//     before its first store, and stores with st.global.cs: 249 MB of
+//     bf16 do not stay in the 50 MB L2.  Only the first `size` values
+//     are written.  int8_variants.py measured the alternatives on an H100
+//     80GB HBM3 at 700 W: chunks of 16 values stored as two 16-byte
+//     halves 32 bytes apart (each store instruction covers half of every
+//     sector it touches) ran ~30% slower in a persistent loop; a
+//     persistent grid-stride loop with these chunks ~6% slower; 1 or 4
+//     loads a thread within 1.5%; a cp.async.bulk ring of q no faster.
+//   - quantize: ONE grouped launch for all leaves of an engine build.  A
+//     small leaf table (pointer, element count, first row) is copied into
+//     each block's shared memory; a warp takes a row of the global row
+//     space, finds its leaf by binary search over the first rows, and
+//     reads its 256 values straight from that leaf: 8 a lane (one 16 B
+//     load for bf16, two for f32) where the leaf's pointer is 16-byte
+//     aligned, else one value at a time, and zeros past the leaf's end
+//     (the JAX wrapper's jnp.pad).  The row absmax is a warp-shuffle max.
+//     The per-tensor quantize is the one-leaf case of the same kernel,
+//     its leaf passed inline.  A persistent grid of warps walking the
+//     rows ran 6% slower (int8_variants.py).
 //
 // Numerics match jnp bit for bit: IEEE division (__fdiv_rn, never a
 // reciprocal multiply), round half to even (__float2int_rn, as
-// jnp.round), f32 products, and round-to-nearest-even to bf16.  Inputs
-// are assumed finite.
+// jnp.round), scale 1.0 for an all-zero row, f32 products, and
+// round-to-nearest-even to bf16.  Inputs are assumed finite.
 //
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
@@ -32,9 +62,10 @@ namespace {
 constexpr int kBlock = 256;           // elements per quantization row
 constexpr int kLanes = 32;
 constexpr int kPerLane = kBlock / kLanes;  // 8
-constexpr int kWarpsPerCta = 8;
-constexpr int kDequantPerThread = 16;
+constexpr int kQuantThreads = 256;    // 8 warps, one row each at a time
+constexpr int kMaxLeaves = 1024;      // leaf table entries per launch
 constexpr int kDequantThreads = 256;
+constexpr int kDequantLoads = 2;      // chunks a thread loads before storing
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -73,114 +104,180 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* x, long long i,
   }
 }
 
+// The leaves of one quantize launch: `table` in device memory holds
+// count pointers, then count element counts, then count first rows
+// (ascending from 0), all int64; or, when table is null, the one leaf
+// (x, n) at row 0.
+struct Leaves {
+  const long long* table;
+  int count;
+  const void* x;
+  long long n;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kWarpsPerCta * kLanes)
-quant_kernel(const T* __restrict__ x, long long n, long long rows,
-             int8_t* __restrict__ q, float* __restrict__ scale) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarpsPerCta + threadIdx.x / kLanes;
+__global__ void __launch_bounds__(kQuantThreads)
+quant_kernel(Leaves leaves, long long rows, int8_t* __restrict__ q,
+             float* __restrict__ scale) {
+  extern __shared__ long long tab[];  // pointers, counts, first rows
+  const int count = leaves.count;
+  if (leaves.table != nullptr) {
+    for (int i = threadIdx.x; i < 3 * count; i += blockDim.x)
+      tab[i] = leaves.table[i];
+  } else if (threadIdx.x == 0) {
+    tab[0] = reinterpret_cast<long long>(leaves.x);
+    tab[1] = leaves.n;
+    tab[2] = 0;
+  }
+  __syncthreads();
+  const long long* first = tab + 2 * count;
   const int lane = threadIdx.x % kLanes;
-  if (row >= rows) return;  // warp-uniform: the shuffles below stay full
-  const long long i = row * kBlock + lane * kPerLane;
-  float v[kPerLane];
-  load8(x, i, n, aligned16(x), v);
-
-  float m = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) m = fmaxf(m, fabsf(v[j]));
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  const float s = m > 0.0f ? __fdiv_rn(m, 127.0f) : 1.0f;
-
-  union {
-    int8_t b[kPerLane];
-    uint2 u;
-  } out;
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) {
-    int r = __float2int_rn(__fdiv_rn(v[j], s));
-    out.b[j] = static_cast<int8_t>(min(127, max(-127, r)));
-  }
-  // q rows are 256 B apart and the lane offset is 8 B: always aligned
-  *reinterpret_cast<uint2*>(q + i) = out.u;
-  if (lane == 0) scale[row] = s;
-}
-
-__device__ __forceinline__ void store16(float* out, long long i,
-                                        long long size, bool vec,
-                                        const float f[16]) {
-  if (vec && i + 16 <= size) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      reinterpret_cast<float4*>(out + i)[j] =
-          make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
-  } else {
-    for (int j = 0; j < 16 && i + j < size; ++j) out[i + j] = f[j];
-  }
-}
-
-__device__ __forceinline__ void store16(__nv_bfloat16* out, long long i,
-                                        long long size, bool vec,
-                                        const float f[16]) {
-  if (vec && i + 16 <= size) {
-    uint32_t w[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
-      w[j] = *reinterpret_cast<uint32_t*>(&h);  // .x in the low half
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (kQuantThreads / kLanes);
+  // the launch gives each warp one row; a smaller grid would walk the
+  // rest (warp-uniform: the shuffles stay full)
+  for (long long row =
+           static_cast<long long>(blockIdx.x) * (kQuantThreads / kLanes) +
+           threadIdx.x / kLanes;
+       row < rows; row += warps) {
+    // the row's leaf: the last whose first row is <= row (an empty leaf
+    // shares its first row with the next one and is passed over)
+    int lo = 0, hi = count - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (first[mid] <= row) lo = mid; else hi = mid - 1;
     }
-    reinterpret_cast<uint4*>(out + i)[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    reinterpret_cast<uint4*>(out + i)[1] = make_uint4(w[4], w[5], w[6], w[7]);
-  } else {
-    for (int j = 0; j < 16 && i + j < size; ++j)
-      out[i + j] = __float2bfloat16_rn(f[j]);
+    const T* x = reinterpret_cast<const T*>(tab[lo]);
+    float v[kPerLane];
+    load8(x, (row - first[lo]) * kBlock + lane * kPerLane, tab[count + lo],
+          aligned16(x), v);
+
+    float m = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) m = fmaxf(m, fabsf(v[j]));
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const float s = m > 0.0f ? __fdiv_rn(m, 127.0f) : 1.0f;
+
+    union {
+      int8_t b[kPerLane];
+      uint2 u;
+    } out;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      int r = __float2int_rn(__fdiv_rn(v[j], s));
+      out.b[j] = static_cast<int8_t>(min(127, max(-127, r)));
+    }
+    // q rows are 256 B apart and the lane offset is 8 B: always aligned
+    *reinterpret_cast<uint2*>(q + row * kBlock + lane * kPerLane) = out.u;
+    if (lane == 0) scale[row] = s;
   }
 }
 
-template <typename T>
+// A chunk is 16 bytes of output: 8 bf16 values from 8 bytes of q, or 4
+// f32 values from 4, so each store instruction of a warp writes 512
+// contiguous bytes.
+template <typename T> struct Chunk;
+template <> struct Chunk<__nv_bfloat16> { using Q = uint2; };
+template <> struct Chunk<float> { using Q = uint32_t; };
+
+__device__ __forceinline__ void put(float* o, float f) { *o = f; }
+__device__ __forceinline__ void put(__nv_bfloat16* o, float f) {
+  *o = __float2bfloat16_rn(f);
+}
+
+// one streaming 16-byte store of a chunk's values b * s
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* o,
+                                            const int8_t* b, float s) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    __nv_bfloat162 h =
+        __floats2bfloat162_rn(static_cast<float>(b[2 * j]) * s,
+                              static_cast<float>(b[2 * j + 1]) * s);
+    w[j] = *reinterpret_cast<uint32_t*>(&h);  // .x in the low half
+  }
+  __stcs(reinterpret_cast<int4*>(o), make_int4(w[0], w[1], w[2], w[3]));
+}
+
+__device__ __forceinline__ void store_chunk(float* o, const int8_t* b,
+                                            float s) {
+  __stcs(reinterpret_cast<float4*>(o),
+         make_float4(static_cast<float>(b[0]) * s,
+                     static_cast<float>(b[1]) * s,
+                     static_cast<float>(b[2]) * s,
+                     static_cast<float>(b[3]) * s));
+}
+
+// q: (rows, 256) int8, 16-byte aligned, with size <= rows * 256, so every
+// chunk that holds a value below size exists in full.  Block b converts
+// the kDequantThreads * LOADS chunks from b * kDequantThreads * LOADS on,
+// thread t the chunks t, t + kDequantThreads, ...; only the first `size`
+// values are written.
+template <typename T, int LOADS>
 __global__ void __launch_bounds__(kDequantThreads)
 dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
                long long size, T* __restrict__ out) {
-  const long long i =
-      (static_cast<long long>(blockIdx.x) * kDequantThreads + threadIdx.x) *
-      kDequantPerThread;
-  if (i >= size) return;  // the trimmed tail is never read
-  // q is (rows, 256) int8 and size <= rows * 256, so all 16 bytes exist
-  union {
-    int4 v;
-    int8_t b[16];
-  } raw;
-  raw.v = *reinterpret_cast<const int4*>(q + i);
-  const float s = scale[i / kBlock];
-  float f[kDequantPerThread];
+  using Q = typename Chunk<T>::Q;
+  constexpr int kN = sizeof(Q);  // values a chunk
+  const long long chunks = (size + kN - 1) / kN;
+  const long long c0 =
+      static_cast<long long>(blockIdx.x) * kDequantThreads * LOADS +
+      threadIdx.x;
+  const bool vec = aligned16(out);
+  const Q* qc = reinterpret_cast<const Q*>(q);
+  // every load first, then the conversions and stores
+  Q raw[LOADS];
+  float s[LOADS];
 #pragma unroll
-  for (int j = 0; j < kDequantPerThread; ++j)
-    f[j] = static_cast<float>(raw.b[j]) * s;
-  store16(out, i, size, aligned16(out), f);
+  for (int u = 0; u < LOADS; ++u) {
+    const long long c = c0 + u * kDequantThreads;
+    if (c < chunks) {
+      raw[u] = qc[c];
+      s[u] = __ldg(scale + c * kN / kBlock);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    const long long c = c0 + u * kDequantThreads;
+    if (c < chunks) {
+      const int8_t* b = reinterpret_cast<const int8_t*>(&raw[u]);
+      const long long i = c * kN;
+      if (vec && i + kN <= size) {
+        store_chunk(out + i, b, s[u]);
+      } else {
+        for (int j = 0; j < kN && i + j < size; ++j)
+          put(out + i + j, static_cast<float>(b[j]) * s[u]);
+      }
+    }
+  }
 }
 
 template <typename T>
-int launch_quant(const void* x, long long n, long long rows, void* q,
-                 void* scale, void* stream) {
-  const unsigned grid =
-      static_cast<unsigned>((rows + kWarpsPerCta - 1) / kWarpsPerCta);
-  quant_kernel<T><<<grid, kWarpsPerCta * kLanes, 0,
+int launch_quant(Leaves leaves, long long rows, void* q, void* scale,
+                 void* stream) {
+  if (leaves.count < 1 || leaves.count > kMaxLeaves)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 3 * sizeof(long long) * leaves.count;
+  const long long need = (rows + kQuantThreads / kLanes - 1) /
+                         (kQuantThreads / kLanes);
+  const unsigned grid = static_cast<unsigned>(need);  // a warp a row
+  quant_kernel<T><<<grid, kQuantThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), n, rows, static_cast<int8_t*>(q),
-      static_cast<float*>(scale));
+      leaves, rows, static_cast<int8_t*>(q), static_cast<float*>(scale));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_dequant(const void* q, const void* scale, long long size,
                    void* out, void* stream) {
-  const long long threads =
-      (size + kDequantPerThread - 1) / kDequantPerThread;
-  const unsigned grid = static_cast<unsigned>(
-      (threads + kDequantThreads - 1) / kDequantThreads);
-  dequant_kernel<T><<<grid, kDequantThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  constexpr long long kN = sizeof(typename Chunk<T>::Q);
+  constexpr long long kPerBlock = kDequantThreads * kDequantLoads;
+  const long long chunks = (size + kN - 1) / kN;
+  dequant_kernel<T, kDequantLoads><<<
+      static_cast<unsigned>((chunks + kPerBlock - 1) / kPerBlock),
+      kDequantThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const float*>(scale), size,
       static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -190,19 +287,42 @@ int launch_dequant(const void* q, const void* scale, long long size,
 
 extern "C" {
 
-// x: n contiguous values; q: (rows, 256) int8; scale: (rows,) f32, with
-// rows = ceil(n / 256) > 0.
+// One tensor: x holds n contiguous values; q: (rows, 256) int8; scale:
+// (rows,) f32, with rows = ceil(n / 256) > 0.
 int quantize_int8_blockwise_f32(const void* x, long long n, long long rows,
                                 void* q, void* scale, void* stream) {
-  return launch_quant<float>(x, n, rows, q, scale, stream);
+  return launch_quant<float>(Leaves{nullptr, 1, x, n}, rows, q, scale,
+                             stream);
 }
 
 int quantize_int8_blockwise_bf16(const void* x, long long n, long long rows,
                                  void* q, void* scale, void* stream) {
-  return launch_quant<__nv_bfloat16>(x, n, rows, q, scale, stream);
+  return launch_quant<__nv_bfloat16>(Leaves{nullptr, 1, x, n}, rows, q,
+                                     scale, stream);
 }
 
-// q: (rows, 256) int8; scale: (rows,) f32; out: size > 0 contiguous values.
+// Grouped: table is int64 on the device, count pointers (each leaf's n
+// contiguous values), count sizes n, count first rows (ascending from 0,
+// leaf i owning rows first[i] .. first[i] + ceil(n_i / 256) - 1); q:
+// (rows, 256) int8; scale: (rows,) f32, rows > 0; 1 <= count <= 1024.
+int quantize_int8_blockwise_grouped_f32(const void* table, int count,
+                                        long long rows, void* q, void* scale,
+                                        void* stream) {
+  return launch_quant<float>(
+      Leaves{static_cast<const long long*>(table), count, nullptr, 0}, rows,
+      q, scale, stream);
+}
+
+int quantize_int8_blockwise_grouped_bf16(const void* table, int count,
+                                         long long rows, void* q,
+                                         void* scale, void* stream) {
+  return launch_quant<__nv_bfloat16>(
+      Leaves{static_cast<const long long*>(table), count, nullptr, 0}, rows,
+      q, scale, stream);
+}
+
+// q: (rows, 256) int8, 16-byte aligned; scale: (rows,) f32; out: size > 0
+// contiguous values, size <= rows * 256.
 int dequantize_int8_blockwise_f32(const void* q, const void* scale,
                                   long long size, void* out, void* stream) {
   return launch_dequant<float>(q, scale, size, out, stream);

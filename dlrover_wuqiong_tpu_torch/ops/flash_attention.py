@@ -194,9 +194,22 @@ def _fa_backward_plain(q, k, v, o, lse, do, causal: bool, scale: float,
 # ------------------------------------------------------------ kernels
 
 
+def align16(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself when its data starts on a 16-byte boundary, else a fresh
+    contiguous copy (the caching allocator aligns every block).  The
+    kernels read their operands with 16-byte or TMA accesses, and
+    ``.contiguous()`` keeps a view's storage offset; the copy holds the
+    same values, so the result is the one an aligned operand gives."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _kernel_operands(what: str, q, k, v, *rest):
     """Checks CUDA bf16 operands: q (bh, sq, d), k and v (bh, sk, d) with
-    d in (64, 128), and `rest` shaped like q; returns them contiguous."""
+    d in (64, 128), and `rest` shaped like q; returns them contiguous and
+    16-byte aligned (lse and delta are read 4 bytes at a time and need
+    no more than their dtype's alignment)."""
     ts = (q, k, v, *rest)
     for t in ts:
         if t.dtype != torch.bfloat16:
@@ -216,7 +229,7 @@ def _kernel_operands(what: str, q, k, v, *rest):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
     if q.shape[0] > 65535:
         raise ValueError(f"{what}: batch*heads {q.shape[0]} exceeds 65535")
-    return [t.contiguous() for t in ts]
+    return [align16(t.contiguous()) for t in ts]
 
 
 def _stream(t: torch.Tensor) -> int:

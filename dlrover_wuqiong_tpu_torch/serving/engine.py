@@ -35,7 +35,11 @@ That keeps the same purity property; temperature <= 0 is greedy argmax.
 With ``quant="int8"`` every ≥2-D float leaf (all 50 matrices of GPT-2,
 ``wte`` and ``wpe`` included) is stored as blockwise int8 and
 `_materialize` dequantizes it on every dispatch, as the JAX programs do,
-so the dequantize kernel is on the hot path: 50 launches per dispatch.
+so the dequantize kernel is on the hot path.  The int8 leaves live in one
+flat store, quantized in one grouped call per engine build (and per
+`sync_from_trainer`): each leaf's ``{"q", "s"}`` is a row-range view of
+one (R, 256) int8 q and one (R, 1) scale, and a dispatch dequantizes all
+R rows in one launch, each leaf a view of its output.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from ..ops.quantization import (
     dequantize_int8_blockwise,
     fp8_dequantize,
     fp8_quantize,
-    quantize_int8_blockwise,
+    quantize_int8_blockwise_grouped,
 )
 from ..rl.generation import forward_step, init_caches
 
@@ -75,12 +79,19 @@ class ServeSpec:
 # ------------------------------------------------------------ quant store
 
 
+#: the store's key of the flat int8 (q, scales) its int8 leaves view
+_INT8_FLAT = "__int8_flat__"
+
+
 def _quantize_tree(params: Dict, mode: str, device) -> Tuple[Dict, Dict]:
     """Split params into a (store, meta) pair on `device`: `store` holds the
     tensors, `meta` the dequantize recipe per leaf ((mode, size, shape), or
-    None for a leaf kept as it is)."""
+    None for a leaf kept as it is).  int8 leaves are quantized together
+    into one flat store, kept under `_INT8_FLAT`; each leaf's q and s are
+    views of its rows."""
     store: Dict = {}
     meta: Dict = {}
+    int8: List = []  # (parent dict, key, tensor) of each int8 leaf
 
     def rec(src, dst, mdst):
         for k, v in src.items():
@@ -93,28 +104,50 @@ def _quantize_tree(params: Dict, mode: str, device) -> Tuple[Dict, Dict]:
             # exact — they are tiny and scale-sensitive
             if mode and arr.dim() >= 2 and arr.is_floating_point():
                 if mode == "int8":
-                    q, s = quantize_int8_blockwise(arr)
+                    int8.append((dst, k, arr))
                 else:
                     q, s = fp8_quantize(arr)
-                dst[k] = {"q": q, "s": s}
+                    dst[k] = {"q": q, "s": s}
                 mdst[k] = (mode, arr.numel(), tuple(arr.shape))
             else:
                 dst[k] = arr
                 mdst[k] = None
 
     rec(params, store, meta)
+    if int8:
+        arrs = [a for _, _, a in int8]
+        if len({a.dtype for a in arrs}) > 1:
+            # one dtype per grouped call: float32 holds every bf16 or f16
+            # value exactly, and the rows are quantized in float32 anyway
+            arrs = [a.float() for a in arrs]
+        q, s, first = quantize_int8_blockwise_grouped(arrs)
+        store[_INT8_FLAT] = (q, s)
+        for (dst, k, _), r0, r1 in zip(int8, first,
+                                       first[1:] + [q.shape[0]]):
+            dst[k] = {"q": q[r0:r1], "s": s[r0:r1]}
     return store, meta
 
 
 def _materialize(store: Dict, meta: Dict, dtype) -> Dict:
     """Dequantize the store into a forward-ready param tree; runs once per
-    dispatch.  Unquantized ≥2-D float leaves are cast to `dtype` here, once
-    per dispatch instead of at every use in every step; the forward casts
-    them to `dtype` anyway, so the values are the same."""
+    dispatch.  The flat int8 store is dequantized in one call, and each
+    int8 leaf is a view of the result.  Unquantized ≥2-D float leaves are
+    cast to `dtype` here, once per dispatch instead of at every use in
+    every step; the forward casts them to `dtype` anyway, so the values
+    are the same."""
+    flat = None
+    if _INT8_FLAT in store:
+        q, s = store[_INT8_FLAT]
+        flat = dequantize_int8_blockwise(q, s, q.numel(), (q.numel(),),
+                                         dtype=dtype)
+    return _fill(store, meta, dtype, flat)
+
+
+def _fill(store: Dict, meta: Dict, dtype, flat) -> Dict:
     out: Dict = {}
     for k, m in meta.items():
         if isinstance(m, dict):
-            out[k] = _materialize(store[k], m, dtype)
+            out[k] = _fill(store[k], m, dtype, flat)
         elif m is None:
             leaf = store[k]
             if leaf.dim() >= 2 and leaf.is_floating_point():
@@ -124,8 +157,10 @@ def _materialize(store: Dict, meta: Dict, dtype) -> Dict:
             mode, size, shape = m
             leaf = store[k]
             if mode == "int8":
-                out[k] = dequantize_int8_blockwise(
-                    leaf["q"], leaf["s"], size, shape, dtype=dtype)
+                # a leaf's q is a row range of the flat q: its storage
+                # offset is its first value's index in `flat`
+                start = leaf["q"].storage_offset()
+                out[k] = flat[start:start + size].view(shape)
             else:
                 out[k] = fp8_dequantize(leaf["q"], leaf["s"],
                                         dtype=dtype).reshape(shape)

@@ -199,6 +199,122 @@ class TestInt8Semantics:
             tq.dequantize_int8_blockwise(q, torch.empty((2, 1)), 512, (512,))
 
 
+# ------------------------------------------------------------ grouped
+
+
+def _offset1(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a tensor that starts one element into its storage
+    (not 16-byte aligned)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _leaves(rng, dtype):
+    """Small leaves of one dtype: two matrices, a ragged leaf, an all-zero
+    block, a single value and a leaf at storage offset 1."""
+    tdt = DTYPES[dtype][0]
+    xs = [rng.standard_normal((12, 64)).astype(np.float32) * 0.05,
+          rng.standard_normal((3, 256)).astype(np.float32),
+          rng.standard_normal(1000).astype(np.float32) * 3,
+          _zero_block(rng),
+          np.array([2.5], np.float32),
+          rng.standard_normal((5, 200)).astype(np.float32)]
+    out = [torch.from_numpy(x).to(tdt) for x in xs]
+    out[-1] = _offset1(out[-1])
+    return out
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+class TestGroupedInt8:
+    def test_grouped_plain_matches_jnp_per_leaf(self, dtype):
+        """Each leaf's rows of the flat store are JAX's quantization of
+        that leaf alone, bitwise."""
+        xs = _leaves(np.random.default_rng(5), dtype)
+        assert xs[-1].storage_offset() == 1 and xs[-1].data_ptr() % 16
+        q, s, first = tq.quantize_int8_blockwise_grouped(xs)
+        rows = [-(-x.numel() // BLOCK) for x in xs]
+        assert first == list(np.cumsum([0] + rows[:-1]))
+        assert q.shape == (sum(rows), BLOCK) and s.shape == (sum(rows), 1)
+        jdt = DTYPES[dtype][1]
+        for x, r0, r in zip(xs, first, rows):
+            qj, sj = jq.quantize_int8_blockwise(
+                jnp.asarray(x.float().numpy()).astype(jdt))
+            np.testing.assert_array_equal(q[r0:r0 + r].numpy(),
+                                          np.asarray(qj))
+            np.testing.assert_array_equal(_bits(s[r0:r0 + r].numpy()),
+                                          _bits(sj))
+        # the all-zero block: scale 1, q 0
+        z = first[3] + 1
+        assert float(s[z, 0]) == 1.0 and not q[z].any()
+
+    def test_flat_dequantize_views_match_per_leaf(self, dtype):
+        """One dequantize over all rows, cut into per-leaf views, equals
+        `_dequantize_plain` of each leaf's rows, bitwise, in both output
+        dtypes."""
+        xs = _leaves(np.random.default_rng(6), dtype)
+        q, s, first = tq.quantize_int8_blockwise_grouped(xs)
+        for out_t in (torch.float32, torch.bfloat16):
+            flat = tq.dequantize_int8_blockwise(q, s, q.numel(),
+                                                (q.numel(),), dtype=out_t)
+            for x, r0, r1 in zip(xs, first, first[1:] + [q.shape[0]]):
+                got = flat[r0 * BLOCK:r0 * BLOCK + x.numel()].view(x.shape)
+                want = tq._dequantize_plain(q[r0:r1], s[r0:r1], x.numel(),
+                                            tuple(x.shape), out_t)
+                assert got.dtype == out_t
+                np.testing.assert_array_equal(
+                    _bits(got.float().numpy()), _bits(want.float().numpy()))
+
+    def test_no_launch_on_cpu(self, dtype):
+        tq.reset_launches()
+        tq.quantize_int8_blockwise_grouped(
+            _leaves(np.random.default_rng(7), dtype))
+        assert tq.LAUNCHES["quantize_int8_blockwise"] == 0
+
+
+class TestGroupedInt8Errors:
+    def test_mixed_dtypes_raise(self):
+        with pytest.raises(ValueError, match="one dtype"):
+            tq.quantize_int8_blockwise_grouped(
+                [torch.ones(300), torch.ones(300, dtype=torch.bfloat16)])
+
+    def test_mixed_devices_raise(self):
+        with pytest.raises(ValueError, match="one device"):
+            tq.quantize_int8_blockwise_grouped(
+                [torch.ones(300), torch.empty(300, device="meta")])
+
+    def test_empty_raises(self):
+        with pytest.raises(ValueError, match="no tensors"):
+            tq.quantize_int8_blockwise_grouped([])
+
+    def test_non_cpu_non_cuda_raises(self):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tq.quantize_int8_blockwise_grouped(
+                [torch.empty(512, device="meta")])
+
+
+class TestAlign16:
+    def test_misaligned_gets_an_aligned_copy(self):
+        from dlrover_wuqiong_tpu_torch.ops.flash_attention import align16
+
+        x = _offset1(torch.arange(40, dtype=torch.float32).reshape(5, 8))
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        y = align16(x)
+        assert y.data_ptr() % 16 == 0 and y.is_contiguous()
+        assert y.data_ptr() != x.data_ptr() and torch.equal(x, y)
+
+    def test_aligned_is_returned_as_is(self):
+        from dlrover_wuqiong_tpu_torch.ops.flash_attention import align16
+
+        x = torch.arange(64, dtype=torch.bfloat16).reshape(4, 16)
+        assert x.data_ptr() % 16 == 0
+        assert align16(x) is x
+        # a view at an offset of 16 bytes is aligned too
+        v = x[1:]
+        assert v.data_ptr() % 16 == 0 and align16(v) is v
+
+
 class TestFp8AgainstJax:
     @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
     def test_quantize_dequantize_bitwise(self, fmt):

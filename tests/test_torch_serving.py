@@ -167,6 +167,82 @@ def test_int8_store_matches_jax(cfgs, jparams, tparams):
     assert n_quantized == 2 + 4 * cfgs[1].n_layer
 
 
+def _int8_leaves(store, meta, out=None):
+    """[(store leaf, (mode, size, shape))] of every int8 leaf, in order."""
+    out = [] if out is None else out
+    for k, m in meta.items():
+        if isinstance(m, dict):
+            _int8_leaves(store[k], m, out)
+        elif m is not None and m[0] == "int8":
+            out.append((store[k], m))
+    return out
+
+
+def test_int8_store_is_one_flat_store(cfgs, tparams):
+    """Every int8 leaf's q and s are views of one (R, 256) q and one (R, 1)
+    scale, at consecutive row offsets, whole rows a leaf."""
+    from dlrover_wuqiong_tpu_torch.serving.engine import (
+        _INT8_FLAT,
+        _quantize_tree,
+    )
+
+    store, meta = _quantize_tree(tparams, "int8", torch.device("cpu"))
+    q, s = store[_INT8_FLAT]
+    leaves = _int8_leaves(store, meta)
+    assert len(leaves) == 2 + 4 * cfgs[1].n_layer
+    row = 0
+    for leaf, (_, size, _) in leaves:
+        rows = -(-size // 256)
+        assert leaf["q"].untyped_storage().data_ptr() == \
+            q.untyped_storage().data_ptr()
+        assert leaf["s"].untyped_storage().data_ptr() == \
+            s.untyped_storage().data_ptr()
+        assert leaf["q"].storage_offset() == row * 256
+        assert leaf["s"].storage_offset() == row
+        assert leaf["q"].shape == (rows, 256) and leaf["s"].shape == (rows, 1)
+        row += rows
+    assert q.shape == (row, 256) and s.shape == (row, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_materialize_views_one_buffer(cfgs, tparams, dtype):
+    """On the CPU `_materialize` dequantizes the flat store once: every
+    int8 leaf is a view of one buffer, equal bitwise to dequantizing that
+    leaf alone."""
+    from dlrover_wuqiong_tpu_torch.serving.engine import (
+        _materialize,
+        _quantize_tree,
+    )
+
+    store, meta = _quantize_tree(tparams, "int8", torch.device("cpu"))
+    params = _materialize(store, meta, dtype)
+    got = _int8_leaves(params, meta)
+    want = _int8_leaves(store, meta)
+    base = got[0][0].untyped_storage().data_ptr()
+    for (out, _), (leaf, (_, size, shape)) in zip(got, want):
+        assert out.untyped_storage().data_ptr() == base
+        assert out.shape == shape and out.dtype == dtype
+        ref = tq._dequantize_plain(leaf["q"], leaf["s"], size, shape, dtype)
+        assert torch.equal(out.view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32),
+                           ref.view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32))
+
+
+def test_int8_store_mixed_leaf_dtypes(cfgs, tparams):
+    """bf16 and f32 matrices in one tree are quantized together in f32,
+    which holds each bf16 value exactly: the same q and s as each leaf's
+    own quantization."""
+    from dlrover_wuqiong_tpu_torch.serving.engine import _quantize_tree
+
+    mixed = {"a": tparams["wte"]["embedding"].to(torch.bfloat16),
+             "b": tparams["wpe"]["embedding"]}
+    store, meta = _quantize_tree(mixed, "int8", torch.device("cpu"))
+    for k in ("a", "b"):
+        q, s = tq.quantize_int8_blockwise(mixed[k])
+        assert torch.equal(store[k]["q"], q) and torch.equal(store[k]["s"], s)
+
+
 def test_schemas_match_jax():
     assert ttel.SERVE_STATES == jtel.SERVE_STATES
     assert ttel.SERVE_COUNTERS == jtel.SERVE_COUNTERS
