@@ -27,26 +27,33 @@ Phases, in order; a failure in any of them exits non-zero:
 3b. The four flash-attention kernels against their plain versions on the
    card, bf16 inputs: GPT-2's training shape (288, 1024, 1024, 64)
    causal, a ragged causal case, non-causal, sq < sk, sq > sk (rows with
-   no key), d = 128, d = 48 through the public API, and two cases for the
+   no key), d = 128, d = 48 through the public API, two cases for the
    forward's 128-row q tiles (a tile whose upper 64 rows lie past sq; a
-   tile whose rows see no key up to row 119); every row of every output
+   tile whose rows see no key up to row 119), and two at Llama-3's head
+   dim 128 for the dk/dv kernel's 128-row kv items (several items with
+   sq != sk; a ragged kv edge inside an item); every row of every output
    within `FA_TOL` of its own norm, lse within `FA_LSE_TOL`.  Three
    faults planted into the plain version at GPT-2's shape must each
    break `FA_TOL`.  The fused route's dq equals the split route's
-   bitwise.  In the ragged, sq < sk, sq > sk and the two q-tile cases the
-   forward and the fused backward are launched once more into outputs
-   filled with NaN: every value must come back bitwise equal to the
-   wrapper's (each output row is written by some block).  Two runs of the
+   bitwise.  In the ragged, sq < sk, sq > sk, the two q-tile and the
+   ragged d = 128 cases the forward, the fused backward and the dk/dv
+   kernel are launched once more into outputs filled with NaN: every
+   value must come back bitwise equal to the wrapper's (each output row
+   is written by some block).  Two runs of the
    forward and of each backward route are bitwise equal, and so are the
    outputs of q, k, v and dO at storage offset 1 (realigned by the
    wrapper) and of the aligned operands, for the forward and both
-   backward routes at GPT-2's shape.  The forward's
-   registers, spills and shared memory (``nvcc -Xptxas -v`` on the
-   committed source).  Then each kernel's time at GPT-2's shape beside
-   its plain version, its bound and ``scaled_dot_product_attention``
-   (forward, timed in turns with the forward kernel; forward + backward
-   for the backward kernels), a yardstick the port never calls, and the
-   host time of one forward call.
+   backward routes at GPT-2's shape.  The forward's and the dk/dv
+   kernel's registers, spills and shared memory, and any wgmma
+   serialisation note (``nvcc -Xptxas -v`` on the committed source).
+   Then each kernel's time at GPT-2's shape beside its plain version, its
+   bound and ``scaled_dot_product_attention`` (forward, timed in turns
+   with the forward kernel; forward + backward for the backward kernels),
+   a yardstick the port never calls; the split dq and dk/dv kernels also
+   at Llama-3 8B's attention (32, 4096, 4096, 128) causal beside the plain
+   backward (one call), their bounds and SDPA forward + backward at (1,
+   32, 4096, 128); and the host time of one forward, fused backward and
+   dk/dv call.
 4. The serving path: GPT-2 124M at full width, bf16 compute, seeded
    random weights, ``ServeSpec(max_slots=8, max_len=512,
    max_prompt_len=128, fused_tokens=8, quant="int8")``; 16 requests
@@ -362,6 +369,10 @@ FA_CASES = [  # name, bh, sq, sk, d, causal
     # the first tile's second warpgroup mixes empty and live rows
     ("half_tile", 16, 192, 192, 64, True),
     ("sq>sk_mixed", 16, 320, 200, 64, True),
+    # Llama-3's head dim: several 128-row kv tiles (the dk/dv kernel's
+    # items) with sq != sk, and a ragged kv edge inside an item
+    ("llama_d128", 8, 384, 256, 128, True),
+    ("ragged_d128", 8, 320, 200, 128, True),
 ]
 # Tolerance of a flash kernel against its plain version on the same bf16
 # inputs, per row: a head's row of o or dq, a key's row of dk or dv.
@@ -386,7 +397,8 @@ FA_LSE_TOL = 1e-3
 # cases with edges a block could leave unwritten: ragged tiles, the causal
 # diagonal offset both ways, queries that see no key (sq > sk), q tiles
 # part past sq or part without keys
-FA_NAN_CASES = ("ragged", "sq<sk", "sq>sk", "half_tile", "sq>sk_mixed")
+FA_NAN_CASES = ("ragged", "sq<sk", "sq>sk", "half_tile", "sq>sk_mixed",
+                "ragged_d128")
 
 
 def fwd_smem_bytes(d: int) -> int:
@@ -409,9 +421,26 @@ def ptxas_start(_build):
                             text=True), out
 
 
-def ptxas_forward(started) -> dict:
-    """The forward kernel's registers, spills and shared memory at d = 64
-    and 128 from ptxas, and any wgmma serialisation it reports."""
+def dkv_smem_bytes(d: int) -> int:
+    """Dynamic shared memory the dk/dv kernel's launcher asks for
+    (Dkv<D>::smem in csrc/flash_attention.cu): 1 KB of alignment, two kv
+    buffers of a 128-row K and V tile, a ring of Q, dO and Q_s tiles and
+    their rows' two floats (3 stages of 128 rows at d = 64, 2 of 64 at
+    d = 128), 3 mbarriers a stage and 4 for the kv buffers."""
+    stages, bq = (3, 128) if d == 64 else (2, 64)
+    return (1024 + 4 * 128 * d * 2 + stages * (3 * bq * d * 2 + 2 * bq * 4)
+            + (3 * stages + 4) * 8)
+
+
+# kernel (its mangled-name stem in the ptxas log) -> its shared memory
+PTXAS_KERNELS = {"fa_fwd_kernel": fwd_smem_bytes,
+                 "fa_bwd_dkv_kernel": dkv_smem_bytes}
+
+
+def ptxas_report(started) -> dict:
+    """The Hopper kernels' (forward, dk/dv) registers, spills and shared
+    memory at d = 64 and 128 from ptxas, and any wgmma serialisation it
+    reports for them."""
     import re
 
     proc, path = started
@@ -421,22 +450,25 @@ def ptxas_forward(started) -> dict:
     check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{log[-4000:]}")
     lines = log.splitlines()
     out = {}
-    for i, line in enumerate(lines):
-        m = re.search(r"fa_fwd_kernelILi(\d+)", line)
-        if "Compiling entry" in line and m:
-            props = " ".join(x.strip() for x in lines[i + 1:i + 4])
-            regs = re.search(r"Used (\d+) registers", props)
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", props)
-            d = int(m.group(1))
-            out[d] = {"registers": int(regs.group(1)) if regs else None,
-                      "spill_stores": int(spill.group(1)) if spill else None,
-                      "spill_loads": int(spill.group(2)) if spill else None,
-                      "dynamic_smem_bytes": fwd_smem_bytes(d)}
-    out["wgmma_notes"] = [ln.split("ptxas info    : ")[-1][:120]
-                          for ln in lines
-                          if "fa_fwd_kernel" in ln and "(C75" in ln]
-    check(64 in out and 128 in out, "ptxas printed no forward kernel")
+    for kernel, smem in PTXAS_KERNELS.items():
+        rep = {}
+        for i, line in enumerate(lines):
+            m = re.search(kernel + r"ILi(\d+)", line)
+            if "Compiling entry" in line and m:
+                props = " ".join(x.strip() for x in lines[i + 1:i + 4])
+                regs = re.search(r"Used (\d+) registers", props)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", props)
+                d = int(m.group(1))
+                rep[d] = {
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_stores": int(spill.group(1)) if spill else None,
+                    "spill_loads": int(spill.group(2)) if spill else None,
+                    "dynamic_smem_bytes": smem(d)}
+        rep["wgmma_notes"] = [ln.split("ptxas info    : ")[-1][:120]
+                              for ln in lines if kernel in ln and "(C75" in ln]
+        check(64 in rep and 128 in rep, f"ptxas printed no {kernel}")
+        out[kernel] = rep
     return out
 
 
@@ -517,12 +549,14 @@ def forward_into(torch, tfa, q, k, v, causal, scale, o, lse):
         torch.cuda.current_stream().cuda_stream), "flash forward")
 
 
-def fused_into(torch, tfa, q, k, v, o, lse, do, causal, scale, outs):
-    """The fused backward launched into the given (dq, dk, dv), as the
+def backward_into(torch, tfa, fn, q, k, v, o, lse, do, causal, scale,
+                  outs):
+    """A backward entry point (`fn`: the fused one into (dq, dk, dv), the
+    dk/dv one into (dk, dv)) launched into the given outputs, as the
     wrapper launches it but not counted in its launches."""
     bh, sq, d = q.shape
     delta = tfa._delta(o, do, None)
-    tfa._check_rc(tfa._lib().fa_backward_fused_bf16(
+    tfa._check_rc(fn(
         *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)), bh, sq,
         k.shape[1], d, int(causal), scale * tfa.LOG2E, scale,
         torch.cuda.current_stream().cuda_stream), "flash backward")
@@ -597,16 +631,22 @@ def check_flash(torch, tfa):
                 lse_n.view(torch.int32), lse.view(torch.int32)),
                 f"{tag}: the forward into NaN-filled o and lse left values "
                 f"unwritten or differs from the wrapper's")
-            outs = [torch.full_like(t, float("nan")) for t in grads["fused"]]
-            fused_into(torch, tfa, q, k, v, o, lse, do, causal, scale, outs)
-            torch.cuda.synchronize()
-            check(all(bool(torch.isfinite(t).all()) for t in outs),
-                  f"{tag}: the fused backward left NaN-filled values "
-                  f"unwritten")
-            check(all(torch.equal(a, b) for a, b in zip(outs, grads["fused"])),
-                  f"{tag}: the fused backward into NaN-filled outputs differs "
-                  f"from the wrapper's")
-            msg.append("forward and fused write every value")
+            for route, fn, want in (
+                    ("fused", tfa._lib().fa_backward_fused_bf16,
+                     grads["fused"]),
+                    ("dk/dv", tfa._lib().fa_backward_dkv_bf16,
+                     grads["split"][1:])):
+                outs = [torch.full_like(t, float("nan")) for t in want]
+                backward_into(torch, tfa, fn, q, k, v, o, lse, do, causal,
+                              scale, outs)
+                torch.cuda.synchronize()
+                check(all(bool(torch.isfinite(t).all()) for t in outs),
+                      f"{tag}: the {route} backward left NaN-filled values "
+                      f"unwritten")
+                check(all(torch.equal(a, b) for a, b in zip(outs, want)),
+                      f"{tag}: the {route} backward into NaN-filled outputs "
+                      f"differs from the wrapper's")
+            msg.append("forward, fused and dk/dv write every value")
         print(f"{tag}: " + ", ".join(msg) + f" (worst row ||kernel - "
               f"plain|| / ||plain||, tolerance {FA_TOL})")
         if name == "gpt2":
@@ -660,10 +700,61 @@ def check_flash(torch, tfa):
     return errs
 
 
+# Llama-3 8B's attention at B = 1, T = 4096: 32 heads of dim 128 (GQA's kv
+# heads repeated before attention), causal; past one 1024-row block, so the
+# route rule sends its backward to the split pair
+LLAMA_SHAPE = dict(b=1, h=32, s=4096, d=128)
+
+
+def time_split_at(torch, tfa, b, h, s, d) -> dict:
+    """The split pair's times at (b * h, s, s, d) causal, each kernel alone
+    (delta and outputs made once), beside the plain backward (one timed
+    call), the bound and SDPA forward + backward at (b, h, s, d)."""
+    import torch.nn.functional as F
+
+    bh = b * h
+    q, k, v, do = fa_inputs(torch, bh, s, s, d, 13)
+    scale = 1.0 / d ** 0.5
+    o, lse = tfa._fa_forward_kernel(q, k, v, True, scale)
+    delta = tfa._delta(o, do, None)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = tfa._lib()
+    ins = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    tail = [bh, s, s, d, 1, scale * tfa.LOG2E, scale,
+            torch.cuda.current_stream().cuda_stream]
+    qg, kg, vg = (t.reshape(b, h, s, d).clone().requires_grad_()
+                  for t in (q, k, v))
+    do4 = do.reshape(b, h, s, d)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        return torch.autograd.grad(out, (qg, kg, vg), do4)
+
+    pairs = fa_pairs(s, s, True) * bh
+    mat, row = bh * s * d * 2, bh * s * 4
+    lib_ms = cuda_ms(torch, sdpa_fwd_bwd, 5)
+    plain_ms = cuda_ms(torch, lambda: tfa._fa_backward_plain(
+        q, k, v, o, lse, do, True, scale), 1, warmup=1)
+    res = {}
+    for name, fn, outs, nbytes, ops in (
+            ("flash_attention_bwd_dq", lib.fa_backward_dq_bf16, (dq,),
+             5 * mat + 2 * row, 3 * 2 * d * pairs),
+            ("flash_attention_bwd_dkv", lib.fa_backward_dkv_bf16, (dk, dv),
+             6 * mat + 2 * row, 4 * 2 * d * pairs)):
+        call = (lambda fn=fn, outs=outs, name=name: tfa._check_rc(
+            fn(*ins, *(t.data_ptr() for t in outs), *tail), name))
+        bnd, by = bound_ms(nbytes, ops, BF16_TC_OPS_PER_S)
+        res[name] = {"shape": [bh, s, s, d], "ms": cuda_ms(torch, call, 10),
+                     "ms_host_paced": cuda_ms(torch, call, 10, False),
+                     "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                     "bytes": nbytes, "flop": ops, "library_ms": lib_ms}
+    return res
+
+
 def time_flash(torch, tfa):
     """Each flash kernel's time at GPT-2's training shape, beside its plain
     version, its bound and scaled_dot_product_attention (a yardstick the
-    port never calls)."""
+    port never calls); the split pair also at Llama-3 8B's shape."""
     import torch.nn.functional as F
 
     s = FA_SHAPE
@@ -743,6 +834,12 @@ def time_flash(torch, tfa):
         "c_call": host_us(torch, fwd_c), "wrapper": host_us(torch, fwd)}
     res["flash_attention_bwd_fused"]["host_us"] = {
         "c_call": host_us(torch, rows[1][1])}
+    # the dk/dv launcher encodes six tensor maps and queries the device
+    res["flash_attention_bwd_dkv"]["host_us"] = {
+        "c_call": host_us(torch, rows[3][1])}
+    del q, k, v, do, o, lse, delta, dq, dk, dv, qg, kg, vg
+    for name, t in time_split_at(torch, tfa, **LLAMA_SHAPE).items():
+        res[name]["llama3_8b"] = t
     return res
 
 
@@ -1232,9 +1329,13 @@ def main():
               f"({t['bound_by']}, {t['bytes']} B)")
 
     # phase 3b
-    fwd_ptxas = ptxas_forward(ptxas)
+    hopper_ptxas = ptxas_report(ptxas)
     print("ptxas: flash forward (registers at launch; setmaxnreg gives the "
-          "consumers 240, the producer 24): " + json.dumps(fwd_ptxas))
+          "consumers 240, the producer 24): "
+          + json.dumps(hopper_ptxas["fa_fwd_kernel"]))
+    print("ptxas: flash dk/dv (registers at launch; setmaxnreg gives the "
+          "consumers 232, the producer 40): "
+          + json.dumps(hopper_ptxas["fa_bwd_dkv_kernel"]))
     fa_err = check_flash(torch, tfa)
     fa_times = time_flash(torch, tfa)
     turns = fa_times["flash_attention_fwd"]["turns_ms"]
@@ -1244,14 +1345,22 @@ def main():
           f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.3f}")
     print("timing: host us to issue one call: forward " + json.dumps(
         fa_times["flash_attention_fwd"]["host_us"]) + ", fused backward "
-        + json.dumps(fa_times["flash_attention_bwd_fused"]["host_us"]))
+        + json.dumps(fa_times["flash_attention_bwd_fused"]["host_us"])
+        + ", dk/dv " + json.dumps(
+            fa_times["flash_attention_bwd_dkv"]["host_us"]))
     for name, t in fa_times.items():
-        print(f"timing: {name} at (288, 1024, 1024, 64) causal: "
-              f"{t['ms']:.4f} ms on the card ({t['ms_host_paced']:.4f} ms "
-              f"as issued), plain {t['plain_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bytes']} B, "
-              f"{t['flop']} FLOP, {t['flop'] / t['ms'] / 1e9:.1f} TFLOP/s), "
-              f"scaled_dot_product_attention {t['library_ms']:.4f} ms")
+        for shape, tt in (("(288, 1024, 1024, 64)", t),
+                          ("Llama-3 8B's (32, 4096, 4096, 128)",
+                           t.get("llama3_8b"))):
+            if tt is None:
+                continue
+            print(f"timing: {name} at {shape} causal: "
+                  f"{tt['ms']:.4f} ms on the card ({tt['ms_host_paced']:.4f} "
+                  f"ms as issued), plain {tt['plain_ms']:.4f} ms, bound "
+                  f"{tt['bound_ms']:.4f} ms ({tt['bound_by']}; {tt['bytes']} "
+                  f"B, {tt['flop']} FLOP, "
+                  f"{tt['flop'] / tt['ms'] / 1e9:.1f} TFLOP/s), "
+                  f"scaled_dot_product_attention {tt['library_ms']:.4f} ms")
 
     # phase 4 — warm-up (cuBLAS handles, allocator) on a throwaway engine
     reqs = make_requests(np, seed=0, vocab=50257)
@@ -1358,6 +1467,11 @@ def main():
             "timed_work": "GPT-2 attention, (288, 1024, 1024, 64) causal",
             "launches_in": run,
         })
+        if "llama3_8b" in t:
+            kernels[-1]["llama3_8b"] = {
+                key: t["llama3_8b"][key]
+                for key in ("shape", "ms", "ms_host_paced", "plain_ms",
+                            "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -64,22 +64,76 @@
 //   - softmax: exp2 by ex2.approx.ftz for p (subnormal p flushed to 0, a
 //     value no sum next to the row max's 1 can see), one reciprocal per
 //     row for o = acc / l.
-// The backward kernels keep the first design, simple on purpose:
-//   - 4 warps per block, each owns 16 rows of a 64-row tile; products are
-//     mma.sync m16n8k16 bf16 -> f32 with ldmatrix fragment loads from
-//     shared memory rows padded by 8 bf16 (conflict-free ldmatrix);
-//   - tiles come in with cp.async (16 B per thread per copy).  The dq and
-//     dk/dv kernels keep one buffer per operand and wait for each tile:
-//     latency is hidden by the other resident blocks;
-//   - dq: one block per (bh, q tile), loop over kv tiles, dq in registers;
-//   - dk/dv: one block per (bh, kv tile), loop over q tiles, dk and dv in
-//     registers.
+// The dk/dv kernel (fa_bwd_dkv_kernel) follows the forward's design:
+//   - work: a persistent block per SM walks (head, 128-row kv tile) items
+//     in pairs of equal causal work, kv tile p with tile nkt - 1 - p of
+//     the same head, dealt round robin over heads in order, so blocks get
+//     the same work and a round's heads keep their Q and dO in L2
+//     (DkvItems); two consumer warpgroups own 64 kv rows each, one
+//     producer warpgroup feeds them;
+//   - loads: an item's K and V come in once by TMA into one of two kv
+//     buffers (item i + 1's load flies while item i computes) and stay
+//     there as the A operands; each q tile's Q and dO (BQ = 128 rows at
+//     D = 64, 64 at D = 128) come by TMA into a ring of stages (3 at
+//     D = 64, 2 at D = 128), each with `full`, `scaled` and `empty`
+//     mbarriers; skipped: q tiles before the item's first_q_tile, and a
+//     warpgroup's tiles before its own;
+//   - products, all wgmma m64nNk16 bf16 -> f32: S^T = K Q_s^T and dP^T =
+//     V dO^T with both operands from shared memory (K-major), then dV +=
+//     P^T dO and dK += dS^T Q with P^T and dS^T packed from the
+//     accumulator into A registers (c_to_a) and dO, Q MN-major; dS^T is
+//     computed while dV += P^T dO flies; dK and dV stay in registers.
+//     Each group is issued and waited for inside one q tile's iteration,
+//     its A registers packed there too: ptxas serialised the products
+//     when a group stayed in flight across the loop's back-edge, and when
+//     a group's A registers came from the previous iteration (PERF.md);
+//   - why Q_s sits in shared memory: wgmma reads B only from shared
+//     memory, and S^T needs q pre-scaled and rounded to bf16 as the
+//     reference rounds it (scaling the f32 accumulator instead would drop
+//     that rounding).  Warps 9-11 of the producer warpgroup, idle
+//     otherwise, write Q_s = bf16(q * sm_scale * log2 e) from the landed
+//     Q at the same swizzled offsets, and each row's -lse * log2 e (-inf
+//     past sq or where lse is -inf, so p = 0 there by construction) and
+//     delta; then fence.proxy.async and arrive on the stage's `scaled`
+//     mbarrier.  A global pre-scaled q would cost a launch and a write and
+//     a read of q (37.7 MB at GPT-2's step, ~23 us);
+//   - p: exp2 by ex2.approx.ftz, as the forward's p; each pair rounded to
+//     bf16 by the one packed conversion that makes P^T's A fragment, and
+//     the rounded values taken back from it by bit moves for dS^T
+//     (dropping a third conversion a value so cut this phase's SM clocks
+//     by a third: PERF.md);
+//   - masks: only on q tiles that straddle the causal diagonal; kv rows
+//     past sk compute garbage of their own that is never stored;
+//   - stores: dK and dV go to bf16 in the warpgroup's own rows of the K
+//     and V tiles (free once its last product lands), swizzled, then one
+//     TMA store per 64-column slab, which drops rows past sk; the buffer
+//     is handed back to the producer when the stores have read it.  Every
+//     row is written once, no atomics and no scratch: two runs are
+//     bitwise equal;
+//   - memory and registers: two kv buffers of 2 x 128 x D bf16 and the
+//     ring: 217,192 B of dynamic shared memory at D = 64 and 231,504 B at
+//     D = 128 (one block an SM); 384 threads launch with 168 registers,
+//     setmaxnreg leaves the producer 40 and gives the consumers 232 (dK,
+//     dV, S^T and dP^T take 192 floats a thread at either D; nvcc
+//     -Xptxas -v: no spill);
+//   - bound: at GPT-2's step, 77.4 GFLOP of products against 228.9 MB of
+//     operands (78 against 68 us), and at Llama-3 8B's (32 heads, T =
+//     4096, D = 128) 274.9 GFLOP against 202.4 MB (278 against 60 us):
+//     operations, so the design keeps the tensor cores fed: operands by
+//     TMA and producer warps, one warpgroup's exponentials and dS under
+//     the other's products.
+// The dq kernel keeps the first design, simple on purpose: 4 warps a
+// block, each owning 16 rows of a 64-row tile; products are mma.sync
+// m16n8k16 bf16 -> f32 with ldmatrix fragment loads from shared-memory
+// rows padded by 8 bf16; one block per (bh, q tile) loops over kv tiles,
+// one cp.async buffer per operand, waiting for each tile (latency is
+// hidden by the other resident blocks), dq in registers.
 //
 // The fused backward is one launch of bh * (ceil(sk/64) + ceil(sq/64))
 // blocks (9216 at GPT-2's step) in two roles, none waiting on another:
 //   - roles: a dk/dv role per (bh, 64-row kv tile) loops over the q tiles
-//     that see its keys, dk and dv in registers (the dk/dv kernel's
-//     per-tile code with p kept float32); a dq role per (bh, 64-row q tile)
+//     that see its keys, dk and dv in registers (kv_tile_step: mma.sync
+//     on padded rows, p kept float32); a dq role per (bh, 64-row q tile)
 //     loops over the kv tiles its rows see, dq in registers (the dq
 //     kernel's per-tile code, in the same order, so its dq equals the dq
 //     kernel's bit for bit).  Every output row belongs to one block, which
@@ -114,13 +168,12 @@
 //     design, 1.61 ms at GPT-2's step).  With dq summed over kv tiles and
 //     dk/dv over q tiles by different blocks, each role recomputes S and
 //     dP: 135.4 GFLOP of products for the function's 96.7 at GPT-2's step.
-//   - next: the forward's wgmma, mbarrier and TMA helpers for it (products
-//     from shared memory, the only way to the tensor cores' full rate, fed
-//     by a producer), which frees the registers and issue slots that
-//     ldmatrix and address arithmetic take now; then FlashAttention-3's one
-//     role, dq added in float32 in device memory under a per-tile
-//     semaphore that fixes the order of the kv tiles (deterministic, 5
-//     products, but blocks wait on each other).
+//   - next: the dk/dv kernel's wgmma, mbarrier and TMA design for it
+//     (products from shared memory, the only way to the tensor cores' full
+//     rate, fed by a producer); then FlashAttention-3's one role, dq added
+//     in float32 in device memory under a per-tile semaphore that fixes the
+//     order of the kv tiles (deterministic, 5 products, but blocks wait on
+//     each other).
 //
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError() (or the error of cudaFuncSetAttribute, of the
@@ -211,10 +264,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ uint32_t scale_pair(uint32_t r, float s) {
   float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
   return pack_bf16(f.x * s, f.y * s);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // ---------------------------------------------------------------- fragments
@@ -516,6 +565,49 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[16][4],
         "r"(accumulate), "n"(kTransB));
 }
 
+// d (m64 x N, f32) (+)= A (m64 x k16) * B (k16 x N), bf16, both from shared
+// memory by descriptor and both K-major (the dk/dv kernel's S^T = K Q_s^T
+// and dP^T = V dO^T, whose A tiles stay in shared memory for a whole item)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        WG_ACC4(0), WG_ACC4(1), WG_ACC4(2), WG_ACC4(3),
+        WG_ACC4(4), WG_ACC4(5), WG_ACC4(6), WG_ACC4(7)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        WG_ACC4(0), WG_ACC4(1), WG_ACC4(2), WG_ACC4(3),
+        WG_ACC4(4), WG_ACC4(5), WG_ACC4(6), WG_ACC4(7),
+        WG_ACC4(8), WG_ACC4(9), WG_ACC4(10), WG_ACC4(11),
+        WG_ACC4(12), WG_ACC4(13), WG_ACC4(14), WG_ACC4(15)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef WG_ACC4
 
 template <int N, int kTransB>
@@ -527,6 +619,16 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 8][4],
     wgmma_n64<kTransB>(d, a, desc, accumulate);
   else
     wgmma_n128<kTransB>(d, a, desc, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, da, db, accumulate);
+  else
+    wgmma_ss_n128(d, da, db, accumulate);
 }
 
 // The forward's shapes: a block takes 128 q rows, two consumer warpgroups
@@ -1069,17 +1171,17 @@ fa_bwd_dq_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 }
 
 // ------------------------------------------------ backward: one q tile's work
-// for a 64-row kv tile: S^T, P^T, dV, dP^T, dS^T and dK, shared by the dk/dv
-// kernel and the fused kernel.  Leaves dS^T (f32, C layout) in `st`.  S^T
-// takes q pre-scaled: from `sQs` as it is, or (kScaleQ) from sQ with each
-// fragment scaled in registers.
+// for a 64-row kv tile: S^T, P^T, dV, dP^T, dS^T and dK, the fused kernel's
+// dk/dv role.  Leaves dS^T (f32, C layout) in `st`.  S^T takes the
+// pre-scaled q from `sQs`; p stays float32 before dS, as the Pallas fused
+// kernel's pT.
 
-template <int D, int BQ, bool kRoundP, bool kScaleQ>
+template <int D, int BQ>
 __device__ __forceinline__ void kv_tile_step(
     const bf16* sK, const bf16* sV, const bf16* sQ, const bf16* sQs,
     const bf16* sdO, const float* sL, const float* sD, int kv0, int q0,
-    int sk, int off, int causal, float scale_log2, float sm_scale,
-    float (&dk)[D / 8][4], float (&dv)[D / 8][4], float (&st)[BQ / 8][4]) {
+    int sk, int off, int causal, float sm_scale, float (&dk)[D / 8][4],
+    float (&dv)[D / 8][4], float (&st)[BQ / 8][4]) {
   constexpr int LD = D + 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -1094,13 +1196,7 @@ __device__ __forceinline__ void kv_tile_step(
 #pragma unroll
     for (int np = 0; np < BQ / 16; ++np) {
       uint32_t b[4];
-      if (kScaleQ) {
-        ld_b_n(b, sQ, LD, np * 16, kb * 16, lane);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) b[r] = scale_pair(b[r], scale_log2);
-      } else {
-        ld_b_n(b, sQs, LD, np * 16, kb * 16, lane);
-      }
+      ld_b_n(b, sQs, LD, np * 16, kb * 16, lane);
       mma(st[2 * np], ak, b[0], b[1]);
       mma(st[2 * np + 1], ak, b[2], b[3]);
       ld_b_n(b, sdO, LD, np * 16, kb * 16, lane);
@@ -1122,9 +1218,7 @@ __device__ __forceinline__ void kv_tile_step(
         if (kv >= sk || (causal && kv > q0 + qc + off)) sv = kNegInf;
       }
       const float L = sL[qc];
-      float p = isfinite(L) ? exp2f(sv - L * kLog2e) : 0.f;
-      if (kRoundP) p = round_bf16(p);
-      st[nt][e] = p;
+      st[nt][e] = isfinite(L) ? exp2f(sv - L * kLog2e) : 0.f;
     }
   // dV += P^T dO
 #pragma unroll
@@ -1161,24 +1255,6 @@ __device__ __forceinline__ void kv_tile_step(
   }
 }
 
-// load one q tile's rows of Q, dO, lse and delta (rows past sq: lse -inf,
-// so p = 0 there, and delta 0)
-template <int D, int BQ>
-__device__ __forceinline__ void load_q_tile(
-    bf16* sQ, bf16* sdO, float* sL, float* sD, const bf16* Qb,
-    const bf16* dOb, const float* Lb, const float* Db, int q0, int sq) {
-  constexpr int LD = D + 8;
-  load_rows<D>(sQ, LD, Qb, q0, sq, BQ);
-  load_rows<D>(sdO, LD, dOb, q0, sq, BQ);
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    const int row = q0 + r;
-    sL[r] = row < sq ? Lb[row] : -INFINITY;
-    sD[r] = row < sq ? Db[row] : 0.f;
-  }
-  cp_async_wait_all();
-  __syncthreads();
-}
-
 template <int D>
 __device__ __forceinline__ void store_kv_rows(bf16* dK, bf16* dV,
                                               const float (&dk)[D / 8][4],
@@ -1200,50 +1276,387 @@ __device__ __forceinline__ void store_kv_rows(bf16* dK, bf16* dV,
   }
 }
 
+// ---------------------------------------------------------- backward: dk/dv
+// Hopper's dk/dv kernel (the source note above): a persistent block per
+// SM walks (head, 128-row kv tile) items.  Warpgroup 2 feeds: its thread
+// 256 issues every TMA load, each item's K and V into one of two kv
+// buffers and each q tile's Q and dO into a ring of stages; its warps 9-11
+// write each stage's pre-scaled Q_s = bf16(q * sm_scale * log2 e) beside Q,
+// and the stage's -lse * log2 e and delta.  Warpgroups 0 and 1 own 64 kv
+// rows each and issue the four products of every q tile with wgmma.
+
+constexpr int kDkvThreads = 384;
+constexpr int kDkvBK = 128;  // kv rows of an item, 64 per consumer warpgroup
+constexpr int kDkvHelpers = 96;  // warps 9-11: Q_s, lse and delta
+constexpr int kDkvProducerRegs = 40;
+constexpr int kDkvConsumerRegs = 232;
+
+// Hooks for fa_bwd_variants.py's timed build, which sums a consumer
+// warpgroup's SM clocks between the stamps of its q tiles' phases; empty
+// here
+#define DKV_CLOCKS_BEGIN
+#define DKV_STAMP(k)
+#define DKV_CLOCKS_END
+
+// The dk/dv kernel's shapes: q tiles of BQ rows (128 at D = 64, where S^T
+// and dP^T then take 64 floats a thread each; 64 at D = 128) in a ring of
+// S stages, each Q, dO and Q_s (64-column slabs of the 128-byte swizzle)
+// and BQ floats each of -lse * log2 e and delta; two kv buffers of K then
+// V (128 rows), which also stage dK and dV for their TMA stores.
+template <int D>
+struct Dkv {
+  static constexpr int BQ = D == 64 ? 128 : 64;
+  static constexpr int S = D == 64 ? 3 : 2;
+  static constexpr int kKV = kDkvBK * D * 2;   // K (or V) of an item
+  static constexpr int kTile = BQ * D * 2;     // a Q, dO or Q_s tile
+  static constexpr int kStage = 3 * kTile;
+  static constexpr size_t smem =  // + 1024: align the tiles
+      1024 + 4 * kKV + S * (kStage + 2 * BQ * sizeof(float)) +
+      (3 * S + 4) * sizeof(uint64_t);
+};
+static_assert(Dkv<64>::smem <= 232448 && Dkv<128>::smem <= 232448,
+              "the dk/dv kernel's shared memory exceeds a block's");
+
+// The work items of the dk/dv kernel are the (bh, 128-row kv tile) pairs.
+// Under the causal mask kv tile t sees about nkt - t q tiles, so the items
+// go in pairs of one head's tiles p and nkt - 1 - p, whose work is about
+// the same for every p (an odd nkt's middle tile alone), the heavier
+// first.  Block b takes pairs b, b + G, b + 2G, ...: every block gets
+// nearly the same work, and a round of G pairs spans G / npairs
+// consecutive heads, whose Q and dO stay in L2.
+struct DkvItems {
+  int nkt, npairs, total;  // total: pairs
+  __device__ DkvItems(int nbh, int nkt_)
+      : nkt(nkt_), npairs((nkt_ + 1) / 2), total(nbh * ((nkt_ + 1) / 2)) {}
+  // item i of this block: false past the last one, else its head and
+  // first kv row
+  __device__ bool get(int i, int& bh, int& kv0) const {
+    for (int w = blockIdx.x; w < total; w += gridDim.x) {
+      const int head = w / npairs, p = w - head * npairs;
+      const int n = 2 * p + 1 == nkt ? 1 : 2;
+      if (i < n) {
+        bh = head;
+        kv0 = (i == 0 ? p : nkt - 1 - p) * kDkvBK;
+        return true;
+      }
+      i -= n;
+    }
+    return false;
+  }
+};
+
 // first q tile whose rows can see kv row kv0 (causal), 0 otherwise
 __device__ __forceinline__ int first_q_tile(int kv0, int off, int causal,
                                             int BQ) {
   return causal ? max(0, kv0 - off) / BQ : 0;
 }
 
-// ---------------------------------------------------------- backward: dk/dv
-
+// S^T = K Q_s^T (or dP^T = V dO^T) for one q tile: A = this warpgroup's 64
+// rows of the K (V) tile, B = the Q_s (dO) tile, both K-major, k16 slices
+// across the 64-column slabs
 template <int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dkv_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
-                  const bf16* __restrict__ V, const bf16* __restrict__ dO,
+__device__ __forceinline__ void issue_kq(float (&d)[BQ / 8][4],
+                                         const unsigned char* sA,
+                                         const unsigned char* sB) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<BQ>(d,
+                 sw128_desc(sA + (kk / 4) * kDkvBK * 128 + (kk % 4) * 32, 16),
+                 sw128_desc(sB + (kk / 4) * BQ * 128 + (kk % 4) * 32, 16),
+                 kk > 0);
+}
+
+// dV += P^T dO (or dK += dS^T Q) for one q tile: A = the packed rows in
+// registers, B = the dO (Q) tile, MN-major (its 64-column slabs the
+// leading byte offset apart)
+template <int D, int BQ>
+__device__ __forceinline__ void issue_acc(float (&d)[D / 8][4],
+                                          const uint32_t (&a)[BQ / 16][4],
+                                          const unsigned char* sB) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk)
+    wgmma<D, 1>(d, a[kk], sw128_desc(sB + kk * 16 * 128, BQ * 128), 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmQ,
+                  const __grid_constant__ CUtensorMap tmdO,
+                  const __grid_constant__ CUtensorMap tmK,
+                  const __grid_constant__ CUtensorMap tmV,
+                  const __grid_constant__ CUtensorMap tmdK,
+                  const __grid_constant__ CUtensorMap tmdV,
                   const float* __restrict__ LSE,
-                  const float* __restrict__ DELTA, bf16* __restrict__ dK,
-                  bf16* __restrict__ dV, int sq, int sk, int causal,
-                  float scale_log2, float sm_scale) {
-  constexpr int BK = kTile, LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BK * LD;
-  bf16* sQ = sV + BK * LD;
-  bf16* sdO = sQ + BQ * LD;
-  float* sL = reinterpret_cast<float*>(sdO + BQ * LD);
-  float* sD = sL + BQ;
+                  const float* __restrict__ DELTA, int nbh, int sq, int sk,
+                  int causal, float scale_log2, float sm_scale) {
+  using P = Dkv<D>;
+  constexpr int BQ = P::BQ, S = P::S;
+  constexpr int kKSlab = kDkvBK * 128;  // a 64-column slab of K, V, dK, dV
+  constexpr int kQSlab = BQ * 128;      // ... of Q, dO, Q_s
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kv =  // buffer b: K at kv + 2 b kKV, V after it
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = kv + 4 * P::kKV;  // stage s: Q, dO, Q_s
+  float* stats = reinterpret_cast<float*>(ring + S * P::kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + S * 2 * BQ);
+  uint64_t* scaled = full + S;  // Q_s, -lse log2 e and delta written
+  uint64_t* empty = scaled + S;
+  uint64_t* kv_full = empty + S;
+  uint64_t* kv_empty = kv_full + 2;  // the buffer's dK and dV stores read
 
-  const int kv0 = blockIdx.x * BK;
-  const size_t bh = blockIdx.y;
-  const int off = sk - sq;
-  load_rows<D>(sK, LD, K + bh * sk * D, kv0, sk, BK);
-  load_rows<D>(sV, LD, V + bh * sk * D, kv0, sk, BK);
-
-  float dk[D / 8][4], dv[D / 8][4], st[BQ / 8][4];
-  zero(dk);
-  zero(dv);
+  const DkvItems items(nbh, (sk + kDkvBK - 1) / kDkvBK);
   const int nqt = (sq + BQ - 1) / BQ;
-  for (int i = first_q_tile(kv0, off, causal, BQ); i < nqt; ++i) {
-    __syncthreads();
-    load_q_tile<D, BQ>(sQ, sdO, sL, sD, Q + bh * sq * D, dO + bh * sq * D,
-                       LSE + bh * sq, DELTA + bh * sq, i * BQ, sq);
-    kv_tile_step<D, BQ, true, true>(sK, sV, sQ, sQ, sdO, sL, sD, kv0, i * BQ,
-                                    sk, off, causal, scale_log2, sm_scale, dk,
-                                    dv, st);
+  const int off = sk - sq;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&scaled[s], kDkvHelpers);
+      mbar_init(&empty[s], 8);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&kv_full[b], 1);
+      mbar_init(&kv_empty[b], 2);
+    }
+    mbar_fence_init();
   }
-  store_kv_rows<D>(dK + bh * sk * D, dV + bh * sk * D, dk, dv, kv0, sk);
+  __syncthreads();
+
+  if (wg == 2) {  // producer; no wait counts on a loop's length
+    regs_dec<kDkvProducerRegs>();
+    int it = 0, bh, kv0;  // it: q tiles issued so far, the ring position
+    if (threadIdx.x == 2 * 128) {
+      tma_prefetch(&tmQ);
+      tma_prefetch(&tmdO);
+      tma_prefetch(&tmK);
+      tma_prefetch(&tmV);
+      for (int i = 0; items.get(i, bh, kv0); ++i) {
+        const int b = i & 1;
+        if (i >= 2) mbar_wait(&kv_empty[b], ((i >> 1) - 1) & 1);
+        unsigned char* sK = kv + b * 2 * P::kKV;
+        mbar_arrive_expect_tx(&kv_full[b], 2 * P::kKV);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_3d(sK + c * kKSlab, &tmK, &kv_full[b], 64 * c, kv0, bh);
+          tma_load_3d(sK + P::kKV + c * kKSlab, &tmV, &kv_full[b], 64 * c,
+                      kv0, bh);
+        }
+        for (int qt = first_q_tile(kv0, off, causal, BQ); qt < nqt;
+             ++qt, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+          unsigned char* dst = ring + s * P::kStage;
+          mbar_arrive_expect_tx(&full[s], 2 * P::kTile);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_3d(dst + c * kQSlab, &tmQ, &full[s], 64 * c, qt * BQ,
+                        bh);
+            tma_load_3d(dst + P::kTile + c * kQSlab, &tmdO, &full[s], 64 * c,
+                        qt * BQ, bh);
+          }
+        }
+      }
+    } else if (threadIdx.x >= 3 * 128 - kDkvHelpers) {
+      // Q_s from the landed Q, 16 bytes a step at the same offset (both
+      // tiles are 1024-B aligned, so one swizzle serves both), and the
+      // rows' -lse * log2 e (-inf past sq or where lse is -inf, so p = 0
+      // there) and delta (0 past sq); their loads go out before the wait
+      constexpr int kRows = (BQ + kDkvHelpers - 1) / kDkvHelpers;
+      const int h = threadIdx.x - (3 * 128 - kDkvHelpers);
+      for (int i = 0; items.get(i, bh, kv0); ++i) {
+        const float* Lb = LSE + static_cast<size_t>(bh) * sq;
+        const float* Db = DELTA + static_cast<size_t>(bh) * sq;
+        for (int qt = first_q_tile(kv0, off, causal, BQ); qt < nqt;
+             ++qt, ++it) {
+          const int s = it % S;
+          float nl[kRows], dl[kRows];
+#pragma unroll
+          for (int u = 0; u < kRows; ++u) {
+            const int row = qt * BQ + h + u * kDkvHelpers;
+            const bool ok = h + u * kDkvHelpers < BQ && row < sq;
+            const float L = ok ? Lb[row] : -INFINITY;
+            nl[u] = isfinite(L) ? -(L * kLog2e) : -INFINITY;
+            dl[u] = ok ? Db[row] : 0.f;
+          }
+          mbar_wait(&full[s], (it / S) & 1);
+          float* sNL = stats + s * 2 * BQ;
+#pragma unroll
+          for (int u = 0; u < kRows; ++u)
+            if (h + u * kDkvHelpers < BQ) {
+              sNL[h + u * kDkvHelpers] = nl[u];
+              sNL[BQ + h + u * kDkvHelpers] = dl[u];
+            }
+          const unsigned char* sQ = ring + s * P::kStage;
+          unsigned char* sQs = ring + s * P::kStage + 2 * P::kTile;
+          for (int c = h; c < P::kTile / 16; c += kDkvHelpers) {
+            uint4 v = *reinterpret_cast<const uint4*>(sQ + 16 * c);
+            v.x = scale_pair(v.x, scale_log2);
+            v.y = scale_pair(v.y, scale_log2);
+            v.z = scale_pair(v.z, scale_log2);
+            v.w = scale_pair(v.w, scale_log2);
+            *reinterpret_cast<uint4*>(sQs + 16 * c) = v;
+          }
+          fence_proxy_async();  // Q_s is read next by wgmma (async proxy)
+          mbar_arrive_if(&scaled[s], true);
+        }
+      }
+    }
+    return;
+  }
+  regs_inc<kDkvConsumerRegs>();
+
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x >> 5) & 3, 0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rw = warp * 16 + g;  // this thread's rows of the 64: rw, rw + 8
+  const bool leader = (threadIdx.x & 127) == 0;  // issues the dK, dV stores
+  float dk[D / 8][4], dv[D / 8][4], sT[BQ / 8][4], dpT[BQ / 8][4];
+  uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+  int it = 0, bh, kv0;
+  DKV_CLOCKS_BEGIN;
+  int pend = -1;  // kv buffer whose stores this warpgroup has not seen read
+  // the stores of the previous item have read buffer `pend`: the producer
+  // may load the next item but one into it
+  auto free_pending = [&]() {
+    if (pend >= 0) {
+      if (leader) tma_store_wait_read();
+      mbar_arrive_if(&kv_empty[pend], leader);
+      pend = -1;
+    }
+  };
+  for (int i = 0; items.get(i, bh, kv0); ++i) {
+    const int b = i & 1;
+    unsigned char* sK = kv + b * 2 * P::kKV;
+    unsigned char* sV = sK + P::kKV;
+    const int kvw = kv0 + wg * 64;  // this warpgroup's first kv row
+    const int my_first = min(first_q_tile(kvw, off, causal, BQ), nqt);
+    zero(dk);
+    zero(dv);
+    mbar_wait(&kv_full[b], (i >> 1) & 1);
+    // q tiles only the other warpgroup's rows see: let them through
+    for (int qt = first_q_tile(kv0, off, causal, BQ); qt < my_first;
+         ++qt, ++it) {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      release(&empty[s]);
+      free_pending();
+    }
+    for (int qt = my_first; qt < nqt; ++qt, ++it) {
+      const int s = it % S;
+      const unsigned char* sQ = ring + s * P::kStage;
+      const unsigned char* sdO = sQ + P::kTile;
+      const float* sNL = stats + s * 2 * BQ;
+      DKV_STAMP(0);
+      mbar_wait(&full[s], (it / S) & 1);
+      mbar_wait(&scaled[s], (it / S) & 1);
+      DKV_STAMP(1);
+      reg_fence(sT);
+      reg_fence(dpT);
+      wgmma_fence();
+      issue_kq<D, BQ>(sT, sK + wg * 64 * 128, sQ + 2 * P::kTile);
+      wgmma_commit();
+      issue_kq<D, BQ>(dpT, sV + wg * 64 * 128, sdO);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T is in; dP^T may still fly
+      reg_fence(sT);
+      DKV_STAMP(2);
+      // p^T = bf16(exp2(s^T - lse log2 e)), exp2 as the forward's p; the
+      // causal mask only on a tile that straddles the diagonal (rows past
+      // sk are never stored)
+      const int q0 = qt * BQ;
+      const bool masked = causal && kvw + 63 > q0 + off;
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt) {
+        const float2 nl =
+            *reinterpret_cast<const float2*>(sNL + nt * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sv = sT[nt][e];
+          if (masked && kvw + rw + (e >> 1) * 8 >
+                            q0 + nt * 8 + 2 * t + (e & 1) + off)
+            sv = kNegInf;
+          sT[nt][e] = ex2_ftz(sv + ((e & 1) ? nl.y : nl.x));
+        }
+      }
+      // P^T's A fragments, each pair of p rounded to bf16 by one packed
+      // conversion; dS^T takes the rounded p back from them by bit moves
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        c_to_a(pa[kk], sT, kk);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          sT[2 * kk + (r >> 1)][2 * (r & 1)] =
+              __uint_as_float(pa[kk][r] << 16);
+          sT[2 * kk + (r >> 1)][2 * (r & 1) + 1] =
+              __uint_as_float(pa[kk][r] & 0xffff0000u);
+        }
+      }
+      DKV_STAMP(3);
+      wgmma_wait<0>();  // dP^T is in
+      reg_fence(dpT);
+      reg_fence(dv);
+      DKV_STAMP(4);
+      wgmma_fence();
+      issue_acc<D, BQ>(dv, pa, sdO);
+      wgmma_commit();
+      // dS^T = p^T (dP^T - delta) sm_scale while dV += P^T dO flies
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(sNL + BQ + nt * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sT[nt][e] =
+              sT[nt][e] * (dpT[nt][e] - ((e & 1) ? dl.y : dl.x)) * sm_scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) c_to_a(da[kk], sT, kk);
+      reg_fence(dk);
+      wgmma_fence();
+      issue_acc<D, BQ>(dk, da, sQ);
+      wgmma_commit();
+      DKV_STAMP(5);
+      wgmma_wait<0>();  // both in: the stage is free
+      reg_fence(dv);
+      reg_fence(dk);
+      reg_fence(pa);
+      reg_fence(da);
+      DKV_STAMP(6);
+      release(&empty[s]);
+      free_pending();
+    }
+    free_pending();  // an item with no q tile of this warpgroup's
+
+    // dK and dV as bf16 into this warpgroup's rows of the K and V tiles
+    // (its products are done with them), 16-byte chunks XOR-swizzled by row
+    // as TMA expects, then one TMA store per slab, which drops rows past sk
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wg * 64 + rw + h * 8;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const int o = (dt / 8) * kKSlab + r * 128 +
+                      (((dt % 8) ^ (r & 7)) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(sK + o) =
+            pack_bf16(dk[dt][2 * h], dk[dt][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(sV + o) =
+            pack_bf16(dv[dt][2 * h], dv[dt][2 * h + 1]);
+      }
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+    if (leader && kvw < sk) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_store_3d(&tmdK, sK + c * kKSlab + wg * 64 * 128, 64 * c, kvw, bh);
+        tma_store_3d(&tmdV, sV + c * kKSlab + wg * 64 * 128, 64 * c, kvw, bh);
+      }
+    }
+    pend = b;
+    DKV_STAMP(7);
+  }
+  if (leader) tma_store_wait();
+  DKV_CLOCKS_END;
 }
 
 // ---------------------------------------------------------- backward: fused
@@ -1293,8 +1706,7 @@ __host__ __device__ constexpr size_t dq_role_smem() {
 }
 
 // dk and dv of the kv tile at kv0: loop over the q tiles that see it, the
-// next tile's copies in flight while this one computes.  p stays float32
-// before dS (kv_tile_step<..., false>), as the Pallas fused kernel's pT.
+// next tile's copies in flight while this one computes.
 template <int D, int BQ>
 __device__ __forceinline__ void dkv_role(
     unsigned char* smem, const bf16* Qb, const bf16* Kb, const bf16* Vb,
@@ -1335,9 +1747,9 @@ __device__ __forceinline__ void dkv_role(
       issue_q_tile<D, BQ>(q_of(cur ^ 1), q_of(cur ^ 1) + BQ * LD,
                           l_of(cur ^ 1), l_of(cur ^ 1) + BQ, Qb, dOb, Lb, Db,
                           (i + 1) * BQ, sq);
-    kv_tile_step<D, BQ, false, false>(
-        sK, sV, sQ, sQ + 2 * BQ * LD, sQ + BQ * LD, l_of(cur), l_of(cur) + BQ,
-        kv0, i * BQ, sk, off, causal, scale_log2, sm_scale, dk, dv, st);
+    kv_tile_step<D, BQ>(sK, sV, sQ, sQ + 2 * BQ * LD, sQ + BQ * LD,
+                        l_of(cur), l_of(cur) + BQ, kv0, i * BQ, sk, off,
+                        causal, sm_scale, dk, dv, st);
   }
   store_kv_rows<D>(dKb, dVb, dk, dv, kv0, sk);
 }
@@ -1545,8 +1957,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q tile of the dk/dv and fused kernels: 64 rows at D = 64, 32 at D = 128
-// (keeps dk, dv, S^T and dP^T in registers)
+// q tile of the fused kernel: 64 rows at D = 64, 32 at D = 128 (keeps dk,
+// dv, S^T and dP^T in registers)
 template <int D>
 constexpr int bwd_bq() { return D == 64 ? 64 : 32; }
 
@@ -1555,15 +1967,35 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int bh, int sq, int sk, int causal, float scale_log2,
                float sm_scale, cudaStream_t stream) {
-  constexpr int BQ = bwd_bq<D>();
-  const size_t smem = (2 * kTile + 2 * BQ) * (D + 8) * sizeof(bf16) +
-                      2 * BQ * sizeof(float);
-  auto kern = fa_bwd_dkv_kernel<D, BQ>;
+  using P = Dkv<D>;
+  // TMA moves q, k, v, dO, dk and dv from and to 16-byte aligned addresses
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) &
+      15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap tmQ, tmdO, tmK, tmV, tmdK, tmdV;
+  if (int rc = encode_map(&tmQ, q, bh, sq, D, P::BQ)) return rc;
+  if (int rc = encode_map(&tmdO, dout, bh, sq, D, P::BQ)) return rc;
+  if (int rc = encode_map(&tmK, k, bh, sk, D, kDkvBK)) return rc;
+  if (int rc = encode_map(&tmV, v, bh, sk, D, kDkvBK)) return rc;
+  if (int rc = encode_map(&tmdK, dk, bh, sk, D, 64)) return rc;
+  if (int rc = encode_map(&tmdV, dv, bh, sk, D, 64)) return rc;
+  constexpr size_t smem = P::smem;
+  auto kern = fa_bwd_dkv_kernel<D>;
   if (int rc = prepare(kern, smem)) return rc;
-  dim3 grid((sk + kTile - 1) / kTile, bh);
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, (bf16*)dk, (bf16*)dv, sq, sk, causal, scale_log2, sm_scale);
+  const long long pairs =
+      static_cast<long long>((sk + kDkvBK - 1) / kDkvBK + 1) / 2 * bh;
+  if (pairs > 0x3fff0000LL) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  if (int rc = static_cast<int>(cudaGetDevice(&dev))) return rc;
+  if (int rc = static_cast<int>(cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev)))
+    return rc;
+  const int grid = static_cast<int>(pairs > sms ? sms : pairs);
+  kern<<<grid, kDkvThreads, smem, stream>>>(tmQ, tmdO, tmK, tmV, tmdK, tmdV,
+                                            lse, delta, bh, sq, sk, causal,
+                                            scale_log2, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

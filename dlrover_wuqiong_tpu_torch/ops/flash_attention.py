@@ -25,7 +25,8 @@ Semantics pinned from the JAX version:
   dk/dv pair; ``DWT_FA_NO_FUSED`` forces the split pair.  The block
   arguments choose the route only: the CUDA kernels choose their own tiles
   (see ``csrc/flash_attention.cu``: the forward is a persistent Hopper
-  kernel of 128-row q tiles, wgmma products and TMA loads; the backward
+  kernel of 128-row q tiles, wgmma products and TMA loads, and so is the
+  split route's dk/dv kernel, over 128-row kv tiles; the dq and fused
   kernels use 64-row tiles).  On the card the fused
   route is one launch that does the split pair's work in two roles of
   independent blocks (dk/dv per kv tile, dq per q tile, each with a

@@ -1,29 +1,51 @@
 #!/usr/bin/env python3
-"""A/B of the fused flash-attention backward's design choices on one card.
+"""A/B of the flash-attention backward's design choices on one card.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
-    python3 fa_bwd_variants.py
+    python3 fa_bwd_variants.py [--baseline OTHER/flash_attention.cu]
 
 Builds the committed ``dlrover_wuqiong_tpu_torch/csrc/flash_attention.cu``
 and variants of it made by text substitution, one nvcc each, all started
 together, into the git-ignored ``dlrover_wuqiong_tpu_torch/_build/``:
 
 - ``committed``: the source as it is;
-- ``uncapped``: the fused kernel without its ``__launch_bounds__`` block
-  count, so the compiler takes the registers it wants (fewer blocks an SM);
-- ``dq_role_only`` / ``dkv_role_only``: every block of the other role
-  returns at once, so each role's share of the launch is timed alone.
+- the fused backward's: ``uncapped`` (no ``__launch_bounds__`` block
+  count, so the compiler takes the registers it wants and fewer blocks fit
+  an SM), ``dq_role_only`` / ``dkv_role_only`` (every block of the other
+  role returns at once, so each role's share of the launch is timed alone);
+- the dk/dv kernel's: ``dkv_stages2`` (a ring of 2 q-tile stages at
+  D = 64 in place of 3), ``dkv_bq64`` (q tiles of 64 rows at D = 64 in
+  place of 128), ``dkv_per_item`` (one block per work item, the card's
+  block scheduler placing them, in place of a persistent block per SM
+  over pairs of items), ``dkv_exp2f`` (p^T by the accurate ``exp2f`` in
+  place of ``ex2.approx.ftz``), ``dkv_pingpong`` (the two consumer
+  warpgroups issue their S^T and dP^T in strict turns by named barriers,
+  as FlashAttention-3's forward, so one's p^T runs under the other's
+  products), ``dkv_timed`` (the committed kernel summing each consumer
+  warpgroup's SM clocks between the stamps of its q tiles' phases);
+- ``baseline``, with ``--baseline``: another source of the same C
+  interface built as it is (a parent commit's, to time its kernels beside
+  these in one process).
 
-Prints each variant's registers and spills for the fused kernel at D = 64
-and 128 (``-Xptxas -v``), checks that ``committed`` and ``uncapped`` give bitwise
-equal dq, dk and dv, and times every variant's fused launch at GPT-2's
-training shape (288, 1024, 1024, 64) causal, by CUDA events, in the order
-A B C D D C B A, beside the split dq and dk/dv kernels of the committed
-build and ``scaled_dot_product_attention`` forward + backward.  The last
-lines are the card's ``nvidia-smi`` line and one JSON object of the times.
+Prints each build's registers and spills for the fused and dk/dv kernels
+at D = 64 and 128 (``-Xptxas -v``) and any wgmma serialisation note.
+Checks, on seeded inputs at GPT-2's shape: ``committed`` and ``uncapped``
+give bitwise equal dq, dk and dv; every dk/dv variant that computes the
+same arithmetic gives dk and dv bitwise equal to ``committed``'s (at both
+shapes), ``dkv_exp2f``'s and ``baseline``'s dk/dv lie within
+``chip_smoke.FA_TOL`` of the plain backward per row, and ``baseline``'s
+fused dq, dk, dv and split dq equal ``committed``'s bitwise (the fused and
+dq kernels unchanged).  Then times, by CUDA events, in the order A B C ...
+C B A: the fused builds beside the split pair and
+``scaled_dot_product_attention`` forward + backward at GPT-2's training
+shape (288, 1024, 1024, 64) causal, and the dk/dv builds at that shape and
+at Llama-3 8B's (32, 4096, 4096, 128) causal; then the ``dkv_timed``
+build's mean clocks of a q tile's phases at both shapes.  The last lines
+are the card's ``nvidia-smi`` line and one JSON object of the times.
 """
 
+import argparse
 import ctypes
 import json
 import os
@@ -37,11 +59,83 @@ SRC = os.path.join(HERE, "dlrover_wuqiong_tpu_torch", "csrc",
 BOUNDS = re.compile(r"__launch_bounds__\(kThreads, [^)]*\)\n"
                     r"fa_bwd_fused_kernel")
 DISPATCH = "  if (dkv)\n    dkv_role<D, BQ>("
+DKV_STAGES = "  static constexpr int S = D == 64 ? 3 : 2;\n"
+DKV_BQ = "  static constexpr int BQ = D == 64 ? 128 : 64;\n"
+# one block per item: block 2w + h takes item h of pair w alone
+DKV_ITEMS = "    for (int w = blockIdx.x; w < total; w += gridDim.x) {\n"
+DKV_GRID = "  const int grid = static_cast<int>(pairs > sms ? sms : pairs);\n"
+DKV_HOOKS = ("#define DKV_CLOCKS_BEGIN\n#define DKV_STAMP(k)\n"
+             "#define DKV_CLOCKS_END\n")
+# the timed build's hooks: per block and consumer warpgroup, 8 clock sums
+# (stamp k adds the clocks since the previous stamp) and the q tiles
+CLOCK_BLOCKS = 1024
+TIMED_HOOKS = f'''__device__ unsigned long long g_dkv_clock[{CLOCK_BLOCKS} * 2 * 9];
+#define DKV_CLOCKS_BEGIN \\
+  unsigned long long sum_[8] = {{}}, last_ = clock64(), tiles_ = 0
+#define DKV_STAMP(k)                                 \\
+  do {{                                               \\
+    const unsigned long long t_ = clock64();          \\
+    sum_[k] += t_ - last_;                            \\
+    last_ = t_;                                       \\
+    if (k == 6) ++tiles_;                             \\
+  }} while (0)
+#define DKV_CLOCKS_END                                                   \\
+  do {{                                                                  \\
+    if ((threadIdx.x & 127) == 0 && blockIdx.x < {CLOCK_BLOCKS}) {{       \\
+      unsigned long long* o_ = g_dkv_clock + (blockIdx.x * 2 + wg) * 9;  \\
+      for (int k_ = 0; k_ < 8; ++k_) o_[k_] = sum_[k_];                  \\
+      o_[8] = tiles_;                                                    \\
+    }}                                                                   \\
+  }} while (0)
+'''
+CLOCK_READ = ('\nextern "C" int fa_dkv_clock(void* host, int n) {\n  return '
+              'static_cast<int>(cudaMemcpyFromSymbol(host, g_dkv_clock, '
+              'static_cast<size_t>(n) * 8));\n}\n')
+PHASES = ("gap before the tile (release, item start, skipped tiles)",
+          "wait for Q, dO and Q_s", "issue S^T, dP^T; wait S^T", "p^T",
+          "wait dP^T", "issue dV; dS^T; issue dK", "wait dV and dK",
+          "dK, dV stores (all items)")
+DKV_EXP = "sT[nt][e] = ex2_ftz(sv + ((e & 1) ? nl.y : nl.x));"
+# dk/dv builds whose arithmetic is the committed one's: bitwise equal
+DKV_SAME = ("dkv_stages2", "dkv_bq64", "dkv_per_item", "dkv_pingpong",
+            "dkv_timed")
+SHAPES = {"gpt2": (288, 1024, 64), "llama3_8b": (32, 4096, 128)}
 
 
 def fail(msg: str):
     print(f"fa_bwd_variants: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def sub(src: str, old: str, new: str) -> str:
+    if src.count(old) != 1:
+        fail(f"the backward's source moved: {old.strip()[:60]!r} found "
+             f"{src.count(old)} times, expected once")
+    return src.replace(old, new)
+
+
+def pingpong(src: str) -> str:
+    """Turns by named barriers 3 and 4 around each q tile's S^T and dP^T
+    issue; a tile only the other warpgroup computes takes its turn too, so
+    both take one a tile."""
+    arrive = ('__device__ __forceinline__ void named_arrive(int id, int n) {'
+              '\n  asm volatile("bar.arrive %0, %1;\\n" ::"r"(id), "r"(n) : '
+              '"memory");\n}\n\n')
+    src = sub(src, "// move registers between warpgroups",
+              arrive + "// move registers between warpgroups")
+    turn = "      named_sync(3 + wg, 256);\n"
+    give = "      named_arrive(4 - wg, 256);\n"
+    src = sub(src, "  DKV_CLOCKS_BEGIN;\n",
+              "  DKV_CLOCKS_BEGIN;\n  if (wg == 1) named_arrive(3, 256);\n")
+    src = sub(src, "      mbar_wait(&full[s], (it / S) & 1);\n"
+              "      release(&empty[s]);\n",
+              "      mbar_wait(&full[s], (it / S) & 1);\n" + turn + give
+              + "      release(&empty[s]);\n")
+    src = sub(src, "      DKV_STAMP(1);\n", "      DKV_STAMP(1);\n" + turn)
+    return sub(src, "      issue_kq<D, BQ>(dpT, sV + wg * 64 * 128, sdO);\n"
+               "      wgmma_commit();\n",
+               "      issue_kq<D, BQ>(dpT, sV + wg * 64 * 128, sdO);\n"
+               "      wgmma_commit();\n" + give)
 
 
 def variants(src: str) -> dict:
@@ -55,14 +149,31 @@ def variants(src: str) -> dict:
                                     + DISPATCH),
         "dkv_role_only": src.replace(DISPATCH, "  if (!dkv) return;\n"
                                      + DISPATCH),
+        "dkv_stages2": sub(src, DKV_STAGES,
+                           "  static constexpr int S = 2;\n"),
+        "dkv_bq64": sub(src, DKV_BQ, "  static constexpr int BQ = 64;\n"),
+        "dkv_per_item": sub(sub(src, DKV_ITEMS,
+                                "    if (i > 0) return false;\n"
+                                "    i = blockIdx.x % 2;\n"
+                                "    for (int w = blockIdx.x / 2; w < total;"
+                                " w += total) {\n"),
+                            DKV_GRID, "  const int grid = static_cast<int>("
+                            "2 * pairs);\n"),
+        "dkv_pingpong": pingpong(src),
+        "dkv_timed": sub(src, DKV_HOOKS, TIMED_HOOKS) + CLOCK_READ,
+        "dkv_exp2f": sub(src, DKV_EXP,
+                         "sT[nt][e] = exp2f(sv + ((e & 1) ? nl.y : nl.x));"),
     }
 
 
-def build(tfa, _build):
+def build(tfa, _build, baseline):
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     with open(SRC) as f:
         srcs = variants(f.read())
+    if baseline:
+        with open(baseline) as f:
+            srcs["baseline"] = f.read()
     procs = {}
     for name, text in srcs.items():
         cu = os.path.join(out_dir, f"{name}.cu")
@@ -80,10 +191,15 @@ def build(tfa, _build):
         lines = log.splitlines()
         for i, line in enumerate(lines):
             # entry line, then its properties: stack and spills, registers
-            m = re.search(r"fa_bwd_fused_kernelILi(\d+)", line)
+            m = re.search(r"(fa_bwd_fused_kernel|fa_bwd_dkv_kernel)ILi(\d+)",
+                          line)
             if "Compiling entry" in line and m:
-                regs[f"{name}, D = {m.group(1)}"] = " ".join(
+                regs[f"{name}, {m.group(1)}, D = {m.group(2)}"] = " ".join(
                     x.strip() for x in lines[i + 2:i + 4])
+        notes = [x.split("ptxas info    : ")[-1][:100] for x in lines
+                 if "(C75" in x and "fa_bwd" in x]
+        if notes:
+            regs[f"{name} (ptxas C75xx)"] = "; ".join(notes)
         lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
         for fn, args in tfa._SIGNATURES.items():
             getattr(lib, fn).argtypes = args
@@ -92,30 +208,55 @@ def build(tfa, _build):
     return libs, regs
 
 
-def cuda_ms(torch, fn, iters: int = 20) -> float:
-    """Mean time of fn() by CUDA events, the card asleep while the host
-    enqueues, so the launches run back to back."""
-    for _ in range(2):
-        fn()
+def inputs(torch, tfa, chip_smoke, bh, s, d):
+    q, k, v, do = chip_smoke.fa_inputs(torch, bh, s, s, d, 11)
+    scale = 1.0 / d ** 0.5
+    o, lse = tfa._fa_forward_kernel(q, k, v, True, scale)
+    delta = tfa._delta(o, do, None)
+    ins = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    tail = [bh, s, s, d, 1, scale * tfa.LOG2E, scale,
+            torch.cuda.current_stream().cuda_stream]
+    # delta is returned to stay alive while `ins` points at it
+    return (q, k, v, o, lse, do, scale, delta), ins, tail
+
+
+def clocks(torch, tfa, lib) -> dict:
+    """The timed build's clock sums after one launch, averaged over its
+    blocks' consumer warpgroups: each phase's clocks per q tile (the
+    stores' per warpgroup), the tiles and all clocks per warpgroup."""
+    n = CLOCK_BLOCKS * 2 * 9
+    buf = (ctypes.c_ulonglong * n)()
+    lib.fa_dkv_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.fa_dkv_clock.restype = ctypes.c_int
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    tfa._check_rc(lib.fa_dkv_clock(ctypes.addressof(buf), n), "fa_dkv_clock")
+    rows = [buf[r * 9:(r + 1) * 9] for r in range(CLOCK_BLOCKS * 2)]
+    out = {}
+    for wg in (0, 1):
+        mine = [r for i, r in enumerate(rows) if i % 2 == wg and r[8]]
+        tiles = sum(r[8] for r in mine)
+        per = {ph: round(sum(r[k] for r in mine) / tiles, 1)
+               for k, ph in enumerate(PHASES[:7])}
+        per[PHASES[7]] = round(sum(r[7] for r in mine) / len(mine))
+        per["q tiles per warpgroup"] = round(tiles / max(1, len(mine)), 1)
+        per["total clocks per warpgroup"] = round(
+            sum(sum(r[:8]) for r in mine) / max(1, len(mine)))
+        out[f"warpgroup {wg}"] = per
+    return out
 
 
 def main():
     import torch
     import torch.nn.functional as F
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--baseline", default="",
+                    help="another flash_attention.cu to build and time")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     sys.path.insert(0, HERE)
+    import chip_smoke
     from dlrover_wuqiong_tpu_torch import _build
     from dlrover_wuqiong_tpu_torch.ops import flash_attention as tfa
 
@@ -123,53 +264,103 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    libs, regs = build(tfa, _build)
+    libs, regs = build(tfa, _build, args.baseline)
     for name, line in sorted(regs.items()):
-        print(f"{name}: fused kernel: {line}")
+        print(f"{name}: {line}")
+    fused = [n for n in ("committed", "uncapped", "dq_role_only",
+                         "dkv_role_only", "baseline") if n in libs]
+    dkv = [n for n in libs if n.startswith("dkv_") and n != "dkv_role_only"]
+    dkv = ["committed"] + dkv + (["baseline"] if "baseline" in libs else [])
 
-    bh, sq, d, scale = 288, 1024, 64, 0.125
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    q, k, v, do = (torch.randn((bh, sq, d), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
-    o, lse = tfa._fa_forward_kernel(q, k, v, True, scale)
-    delta = tfa._delta(o, do, None)
-    ins = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
-    tail = [bh, sq, sq, d, 1, scale * tfa.LOG2E, scale,
-            torch.cuda.current_stream().cuda_stream]
-
-    def launch(fn, outs):
+    def launch(lib, fn, ins, tail, outs):
         return lambda: tfa._check_rc(
-            fn(*ins, *(t.data_ptr() for t in outs), *tail), "flash backward")
+            getattr(lib, fn)(*ins, *(t.data_ptr() for t in outs), *tail),
+            fn)
 
-    outs = {n: [torch.empty_like(q) for _ in range(3)] for n in libs}
-    for n, lib in libs.items():
-        launch(lib.fa_backward_fused_bf16, outs[n])()
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(outs["committed"],
-                                                  outs["uncapped"])):
-        fail("committed and uncapped builds differ")
+    times, errs = {}, {}
+    for shape, (bh, s, d) in SHAPES.items():
+        args_, ins, tail = inputs(torch, tfa, chip_smoke, bh, s, d)
+        q, k, v, o, lse, do, scale, _ = args_
+        fns = {}
+        if shape == "gpt2":
+            outs = {n: [torch.empty_like(q) for _ in range(3)] for n in fused}
+            for n in fused:
+                launch(libs[n], "fa_backward_fused_bf16", ins, tail,
+                       outs[n])()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(
+                    outs["committed"], outs["uncapped"])):
+                fail("committed and uncapped builds differ")
+            if "baseline" in libs:
+                dqs = [torch.empty_like(q) for _ in range(2)]
+                for n, t in zip(("committed", "baseline"), dqs):
+                    launch(libs[n], "fa_backward_dq_bf16", ins, tail, [t])()
+                torch.cuda.synchronize()
+                if not (torch.equal(dqs[0], dqs[1]) and all(
+                        torch.equal(a, b) for a, b in zip(
+                            outs["committed"], outs["baseline"]))):
+                    fail("the baseline's fused or dq kernel differs from "
+                         "the committed one's bitwise")
+                print("baseline: fused dq, dk, dv and split dq equal the "
+                      "committed build's bitwise")
+            fns = {n: launch(libs[n], "fa_backward_fused_bf16", ins, tail,
+                             outs[n]) for n in fused}
+            fns["split_dq"] = launch(libs["committed"], "fa_backward_dq_bf16",
+                                     ins, tail, outs["committed"][:1])
+            q4, k4, v4 = (t.reshape(24, 12, s, d).clone().requires_grad_()
+                          for t in (q, k, v))
+            do4 = do.reshape(24, 12, s, d)
 
-    fns = {n: launch(lib.fa_backward_fused_bf16, outs[n])
-           for n, lib in libs.items()}
-    lib = libs["committed"]
-    fns["split_dq"] = launch(lib.fa_backward_dq_bf16, outs["committed"][:1])
-    fns["split_dkv"] = launch(lib.fa_backward_dkv_bf16,
-                              outs["committed"][1:])
-    q4, k4, v4 = (t.reshape(24, 12, sq, d).clone().requires_grad_()
-                  for t in (q, k, v))
-    do4 = do.reshape(24, 12, sq, d)
+            def sdpa():
+                out = F.scaled_dot_product_attention(q4, k4, v4,
+                                                     is_causal=True)
+                return torch.autograd.grad(out, (q4, k4, v4), do4)
 
-    def sdpa():
-        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-        return torch.autograd.grad(out, (q4, k4, v4), do4)
-
-    fns["sdpa_fwd_bwd"] = sdpa
-    times = {n: [] for n in fns}
-    for n in list(fns) + list(fns)[::-1]:
-        times[n].append(cuda_ms(torch, fns[n]))
+            fns["sdpa_fwd_bwd"] = sdpa
+        # the dk/dv builds, each held against the committed one or the plain
+        # backward
+        kv_outs = {n: [torch.empty_like(k) for _ in range(2)] for n in dkv}
+        for n in dkv:
+            launch(libs[n], "fa_backward_dkv_bf16", ins, tail, kv_outs[n])()
+        torch.cuda.synchronize()
+        _, rk, rv = tfa._fa_backward_plain(q, k, v, o, lse, do, True, scale)
+        for n in dkv:
+            got = kv_outs[n]
+            if n in DKV_SAME and not all(torch.equal(a, b) for a, b in zip(
+                    got, kv_outs["committed"])):
+                fail(f"{n} at {shape}: dk/dv differ from committed bitwise")
+            errs[f"{n}, {shape}"] = e = max(
+                chip_smoke._row_err(torch, got[0], rk),
+                chip_smoke._row_err(torch, got[1], rv))
+            if e > chip_smoke.FA_TOL:
+                fail(f"{n} at {shape}: dk/dv row err {e}")
+        del rk, rv
+        for n in dkv:
+            if n != "dkv_timed":
+                fns[f"dkv {n}"] = launch(libs[n], "fa_backward_dkv_bf16",
+                                         ins, tail, kv_outs[n])
+        order = list(fns) + list(fns)[::-1]
+        shape_times = {n: [] for n in fns}
+        for n in order:
+            shape_times[n].append(chip_smoke.cuda_ms(torch, fns[n], 20))
+        times[shape] = {"shape": [bh, s, s, d], "causal": True,
+                        "ms": shape_times}
+        print(f"{shape} {[bh, s, s, d]}: " + json.dumps(shape_times),
+              flush=True)
+        timed = libs["dkv_timed"]
+        launch(timed, "fa_backward_dkv_bf16", ins, tail,
+               kv_outs["dkv_timed"])()
+        times[shape]["dkv_timed_clocks"] = clocks(torch, tfa, timed)
+        print(f"{shape}: dkv_timed, mean SM clocks a q tile (per "
+              f"warpgroup for the stores): " + json.dumps(times[shape]["dkv_timed_clocks"]),
+              flush=True)
+        del fns, kv_outs, args_, q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    print("dk/dv row err against the plain backward (tolerance "
+          f"{chip_smoke.FA_TOL}): "
+          + json.dumps({n: f"{e:.2e}" for n, e in errs.items()}))
     print(card)
-    print(json.dumps({"shape": [bh, sq, sq, d], "causal": True,
-                      "ms": times}))
+    print(json.dumps(times))
     return 0
 
 

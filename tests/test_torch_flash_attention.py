@@ -84,17 +84,20 @@ def _forward_backward(causal, sq, sk, d, block_q, block_k, seed):
 
 
 # every forward case runs at blocks of 64 and at single blocks, and each
-# head dim (64, 128) meets every case in one of the two groups.  The last
-# two are the card's 128-row q tiles (two warpgroups of 64 rows): at 256 x
-# 192 (off = -64) the first q tile's first 64 rows see no key while its
-# second 64 do; 192 x 192 at d = 128 leaves the second tile's upper 64 rows
-# past sq.
+# head dim (64, 128) meets every case in one of the two groups.  Then the
+# card's 128-row q tiles (two warpgroups of 64 rows): at 256 x 192 (off =
+# -64) the first q tile's first 64 rows see no key while its second 64 do;
+# 192 x 192 at d = 128 leaves the second tile's upper 64 rows past sq.  The
+# last is chip_smoke's "llama_d128" case at Llama-3's head dim, sq != sk:
+# two of the card dk/dv kernel's 128-row kv tiles, which four and two of
+# its 64-row q tiles see.
 @pytest.mark.parametrize("causal,sq,sk,d", [(True, 128, 128, 64),
                                             (False, 128, 128, 128),
                                             (True, 64, 256, 64),
                                             (True, 128, 64, 128),
                                             (True, 256, 192, 64),
-                                            (True, 192, 192, 128)])
+                                            (True, 192, 192, 128),
+                                            (True, 384, 256, 128)])
 def test_multi_block_forward_and_split_backward(causal, sq, sk, d):
     """Blocks of 64: the online-softmax forward over several kv blocks,
     and the split dq and dk/dv kernels."""
