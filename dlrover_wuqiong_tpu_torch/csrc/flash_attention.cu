@@ -122,25 +122,64 @@
 //     operations, so the design keeps the tensor cores fed: operands by
 //     TMA and producer warps, one warpgroup's exponentials and dS under
 //     the other's products.
-// The dq kernel keeps the first design, simple on purpose: 4 warps a
-// block, each owning 16 rows of a 64-row tile; products are mma.sync
-// m16n8k16 bf16 -> f32 with ldmatrix fragment loads from shared-memory
-// rows padded by 8 bf16; one block per (bh, q tile) loops over kv tiles,
-// one cp.async buffer per operand, waiting for each tile (latency is
-// hidden by the other resident blocks), dq in registers.
-//
+// The dq kernel (fa_bwd_dq_kernel) follows the same design:
+//   - work: a persistent block per SM walks (head, 128-row q tile) items
+//     in pairs of equal causal work, q tile nqt - 1 - p with tile p of the
+//     same head, dealt round robin over heads in order, so blocks get the
+//     same work and a round's heads keep their K and V in L2 (DqItems);
+//     two consumer warpgroups own 64 q rows each, one producer thread
+//     feeds them;
+//   - loads: an item's Q and dO come in once by TMA into one of two item
+//     buffers (item i + 1's go out after item i's kv tiles and fly while
+//     item i computes); each kv tile's K and V (BK = 128 rows at D = 64,
+//     64 at D = 128) come by TMA into a ring of stages (4 at D = 64, 2 at
+//     D = 128), each with `full` and `empty` mbarriers; a warpgroup lets
+//     through the kv tiles that only the other one's rows see;
+//   - products, all wgmma m64nNk16 bf16 -> f32: S = Q_s K^T and dP = dO
+//     V^T with Q_s and dO in A registers (read once an item by ldmatrix,
+//     Q_s pre-scaled and rounded as the forward's q) and K, V K-major;
+//     then dQ += dS K with dS packed from the accumulator into A registers
+//     (c_to_a) and K MN-major.  p is computed while dP flies; dQ stays in
+//     registers for the whole item.  Each group is issued, fed and waited
+//     for inside one kv tile's iteration, as in the dk/dv kernel: ptxas
+//     serialised products left in flight across a loop's back-edge, and
+//     injected a warpgroup.arrive (C7519) for a wait between two groups
+//     (PERF.md);
+//   - arithmetic, as the Pallas dq kernel: p = exp2(s - lse log2 e) by
+//     ex2.approx.ftz (0 where lse is -inf), ds = p (dp - delta) sm_scale
+//     in float32 with p not rounded, ds rounded to bf16 only by the packing
+//     into dQ's A fragments; the mask only on kv tiles that straddle the
+//     causal diagonal or the ragged kv edge;
+//   - stores: dQ goes to bf16 in the warpgroup's own rows of the item's Q
+//     tile (free once read into registers), swizzled, then one TMA store
+//     per 64-column slab, which drops rows past sq; the item buffer goes
+//     back to the producer when both warpgroups' stores have read it.  An
+//     item whose rows see no key stores zeros and never waits on the ring.
+//     Every row is written once, no atomics and no scratch: two runs are
+//     bitwise equal;
+//   - memory and registers: two item buffers of 2 x 128 x D bf16 and the
+//     ring: 197,728 B of dynamic shared memory at D = 64 and 197,696 B at
+//     D = 128 (one block an SM); 384 threads launch with 168 registers,
+//     setmaxnreg leaves the producer 24 and gives the consumers 240 (S,
+//     dP, dQ, Q_s, dO and dS's fragments: 224 at D = 64, 208 at D = 128;
+//     nvcc -Xptxas -v: no spill);
+//   - bound: at GPT-2's step, 58.0 GFLOP of products against 191.1 MB of
+//     operands (59 against 57 us), and at Llama-3 8B's 206.2 GFLOP against
+//     168.8 MB (208 against 50 us): operations.
 // The fused backward is one launch of bh * (ceil(sk/64) + ceil(sq/64))
 // blocks (9216 at GPT-2's step) in two roles, none waiting on another:
 //   - roles: a dk/dv role per (bh, 64-row kv tile) loops over the q tiles
 //     that see its keys, dk and dv in registers (kv_tile_step: mma.sync
 //     on padded rows, p kept float32); a dq role per (bh, 64-row q tile)
-//     loops over the kv tiles its rows see, dq in registers (the dq
-//     kernel's per-tile code, in the same order, so its dq equals the dq
-//     kernel's bit for bit).  Every output row belongs to one block, which
-//     writes it once, as zeros where a row sees no key or no query sees a
-//     key.  No atomics and no scratch: two runs on equal inputs give
-//     bitwise equal dq, dk and dv (the JAX package pins bit-identical
-//     replays).
+//     loops over the kv tiles its rows see, dq in registers
+//     (q_tile_step: mma.sync on padded rows, p kept float32).  It is not
+//     the dq kernel's code, but both add the k16 slices of dS K in the
+//     same order: their dq have come out bitwise equal on the H100
+//     (PERF.md), and chip_smoke.py holds them within FA_TOL.  Every
+//     output row belongs to one block, which writes it once, as zeros
+//     where a row sees no key or no query sees a key.  No atomics and no
+//     scratch: two runs on equal inputs give bitwise equal dq, dk and dv
+//     (the JAX package pins bit-identical replays).
 //   - order: block numbers go by rank r, the dk/dv blocks of kv tile r then
 //     the dq blocks of q tile nqt - 1 - r, so under the causal mask both
 //     roles start with their longest loops and the last wave holds the
@@ -223,11 +262,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 // wait for every group this thread committed
 __device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
@@ -1015,10 +1049,10 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tmQ,
   if (leader) tma_store_wait();
 }
 
-// ------------------------------------------------------------- backward: dq
-// The work of one 64-row q tile, shared by the dq kernel and the fused
-// kernel's dq role: each thread's two rows' lse (in log2 units) and delta,
-// the product of one kv tile (S, dP, dS, dQ += dS K) and the store.
+// ----------------------------------------------- backward: one kv tile's work
+// for a 64-row q tile, the fused kernel's dq role: each thread's two rows'
+// lse (in log2 units) and delta, the product of one kv tile (S, dP, dS, dQ
+// += dS K) and the store.
 
 struct RowStats {
   float lse2[2], delta[2];
@@ -1122,52 +1156,6 @@ __device__ __forceinline__ int num_kv_tiles(int q0, int sq, int sk,
                                             int causal) {
   const int kv_end = causal ? min(sk, q0 + kTile + sk - sq) : sk;
   return kv_end > 0 ? (kv_end + kTile - 1) / kTile : 0;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
-                 const bf16* __restrict__ V, const bf16* __restrict__ dO,
-                 const float* __restrict__ LSE,
-                 const float* __restrict__ DELTA, bf16* __restrict__ dQ,
-                 int sq, int sk, int causal, float scale_log2,
-                 float sm_scale) {
-  constexpr int BQ = kTile, BK = kTile, LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BQ * LD;
-  bf16* sK = sdO + BQ * LD;
-  bf16* sV = sK + BK * LD;
-
-  const int nqt = (sq + BQ - 1) / BQ;
-  const int q0 = (nqt - 1 - blockIdx.x) * BQ;
-  const size_t bh = blockIdx.y;
-  const int off = sk - sq;
-  const bf16* Kb = K + bh * sk * D;
-  const bf16* Vb = V + bh * sk * D;
-
-  load_rows<D>(sQ, LD, Q + bh * sq * D, q0, sq, BQ);
-  load_rows<D>(sdO, LD, dO + bh * sq * D, q0, sq, BQ);
-  cp_async_wait_all();
-  __syncthreads();
-  scale_rows<D>(sQ, LD, BQ, scale_log2);
-
-  const RowStats rs = row_stats(LSE + bh * sq, DELTA + bh * sq, q0, sq);
-  float dq[D / 8][4];
-  zero(dq);
-  const int nkv = num_kv_tiles(q0, sq, sk, causal);
-
-  for (int j = 0; j < nkv; ++j) {
-    const int kv0 = j * BK;
-    __syncthreads();
-    load_rows<D>(sK, LD, Kb, kv0, sk, BK);
-    load_rows<D>(sV, LD, Vb, kv0, sk, BK);
-    cp_async_wait_all();
-    __syncthreads();
-    q_tile_step<D>(sQ, sdO, sK, sV, rs, kv0, q0, sk, off, causal, sm_scale,
-                   dq);
-  }
-  store_q_rows<D>(dQ + bh * sq * D, dq, q0, sq);
 }
 
 // ------------------------------------------------ backward: one q tile's work
@@ -1659,6 +1647,307 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmQ,
   DKV_CLOCKS_END;
 }
 
+// ------------------------------------------------------------- backward: dq
+// Hopper's dq kernel (the source note above): a persistent block per SM
+// walks (head, 128-row q tile) items.  Warpgroup 2 feeds: its thread 256
+// issues every TMA load, each item's Q and dO into one of two item buffers
+// and each kv tile's K and V into a ring of stages.  Warpgroups 0 and 1
+// own 64 q rows each and issue the three products of every kv tile with
+// wgmma.
+
+constexpr int kDqThreads = 384;
+constexpr int kDqBQ = 128;  // q rows of an item, 64 per consumer warpgroup
+constexpr int kDqProducerRegs = 24;
+constexpr int kDqConsumerRegs = 240;
+
+// Hooks for fa_bwd_variants.py's timed build, which sums a consumer
+// warpgroup's SM clocks between the stamps of its kv tiles' phases; empty
+// here
+#define DQ_CLOCKS_BEGIN
+#define DQ_STAMP(k)
+#define DQ_CLOCKS_END
+
+// The dq kernel's shapes: kv tiles of BK rows (128 at D = 64, where S and
+// dP then take 64 floats a thread each; 64 at D = 128) in a ring of kRing
+// stages, each a K then a V tile; two item buffers of a Q then a dO tile
+// (128 rows); all in 64-column slabs of the 128-byte swizzle.
+template <int D>
+struct Dq {
+  static constexpr int BK = D == 64 ? 128 : 64;
+  static constexpr int kRing = D == 64 ? 4 : 2;
+  static constexpr int kItem = kDqBQ * D * 2;    // a Q or dO tile
+  static constexpr int kStage = 2 * BK * D * 2;  // a K and a V tile
+  static constexpr size_t smem =  // + 1024: align the tiles
+      1024 + 4 * kItem + kRing * kStage + (2 * kRing + 4) * sizeof(uint64_t);
+};
+static_assert(Dq<64>::smem <= 232448 && Dq<128>::smem <= 232448,
+              "the dq kernel's shared memory exceeds a block's");
+
+// The work items of the dq kernel are the (bh, 128-row q tile) pairs.
+// Under the causal mask q tile t sees about t + 1 kv tiles, so the items
+// go in pairs of one head's tiles nqt - 1 - p and p, whose work is about
+// the same for every p (an odd nqt's middle tile alone), the heavier
+// first.  Block b takes pairs b, b + G, b + 2G, ...: every block gets
+// nearly the same work, and a round of G pairs spans G / npairs
+// consecutive heads, whose K and V stay in L2.
+struct DqItems {
+  int nqt, npairs, total;  // total: pairs
+  __device__ DqItems(int nbh, int nqt_)
+      : nqt(nqt_), npairs((nqt_ + 1) / 2), total(nbh * ((nqt_ + 1) / 2)) {}
+  // item i of this block: false past the last one, else its head and
+  // first q row
+  __device__ bool get(int i, int& bh, int& q0) const {
+    for (int pair = blockIdx.x; pair < total; pair += gridDim.x) {
+      const int head = pair / npairs, p = pair - head * npairs;
+      const int n = 2 * p + 1 == nqt ? 1 : 2;
+      if (i < n) {
+        bh = head;
+        q0 = (i == 0 ? nqt - 1 - p : p) * kDqBQ;
+        return true;
+      }
+      i -= n;
+    }
+    return false;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmQ,
+                 const __grid_constant__ CUtensorMap tmdO,
+                 const __grid_constant__ CUtensorMap tmK,
+                 const __grid_constant__ CUtensorMap tmV,
+                 const __grid_constant__ CUtensorMap tmdQ,
+                 const float* __restrict__ LSE,
+                 const float* __restrict__ DELTA, int nbh, int sq, int sk,
+                 int causal, float scale_log2, float sm_scale) {
+  using P = Dq<D>;
+  constexpr int BK = P::BK, S = P::kRing;
+  constexpr int kSlab = BK * 128;      // a 64-column slab of K or V
+  constexpr int kQSlab = kDqBQ * 128;  // ... of Q, dO or dQ
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =  // stage s: K at ring + s kStage, V after it
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qbuf = ring + S * P::kStage;  // buffer b: Q, then dO
+  uint64_t* full = reinterpret_cast<uint64_t*>(qbuf + 4 * P::kItem);
+  uint64_t* empty = full + S;
+  uint64_t* q_full = empty + S;  // per item buffer
+  uint64_t* q_empty = q_full + 2;  // the buffer's dQ stores read
+
+  const DqItems items(nbh, (sq + kDqBQ - 1) / kDqBQ);
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&q_full[b], 1);
+      mbar_init(&q_empty[b], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer; no wait counts on a loop's length
+    regs_dec<kDqProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      tma_prefetch(&tmQ);
+      tma_prefetch(&tmdO);
+      tma_prefetch(&tmK);
+      tma_prefetch(&tmV);
+      int it = 0;  // kv tiles issued so far: the ring position
+      int bh, q0, bh_next, q0_next;
+      auto load_item = [&](int i, int h, int r) {
+        const int b = i & 1;
+        if (i >= 2) mbar_wait(&q_empty[b], ((i >> 1) - 1) & 1);
+        unsigned char* dst = qbuf + b * 2 * P::kItem;
+        mbar_arrive_expect_tx(&q_full[b], 2 * P::kItem);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_3d(dst + c * kQSlab, &tmQ, &q_full[b], 64 * c, r, h);
+          tma_load_3d(dst + P::kItem + c * kQSlab, &tmdO, &q_full[b], 64 * c,
+                      r, h);
+        }
+      };
+      auto load_kv = [&](int j) {
+        const int st = it % S;
+        if (it >= S) mbar_wait(&empty[st], ((it / S) & 1) ^ 1);
+        unsigned char* dst = ring + st * P::kStage;
+        mbar_arrive_expect_tx(&full[st], P::kStage);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_3d(dst + c * kSlab, &tmK, &full[st], 64 * c, j * BK, bh);
+          tma_load_3d(dst + P::kStage / 2 + c * kSlab, &tmV, &full[st],
+                      64 * c, j * BK, bh);
+        }
+        ++it;
+      };
+      bool more = items.get(0, bh, q0);
+      if (more) load_item(0, bh, q0);
+      for (int i = 0; more; ++i, bh = bh_next, q0 = q0_next) {
+        // item i + 1's Q and dO go out after item i's kv tiles, so the
+        // wait for item i - 1's buffer (freed by the consumers at item i's
+        // first tile) never holds back the ring
+        const int nkv = max(fwd_num_kv(q0, sq, sk, causal, BK),
+                            fwd_num_kv(q0 + 64, sq, sk, causal, BK));
+        for (int j = 0; j < nkv; ++j) load_kv(j);
+        more = items.get(i + 1, bh_next, q0_next);
+        if (more) load_item(i + 1, bh_next, q0_next);
+      }
+    }
+    return;
+  }
+  regs_inc<kDqConsumerRegs>();
+
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x >> 5) & 3, 0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int off = sk - sq;
+  const int rw = wg * 64 + warp * 16 + g;  // this thread's rows of an item
+  const bool leader = (threadIdx.x & 127) == 0;  // issues the dQ stores
+  uint32_t qa[D / 16][4], oa[D / 16][4], da[BK / 16][4];
+  float dq[D / 8][4], s[BK / 8][4], dp[BK / 8][4];
+  int it = 0, bh, q0;  // it: kv tiles consumed so far, the ring position
+  DQ_CLOCKS_BEGIN;
+  int pend = -1;  // item buffer whose stores this warpgroup has not seen read
+  // the stores of the previous item have read buffer `pend`: the producer
+  // may load the next item but one into it
+  auto free_pending = [&]() {
+    if (pend >= 0) {
+      if (leader) tma_store_wait_read();
+      mbar_arrive_if(&q_empty[pend], leader);
+      pend = -1;
+    }
+  };
+  for (int i = 0; items.get(i, bh, q0); ++i) {
+    const int b = i & 1;
+    unsigned char* sQ = qbuf + b * 2 * P::kItem;
+    const unsigned char* sdO = sQ + P::kItem;
+    const int r0 = q0 + wg * 64;  // this warpgroup's first row
+    const int row_a = q0 + rw;    // this thread's rows: row_a, +8
+    const int nkv = max(fwd_num_kv(q0, sq, sk, causal, BK),
+                        fwd_num_kv(q0 + 64, sq, sk, causal, BK));
+    const int nw = fwd_num_kv(r0, sq, sk, causal, BK);  // this one's
+    // the rows' -lse * log2 e (-inf past sq or where lse is -inf, so p = 0
+    // there) and delta (0 past sq), loaded before the wait
+    float nl[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_a + h * 8;
+      const size_t at = static_cast<size_t>(bh) * sq + row;
+      const float L = row < sq ? LSE[at] : -INFINITY;
+      nl[h] = isfinite(L) ? -(L * kLog2e) : -INFINITY;
+      dl[h] = row < sq ? DELTA[at] : 0.f;
+    }
+    zero(dq);
+    mbar_wait(&q_full[b], (i >> 1) & 1);
+    read_q<D>(qa, sQ, wg * 64 + warp * 16, scale_log2);
+    read_q<D>(oa, sdO, wg * 64 + warp * 16, 1.f);  // dO, as it is
+    // S = Q_s K^T, then dP = dO V^T, of one kv tile: two wgmma groups
+    auto issue_s_dp = [&](float (&sx)[BK / 8][4], float (&dpx)[BK / 8][4],
+                          const unsigned char* sK) {
+      issue_qk<D, BK>(sx, qa, sK);
+      wgmma_commit();
+      issue_qk<D, BK>(dpx, oa, sK + P::kStage / 2);
+      wgmma_commit();
+    };
+    // p = exp2(s - lse log2 e) in place, exp2 as the forward's p; the mask
+    // only on a tile that straddles the diagonal or the ragged kv edge
+    auto tile_p = [&](float (&sx)[BK / 8][4], int kv0) {
+      const bool masked =
+          kv0 + BK > sk || (causal && kv0 + BK - 1 > r0 + off);
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sv = sx[nt][e];
+          if (masked) {
+            const int col = kv0 + nt * 8 + 2 * t + (e & 1);
+            if (col >= sk || (causal && col > row_a + (e >> 1) * 8 + off))
+              sv = kNegInf;
+          }
+          sx[nt][e] = ex2_ftz(sv + nl[e >> 1]);
+        }
+    };
+    // dS = p (dP - delta) sm_scale in float32, rounded to bf16 only by the
+    // packing that builds dQ's A fragments
+    auto tile_ds = [&](float (&sx)[BK / 8][4], const float (&dpx)[BK / 8][4],
+                       uint32_t (&dax)[BK / 16][4]) {
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sx[nt][e] = sx[nt][e] * (dpx[nt][e] - dl[e >> 1]) * sm_scale;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) c_to_a(dax[kk], sx, kk);
+    };
+    for (int j = 0; j < nw; ++j, ++it) {
+      const int st = it % S;
+      const unsigned char* sK = ring + st * P::kStage;
+      DQ_STAMP(0);
+      mbar_wait(&full[st], (it / S) & 1);
+      DQ_STAMP(1);
+      reg_fence(s);
+      reg_fence(dp);
+      wgmma_fence();
+      issue_s_dp(s, dp, sK);
+      wgmma_wait<1>();  // S is in; dP may still fly
+      reg_fence(s);
+      DQ_STAMP(2);
+      tile_p(s, j * BK);
+      DQ_STAMP(3);
+      wgmma_wait<0>();  // dP is in
+      reg_fence(dp);
+      DQ_STAMP(4);
+      tile_ds(s, dp, da);
+      DQ_STAMP(5);
+      reg_fence(dq);
+      wgmma_fence();
+      issue_pv<D, BK>(dq, da, sK);  // dQ += dS K, K MN-major
+      wgmma_commit();
+      wgmma_wait<0>();  // dQ is in: the stage is free
+      reg_fence(dq);
+      reg_fence(da);
+      DQ_STAMP(6);
+      release(&empty[st]);
+      free_pending();
+    }
+    // kv tiles only the other warpgroup's rows see: let them through
+    for (int j = nw; j < nkv; ++j, ++it) {
+      const int st = it % S;
+      mbar_wait(&full[st], (it / S) & 1);
+      release(&empty[st]);
+      free_pending();
+    }
+    free_pending();  // an item with no kv tile
+
+    // dQ as bf16 into this warpgroup's rows of the Q tile (read into
+    // registers at the item's start), 16-byte chunks XOR-swizzled by row as
+    // TMA expects, then one TMA store per slab, which drops rows past sq
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw + h * 8;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<uint32_t*>(sQ + (dt / 8) * kQSlab + r * 128 +
+                                     (((dt % 8) ^ (r & 7)) << 4) + 4 * t) =
+            pack_bf16(dq[dt][2 * h], dq[dt][2 * h + 1]);
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+    if (leader && r0 < sq) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_store_3d(&tmdQ, sQ + c * kQSlab + wg * 64 * 128, 64 * c, r0, bh);
+    }
+    pend = b;
+    DQ_STAMP(7);
+  }
+  if (leader) tma_store_wait();
+  DQ_CLOCKS_END;
+}
+
 // ---------------------------------------------------------- backward: fused
 // One launch of two roles (the source note above): a dk/dv role per (bh,
 // kv tile) and a dq role per (bh, q tile), each a two-stage cp.async
@@ -1947,13 +2236,38 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int bh, int sq,
               int sk, int causal, float scale_log2, float sm_scale,
               cudaStream_t stream) {
-  const size_t smem = 4 * kTile * (D + 8) * sizeof(bf16);
+  using P = Dq<D>;
+  // TMA moves q, k, v, dO and dq from and to 16-byte aligned addresses
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(dq)) &
+      15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap tmQ, tmdO, tmK, tmV, tmdQ;
+  memset(&tmK, 0, sizeof(tmK));
+  memset(&tmV, 0, sizeof(tmV));
+  if (int rc = encode_map(&tmQ, q, bh, sq, D, kDqBQ)) return rc;
+  if (int rc = encode_map(&tmdO, dout, bh, sq, D, kDqBQ)) return rc;
+  if (int rc = encode_map(&tmdQ, dq, bh, sq, D, 64)) return rc;
+  if (sk > 0) {  // with no keys no block loads a kv tile
+    if (int rc = encode_map(&tmK, k, bh, sk, D, P::BK)) return rc;
+    if (int rc = encode_map(&tmV, v, bh, sk, D, P::BK)) return rc;
+  }
+  constexpr size_t smem = P::smem;
   auto kern = fa_bwd_dq_kernel<D>;
   if (int rc = prepare(kern, smem)) return rc;
-  dim3 grid((sq + kTile - 1) / kTile, bh);
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, (bf16*)dq, sq, sk, causal, scale_log2, sm_scale);
+  const long long pairs =
+      static_cast<long long>((sq + kDqBQ - 1) / kDqBQ + 1) / 2 * bh;
+  if (pairs > 0x3fff0000LL) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  if (int rc = static_cast<int>(cudaGetDevice(&dev))) return rc;
+  if (int rc = static_cast<int>(cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev)))
+    return rc;
+  const int grid = static_cast<int>(pairs < sms ? pairs : sms);
+  kern<<<grid, kDqThreads, smem, stream>>>(tmQ, tmdO, tmK, tmV, tmdQ, lse,
+                                           delta, bh, sq, sk, causal,
+                                           scale_log2, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,15 +25,17 @@ Semantics pinned from the JAX version:
   dk/dv pair; ``DWT_FA_NO_FUSED`` forces the split pair.  The block
   arguments choose the route only: the CUDA kernels choose their own tiles
   (see ``csrc/flash_attention.cu``: the forward is a persistent Hopper
-  kernel of 128-row q tiles, wgmma products and TMA loads, and so is the
-  split route's dk/dv kernel, over 128-row kv tiles; the dq and fused
-  kernels use 64-row tiles).  On the card the fused
-  route is one launch that does the split pair's work in two roles of
-  independent blocks (dk/dv per kv tile, dq per q tile, each with a
-  two-stage cp.async pipeline): it recomputes S and dP in both roles,
-  7 products where the Pallas fused kernel takes 5, and needs no scratch
-  and no atomics, so its dq, dk and dv are bitwise reproducible and its
-  dq equals the split route's.
+  kernel of 128-row q tiles, wgmma products and TMA loads, and so are the
+  split route's dq kernel, over 128-row q tiles, and its dk/dv kernel,
+  over 128-row kv tiles; the fused kernel uses 64-row tiles).  On the
+  card the fused route is one launch that does the split pair's work in
+  two roles of independent blocks (dk/dv per kv tile, dq per q tile, each
+  with a two-stage cp.async pipeline): it recomputes S and dP in both
+  roles, 7 products where the Pallas fused kernel takes 5, and needs no
+  scratch and no atomics, so its dq, dk and dv are bitwise reproducible.
+  Its dq comes from other code than the split route's dq kernel, which
+  adds the same products in the same order: the two have matched bitwise
+  on the H100, and the checks hold them within rounding.
 
 Each step is a wrapper over two versions of one computation:
 

@@ -64,3 +64,47 @@ def test_dkv_timed_variant_only_fills_the_clock_hooks():
     text = text[:-len(fa_bwd_variants.CLOCK_READ)]
     assert text.replace(fa_bwd_variants.TIMED_HOOKS,
                         fa_bwd_variants.DKV_HOOKS) == src
+
+
+# the pieces the fused and dk/dv builds substitute, which a dq build must
+# leave as they are
+_FUSED_AND_DKV = ("DISPATCH", "DKV_STAGES", "DKV_BQ", "DKV_ITEMS",
+                  "DKV_GRID", "DKV_HOOKS", "DKV_EXP")
+
+
+@pytest.mark.parametrize("variant,lines", [("dq_stages2", 1),
+                                           ("dq_stages3", 1),
+                                           ("dq_bk64", 1),
+                                           ("dq_pairs", 4),
+                                           ("dq_early_items", 1),
+                                           ("dq_exp2f", 1),
+                                           ("dq_per_item", 2),
+                                           ("dq_qs_smem", 2),
+                                           ("dq_do_smem", 2)])
+def test_dq_variants_touch_only_the_dq_kernel(variant, lines):
+    """Each dq variant replaces its few lines of the dq kernel (the ring
+    depth, the kv tile and the loop and registers of a two-tile step, the
+    order of the producer's loads, the exponential, the item loop and the
+    grid for one block per item, where Q_s or dO come from) and leaves the
+    fused
+    backward's and the dk/dv kernel's substituted pieces as they are."""
+    src, out = _variants(fa_bwd_variants)
+    text = out[variant]
+    assert len(fa_bwd_variants.BOUNDS.findall(text)) == 1
+    for piece in _FUSED_AND_DKV:
+        assert text.count(getattr(fa_bwd_variants, piece)) == 1, piece
+    removed = [ln for ln in difflib.ndiff(src.splitlines(),
+                                          text.splitlines())
+               if ln.startswith("- ")]
+    assert len(removed) == lines, removed
+
+
+def test_dq_timed_variant_only_fills_the_clock_hooks():
+    """The dq timed build is the committed source with the dq kernel's
+    empty clock hooks defined and a reader of its clock sums appended."""
+    src, out = _variants(fa_bwd_variants)
+    text = out["dq_timed"]
+    assert text.endswith(fa_bwd_variants.DQ_CLOCK_READ)
+    text = text[:-len(fa_bwd_variants.DQ_CLOCK_READ)]
+    assert text.replace(fa_bwd_variants.DQ_TIMED_HOOKS,
+                        fa_bwd_variants.DQ_HOOKS) == src
