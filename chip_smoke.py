@@ -51,11 +51,13 @@ Phases, in order; a failure in any of them exits non-zero:
    source).  Then each kernel's time at GPT-2's shape beside its plain
    version, its bound and ``scaled_dot_product_attention`` (forward,
    timed in turns with the forward kernel; forward + backward for the
-   backward kernels), a yardstick the port never calls; the split dq and
-   dk/dv kernels also at Llama-3 8B's attention (32, 4096, 4096, 128)
-   causal beside the plain backward (one call), their bounds and SDPA
-   forward + backward at (1, 32, 4096, 128); and the host time of one
-   forward, fused backward, dq and dk/dv call.
+   backward kernels), a yardstick the port never calls; the forward and
+   the split dq and dk/dv kernels also at Llama-3 8B's attention (32,
+   4096, 4096, 128) causal (the forward in turns with SDPA's forward,
+   beside the plain forward; the backward kernels beside the plain
+   backward and SDPA forward + backward at (1, 32, 4096, 128)), with their
+   bounds; and the host time of one forward, fused backward, dq and dk/dv
+   call.
 4. The serving path: GPT-2 124M at full width, bf16 compute, seeded
    random weights, ``ServeSpec(max_slots=8, max_len=512,
    max_prompt_len=128, fused_tokens=8, quant="int8")``; 16 requests
@@ -80,19 +82,43 @@ Phases, in order; a failure in any of them exits non-zero:
    3 steps with ``DWT_FA_NO_FUSED=1`` (12 dq and 12 dk/dv launches per
    step, no fused), one ``fused_steps=4`` call with one readback, and 3
    steps with remat "full" (24 forward launches per step).
+4c. Llama training: ``auto_accelerate(Llama(LlamaConfig.llama3_8b() with
+   num_layers=4), optimizer=adamw(3e-4))`` at Llama-3 8B's full width
+   (vocab 128256, hidden 4096, 32 heads over 8 kv heads of dim 128),
+   4 of its 32 layers, bf16 compute over float32 masters, remat "full",
+   B = 1, T = 4096, one fixed batch of seeded tokens.  After two warm-up
+   steps, 5 steps with the launch counts set to 0 just before and read
+   just after: every loss and grad norm finite, the mean loss of the last
+   two steps below that of the first two (the loss alternates from step
+   to step under this learning rate), and exactly 8 forward, 4 dq, 4
+   dk/dv and 0 fused launches per step (T = 4096 takes the split pair;
+   remat runs each forward twice).
+   ms per step, tokens/s, model TFLOP/s, peak memory, and a profile of 3
+   steps (busy share, device time by kind and by torch op).  Then the
+   same model on the einsum branch (plain attention, no kernel) from the
+   same seed and batch: its 7 losses within `LLAMA_LOSS_RTOL` of the
+   flash route's, and its ms per step.
 5. Small-input reference checks, the card (kernels) against the CPU
    (plain versions): GPT nano in float32 with int8 weights, greedy
    serving and one prefill's logits; and GPT nano in float32 training
    from the same params and batches: the first step's logits and every
    parameter's gradient within `NANO_GRAD_RTOL`, then the losses of 3
    adamw steps within `NANO_LOSS_RTOL`.
+5c. The same for a small Llama in float32 (2 layers, hidden 256, 2 heads
+   of dim 128 over 1 kv head, vocab 512) at B = 1, T = 2048, where the
+   card takes the split dq and dk/dv kernels at D = 128 with GQA.
+   Phase 3b also holds the forward, dq and dk/dv kernels against their
+   plain versions at Llama-3 8B's attention shape, per row, through the
+   C entries and through the wrappers the model launches
+   (``_fa_forward_kernel``, ``_fa_backward_kernel`` on the split route).
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when CUDA is absent or when
 the package is not beside this script.  Profiler tables are written to
-``chiprun_out/chip_smoke_profile.txt`` (serving) and
-``chiprun_out/chip_smoke_train_profile.txt`` (training).
+``chiprun_out/chip_smoke_profile.txt`` (serving),
+``chiprun_out/chip_smoke_train_profile.txt`` (GPT-2 training) and
+``chiprun_out/chip_smoke_llama_profile.txt`` (Llama training).
 """
 
 import json
@@ -728,16 +754,25 @@ def check_flash(torch, tfa):
 LLAMA_SHAPE = dict(b=1, h=32, s=4096, d=128)
 
 
-def time_split_at(torch, tfa, b, h, s, d) -> dict:
-    """The split pair's times at (b * h, s, s, d) causal, each kernel alone
-    (delta and outputs made once), beside the plain backward (one timed
-    call), the bound and SDPA forward + backward at (b, h, s, d)."""
+def time_llama_attention(torch, tfa, b, h, s, d) -> dict:
+    """The forward's and the split pair's times at (b * h, s, s, d) causal:
+    the forward in turns with SDPA's forward (kernel, SDPA, SDPA, kernel)
+    beside the plain forward; each backward kernel alone (delta and
+    outputs made once) beside the plain backward (one timed call) and
+    SDPA forward + backward at (b, h, s, d); each with its bound.  Then
+    the three kernels' outputs against the plain versions', per row
+    within `FA_TOL` (lse within `FA_LSE_TOL`)."""
     import torch.nn.functional as F
 
     bh = b * h
     q, k, v, do = fa_inputs(torch, bh, s, s, d, 13)
     scale = 1.0 / d ** 0.5
-    o, lse = tfa._fa_forward_kernel(q, k, v, True, scale)
+    fwd = lambda: tfa._fa_forward_kernel(q, k, v, True, scale)
+    q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=True)
+    turns = [cuda_ms(torch, f, 10) for f in (fwd, sdpa_fwd, sdpa_fwd, fwd)]
+    o, lse = fwd()
     delta = tfa._delta(o, do, None)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = tfa._lib()
@@ -754,10 +789,18 @@ def time_split_at(torch, tfa, b, h, s, d) -> dict:
 
     pairs = fa_pairs(s, s, True) * bh
     mat, row = bh * s * d * 2, bh * s * 4
+    nbytes, ops = 4 * mat + row, 2 * 2 * d * pairs
+    bnd, by = bound_ms(nbytes, ops, BF16_TC_OPS_PER_S)
+    res = {"flash_attention_fwd": {
+        "shape": [bh, s, s, d], "ms": (turns[0] + turns[3]) / 2,
+        "ms_host_paced": cuda_ms(torch, fwd, 10, False),
+        "plain_ms": cuda_ms(torch, lambda: tfa._fa_forward_plain(
+            q, k, v, True, scale), 1, warmup=1),
+        "bound_ms": bnd, "bound_by": by, "bytes": nbytes, "flop": ops,
+        "library_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns}}
     lib_ms = cuda_ms(torch, sdpa_fwd_bwd, 5)
     plain_ms = cuda_ms(torch, lambda: tfa._fa_backward_plain(
         q, k, v, o, lse, do, True, scale), 1, warmup=1)
-    res = {}
     for name, fn, outs, nbytes, ops in (
             ("flash_attention_bwd_dq", lib.fa_backward_dq_bf16, (dq,),
              5 * mat + 2 * row, 3 * 2 * d * pairs),
@@ -770,13 +813,41 @@ def time_split_at(torch, tfa, b, h, s, d) -> dict:
                      "ms_host_paced": cuda_ms(torch, call, 10, False),
                      "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
                      "bytes": nbytes, "flop": ops, "library_ms": lib_ms}
+    # the timed calls left the kernels' outputs in o, lse, dq, dk and dv
+    ro, rl = tfa._fa_forward_plain(q, k, v, True, scale)
+    ref = tfa._fa_backward_plain(q, k, v, ro, rl, do, True, scale)
+    lse_err = (lse - rl).abs().max().item()
+    check(lse_err <= FA_LSE_TOL,
+          f"flash forward at {[bh, s, s, d]}: lse err {lse_err}")
+    for name, pairs in (("flash_attention_fwd", [(o, ro)]),
+                        ("flash_attention_bwd_dq", [(dq, ref[0])]),
+                        ("flash_attention_bwd_dkv", [(dk, ref[1]),
+                                                     (dv, ref[2])])):
+        rel = max(_row_err(torch, a, b_) for a, b_ in pairs)
+        check(rel <= FA_TOL, f"{name} at {[bh, s, s, d]}: row err {rel}")
+        res[name]["row_err"] = rel
+        res[name]["max_abs_err"] = max(
+            (a.float() - b_.float()).abs().max().item() for a, b_ in pairs)
+    res["flash_attention_fwd"]["lse_err"] = lse_err
+    # the backward again through the wrapper the model launches (its own
+    # delta, operands through align16), from the forward wrapper's o and lse
+    wdq, wdk, wdv = tfa._fa_backward_kernel(q, k, v, o, lse, do, True, scale,
+                                            None, "split")
+    for name, pairs in (("flash_attention_bwd_dq", [(wdq, ref[0])]),
+                        ("flash_attention_bwd_dkv", [(wdk, ref[1]),
+                                                     (wdv, ref[2])])):
+        rel = max(_row_err(torch, a, b_) for a, b_ in pairs)
+        check(rel <= FA_TOL, f"{name} through _fa_backward_kernel at "
+              f"{[bh, s, s, d]}: row err {rel}")
+        res[name]["wrapper_row_err"] = rel
     return res
 
 
 def time_flash(torch, tfa):
     """Each flash kernel's time at GPT-2's training shape, beside its plain
     version, its bound and scaled_dot_product_attention (a yardstick the
-    port never calls); the split pair also at Llama-3 8B's shape."""
+    port never calls); the forward and the split pair also at Llama-3
+    8B's shape."""
     import torch.nn.functional as F
 
     s = FA_SHAPE
@@ -863,7 +934,7 @@ def time_flash(torch, tfa):
     res["flash_attention_bwd_dkv"]["host_us"] = {
         "c_call": host_us(torch, rows[3][1])}
     del q, k, v, do, o, lse, delta, dq, dk, dv, qg, kg, vg
-    for name, t in time_split_at(torch, tfa, **LLAMA_SHAPE).items():
+    for name, t in time_llama_attention(torch, tfa, **LLAMA_SHAPE).items():
         res[name]["llama3_8b"] = t
     return res
 
@@ -972,8 +1043,7 @@ def profile_window(torch, engine, reqs):
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     server.drain()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = device_events(torch, prof)
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
     steps = n_windows * SPEC["fused_tokens"]
     table = prof.key_averages().table(sort_by="self_device_time_total",
@@ -1052,11 +1122,12 @@ def tree_to(tree, device):
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 24, 1024, 20
 
 
-def train_batch(torch, vocab: int, k: int = 0, seed: int = 0):
-    """Seeded random tokens on the card: (B, T) ids and next-token labels
+def train_batch(torch, vocab: int, k: int = 0, seed: int = 0,
+                b: int = TRAIN_B, t: int = TRAIN_T):
+    """Seeded random tokens on the card: (b, t) ids and next-token labels
     (a leading axis of K for a fused batch)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shape = ((k,) if k else ()) + (TRAIN_B, TRAIN_T + 1)
+    shape = ((k,) if k else ()) + (b, t + 1)
     x = torch.randint(0, vocab, shape, generator=gen, device="cuda")
     return {"input_ids": x[..., :-1], "labels": x[..., 1:]}
 
@@ -1093,23 +1164,35 @@ def expect_launches(launches, steps, layers, fwd_per_layer, route, tag):
     check(launches == want, f"{tag}: launches {launches} != {want}")
 
 
-def profile_steps(torch, res, batch, n: int, ms_per_step: float):
+def device_events(torch, prof) -> list:
+    """The profiler's device activities (kernels, copies, sets).  A user
+    annotation such as ``Optimizer.step#AdamW.step`` also has a device
+    range, over kernels that are listed on their own: it is left out, or
+    its span would count twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events()
+            if e.device_type == cuda and not e.is_user_annotation]
+
+
+def profile_steps(torch, res, batch, n: int, ms_per_step: float,
+                  table: str = "chip_smoke_train_profile.txt"):
     """Profile n steps: the device's busy time per step, its share of the
-    unprofiled step time, kernels per step, and device time by kind.  The
-    table goes to chiprun_out/chip_smoke_train_profile.txt."""
+    unprofiled step time, kernels per step, device time by kind and the
+    torch ops that launched the most device time.  The table goes to
+    chiprun_out/<table>."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
         for _ in range(n):
             res.state, _ = res.train_step(res.state, batch)
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.events() if e.device_type == cuda]
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kern = device_events(torch, prof)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out",
-                           "chip_smoke_train_profile.txt"), "w") as f:
+    with open(os.path.join(HERE, "chiprun_out", table), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=40))
     if not kern:
@@ -1124,11 +1207,20 @@ def profile_steps(torch, res, batch, n: int, ms_per_step: float):
                 else "optimizer" if "multi_tensor" in name else "other")
         kinds[kind] += e.time_range.elapsed_us()
     busy_us = sum(kinds.values())
+    # one stream: its kernels cannot be busy longer than the wall clock
+    check(busy_us / 1e3 <= wall_ms * 1.001, f"profile: device busy "
+          f"{busy_us / 1e3:.1f} ms in {wall_ms:.1f} ms of wall clock: "
+          f"some device range counts twice")
+    ops = sorted((a for a in prof.key_averages()
+                  if a.key.startswith("aten::")),
+                 key=lambda a: -a.self_device_time_total)[:12]
     return {"device_busy_ms_per_step": busy_us / n / 1e3,
             "device_busy_share": busy_us / n / 1e3 / ms_per_step,
             "kernels_per_step": len(kern) / n,
             "device_ms_per_step_by_kind": {k: v / n / 1e3
-                                           for k, v in kinds.items()}}
+                                           for k, v in kinds.items()},
+            "device_ms_per_step_by_op": {
+                a.key: a.self_device_time_total / n / 1e3 for a in ops}}
 
 
 def train_phase(torch, tfa):
@@ -1207,6 +1299,116 @@ def train_phase(torch, tfa):
     return out, main_launches, launches_s
 
 
+# ------------------------------------------------------------ phase 4c
+
+# Llama-3 8B at its published width, 4 of its 32 layers (one pipeline
+# stage's share of 8), B = 1 at its 4096-token training length
+LLAMA_LAYERS, LLAMA_B, LLAMA_T, LLAMA_STEPS = 4, 1, 4096, 5
+# The flash route's 7 losses (2 warm-up steps, then the 5 counted) against
+# the einsum branch's (plain torch attention, no kernel) from the same
+# seed and batch, relative.  Both run bf16; they differ by where bf16
+# rounds inside attention, and adamw(3e-4) at this width swings the loss
+# by ~3 a step (Adam's sign-like first steps overshoot: the einsum branch
+# swings the same way), which carries that rounding forward.  On an H100
+# 80GB HBM3 at 700 W the two read 2.2e-3 apart at most over the 7 steps
+# (PERF.md); a kernel that is wrong on most rows moves the first step's
+# gradient, and the trajectory, by far more.
+LLAMA_LOSS_RTOL = 1e-2
+
+
+def llama_model_flop(cfg, n_dense: int, tokens: int) -> int:
+    """Model FLOP of one training step, remat recompute not counted: 6 per
+    dense parameter and token, and attention's two products per (query,
+    key) pair in the forward, three times that with the backward."""
+    pairs = fa_pairs(LLAMA_T, LLAMA_T, True) * (tokens // LLAMA_T)
+    attn = 3 * 2 * 2 * cfg.head_dim * pairs * cfg.num_heads * cfg.num_layers
+    return 6 * n_dense * tokens + attn
+
+
+def llama_train_phase(torch, tfa):
+    """Llama-3 8B (4 layers, full width) training through auto_accelerate:
+    bf16 compute over float32 masters, remat "full", the flash route,
+    adamw(3e-4), B = 1, T = 4096, one fixed batch of seeded tokens.  At T =
+    4096 the route rule sends the backward to the split dq and dk/dv
+    kernels; remat runs each block's forward twice."""
+    import dataclasses
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.llama import Llama, LlamaConfig
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_layers=LLAMA_LAYERS)
+    check(cfg.remat and cfg.remat_policy == "full" and cfg.use_flash_attention
+          and cfg.dtype == torch.bfloat16 and cfg.head_dim == 128,
+          f"Llama-3 8B preset changed: {cfg}")
+    check(tfa.backward_route(LLAMA_T, LLAMA_T) == "split",
+          "the route rule does not send T = 4096 to the split pair")
+    t0 = time.monotonic()
+    res = auto_accelerate(Llama(cfg), optimizer=adamw(3e-4), seed=0)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    params = list(res.model.named_parameters())
+    n_params = sum(p.numel() for _, p in params)
+    check(n_params == cfg.num_params(),
+          f"{n_params} parameters, num_params() says {cfg.num_params()}")
+    n_dense = sum(p.numel() for n, p in params
+                  if p.dim() == 2 and not n.startswith("embed_tokens"))
+    batch = train_batch(torch, cfg.vocab_size, b=LLAMA_B, t=LLAMA_T)
+    # warm-up: cuBLAS, allocator
+    warm, _, _, _ = run_steps(torch, tfa, res, batch, 2)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms, launches = run_steps(torch, tfa, res, batch,
+                                            LLAMA_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(lambda x: x == x and abs(x) < float("inf"),
+                  losses + norms)), f"Llama: non-finite loss or grad norm: "
+          f"{losses} {norms}")
+    # adamw(3e-4) with no warm-up overshoots at this width: the loss goes
+    # up and down from one step to the next, so the last step against the
+    # first would pass or fail with the window's parity.  Two neighbouring
+    # steps hold one high and one low, so the mean of the last two against
+    # the mean of the first two reads the trend whatever the length.
+    head, tail = sum(losses[:2]) / 2, sum(losses[-2:]) / 2
+    check(tail < head, f"Llama: the mean loss of the last two steps "
+          f"{tail} is not below the first two's {head}: {losses}")
+    expect_launches(launches, LLAMA_STEPS, LLAMA_LAYERS, 2, "split",
+                    "Llama-3 8B training")
+    tokens = LLAMA_B * LLAMA_T
+    flop = llama_model_flop(cfg, n_dense, tokens)
+    out = {"layers": LLAMA_LAYERS, "steps": LLAMA_STEPS, "batch": LLAMA_B,
+           "seq": LLAMA_T, "params": n_params, "dense_params": n_dense,
+           "init_s": init_s, "ms_per_step": ms,
+           "tokens_per_s": tokens / ms * 1e3,
+           "model_tflop_per_step": flop / 1e12,
+           "model_tflop_per_s": flop / ms / 1e9,
+           "max_memory_allocated_bytes": peak,
+           "losses": losses, "grad_norms": norms, "launches": launches}
+    out["profile"] = profile_steps(torch, res, batch, 3, ms,
+                                   "chip_smoke_llama_profile.txt")
+    del res, params
+    torch.cuda.empty_cache()
+
+    # the same model and steps on the einsum branch: no flash kernel
+    res = auto_accelerate(Llama(dataclasses.replace(
+        cfg, use_flash_attention=False)), optimizer=adamw(3e-4), seed=0)
+    warm_e, _, _, _ = run_steps(torch, tfa, res, batch, 2)
+    l_e, _, ms_e, launches_e = run_steps(torch, tfa, res, batch,
+                                         LLAMA_STEPS)
+    check(sum(launches_e.values()) == 0,
+          f"the einsum branch launched flash kernels: {launches_e}")
+    flash_l, einsum_l = warm + losses, warm_e + l_e
+    rel = max(abs(a - b) / abs(b) for a, b in zip(flash_l, einsum_l))
+    check(rel <= LLAMA_LOSS_RTOL, f"Llama: flash route losses {flash_l} "
+          f"differ from the einsum branch's {einsum_l} by {rel} relative")
+    out["einsum_reference"] = {"ms_per_step": ms_e, "losses": einsum_l,
+                               "flash_losses": flash_l,
+                               "max_relative_loss_difference": rel}
+    del res
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 # ------------------------------------------------------------ phase 5b
 
 # Tolerances of the nano training reference, card against CPU.  Both run
@@ -1231,17 +1433,10 @@ def train_reference(torch, np, tfa):
     the worst relative differences and the losses."""
     import dataclasses
 
-    from dlrover_wuqiong_tpu_torch.convert import load_params
     from dlrover_wuqiong_tpu_torch.models.gpt import (
         GPT,
         GPTConfig,
         init_params,
-    )
-    from dlrover_wuqiong_tpu_torch.trainer.train_step import (
-        TrainState,
-        adamw,
-        make_lm_loss,
-        make_train_step,
     )
 
     cfg = dataclasses.replace(GPTConfig.nano(), dtype=torch.float32)
@@ -1249,10 +1444,27 @@ def train_reference(torch, np, tfa):
     rng = np.random.default_rng(3)
     batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 129)))
                for _ in range(3)]
+    return card_vs_cpu(torch, tfa, lambda: GPT(cfg), params, batches,
+                       "nano")
+
+
+def card_vs_cpu(torch, tfa, make_model, params, batches, tag):
+    """A float32 model from `params` on the card (kernels) against the CPU
+    (plain versions), on the same batches: the first step's logits and
+    gradients, then one adamw step a batch.  Returns the worst relative
+    differences, the losses and the card's kernel launches."""
+    from dlrover_wuqiong_tpu_torch.convert import load_params
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import (
+        TrainState,
+        adamw,
+        make_lm_loss,
+        make_train_step,
+    )
+
     loss_fn = make_lm_loss()
     losses, launches, logits, grads = {}, {}, {}, {}
     for device in ("cpu", "cuda"):
-        model = load_params(GPT(cfg), params, device)
+        model = load_params(make_model(), params, device)
         tfa.reset_launches()
         b = batches[0].to(device)
         first = {"input_ids": b[:, :-1], "labels": b[:, 1:]}
@@ -1269,29 +1481,63 @@ def train_reference(torch, np, tfa):
             state, m = step(state, {"input_ids": b[:, :-1],
                                     "labels": b[:, 1:]})
             out.append(m["loss"].item())
-        losses[device], launches[device] = out, sum(tfa.LAUNCHES.values())
-    check(launches["cpu"] == 0 and launches["cuda"] > 0,
-          f"nano reference launches {launches}")
+        losses[device], launches[device] = out, dict(tfa.LAUNCHES)
+    check(sum(launches["cpu"].values()) == 0
+          and sum(launches["cuda"].values()) > 0,
+          f"{tag} reference launches {launches}")
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
     logit_err = rel(logits["cuda"], logits["cpu"])
     leaf, grad_err = max(((n, rel(g, grads["cpu"][n]))
                           for n, g in grads["cuda"].items()),
                          key=lambda x: x[1])
     check(max(logit_err, grad_err) <= NANO_GRAD_RTOL,
-          f"nano first step differs card vs CPU: logits {logit_err}, "
+          f"{tag} first step differs card vs CPU: logits {logit_err}, "
           f"gradient of {leaf} {grad_err}")
     loss_err = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
                                                        losses["cuda"]))
-    check(loss_err <= NANO_LOSS_RTOL, f"nano training losses differ card "
+    check(loss_err <= NANO_LOSS_RTOL, f"{tag} training losses differ card "
           f"vs CPU: {losses}")
     return {"logits": logit_err, "worst_grad": grad_err,
-            "worst_grad_leaf": leaf, "loss": loss_err}, losses
+            "worst_grad_leaf": leaf, "loss": loss_err}, losses, \
+        launches["cuda"]
+
+
+# ------------------------------------------------------------ phase 5c
+
+
+def llama_reference(torch, np, tfa):
+    """A small Llama in float32 on the card against the CPU, as
+    `train_reference` holds GPT nano: 2 layers, hidden 256, 2 heads of
+    Llama-3's dim 128 over 1 kv head (GQA), vocab 512, B = 1 and T = 2048,
+    so the card takes the split dq and dk/dv kernels at D = 128 (checked
+    by their launches; no fused launch)."""
+    from dlrover_wuqiong_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        init_params,
+    )
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=2, num_kv_heads=1,
+                      max_seq_len=2048, dtype=torch.float32)
+    params = init_params(cfg, seed=2, device="cpu")
+    rng = np.random.default_rng(3)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2049)))
+               for _ in range(3)]
+    errs, losses, launches = card_vs_cpu(torch, tfa, lambda: Llama(cfg),
+                                         params, batches, "small Llama")
+    check(launches["flash_attention_bwd_dq"] > 0
+          and launches["flash_attention_bwd_dkv"] > 0
+          and launches["flash_attention_bwd_fused"] == 0,
+          f"small Llama did not take the split route: {launches}")
+    return errs, losses
 
 
 # ------------------------------------------------------------ main
 
 
 def main():
+    t_start = time.monotonic()
     try:
         import numpy as np
         import torch
@@ -1389,7 +1635,14 @@ def main():
                   f"{tt['bound_ms']:.4f} ms ({tt['bound_by']}; {tt['bytes']} "
                   f"B, {tt['flop']} FLOP, "
                   f"{tt['flop'] / tt['ms'] / 1e9:.1f} TFLOP/s), "
-                  f"scaled_dot_product_attention {tt['library_ms']:.4f} ms")
+                  f"scaled_dot_product_attention {tt['library_ms']:.4f} ms"
+                  + (f"; worst row ||kernel - plain|| / ||plain|| "
+                     f"{tt['row_err']:.2e} (tolerance {FA_TOL})"
+                     if "row_err" in tt else "")
+                  + (f", lse {tt['lse_err']:.2e} (tolerance {FA_LSE_TOL})"
+                     if "lse_err" in tt else "")
+                  + (f", through the wrapper {tt['wrapper_row_err']:.2e}"
+                     if "wrapper_row_err" in tt else ""))
 
     # phase 4 — warm-up (cuBLAS handles, allocator) on a throwaway engine
     reqs = make_requests(np, seed=0, vocab=50257)
@@ -1441,17 +1694,31 @@ def main():
     train, fa_launches, split_launches = train_phase(torch, tfa)
     print("training: " + json.dumps(train))
 
+    # phase 4c
+    llama, llama_launches = llama_train_phase(torch, tfa)
+    print("llama training: " + json.dumps(llama))
+
     # phase 5
     ref_err = reference_check(torch, np)
     print(f"reference: nano int8 card == CPU tokens; logits max |err| "
           f"{ref_err:.3g}")
-    nano_err, nano_losses = train_reference(torch, np, tfa)
+    nano_err, nano_losses, _ = train_reference(torch, np, tfa)
     print(f"reference: nano training card vs CPU: first step logits "
           f"{nano_err['logits']:.3g}, worst gradient "
           f"{nano_err['worst_grad']:.3g} ({nano_err['worst_grad_leaf']}) "
           f"relative (tolerance {NANO_GRAD_RTOL}); 3 adamw steps, losses "
           f"{nano_losses}, max relative difference {nano_err['loss']:.3g} "
           f"(tolerance {NANO_LOSS_RTOL})")
+
+    # phase 5c
+    llama_err, llama_losses = llama_reference(torch, np, tfa)
+    print(f"reference: small Llama (D = 128, GQA, T = 2048, split route) "
+          f"training card vs CPU: first step logits "
+          f"{llama_err['logits']:.3g}, worst gradient "
+          f"{llama_err['worst_grad']:.3g} ({llama_err['worst_grad_leaf']}) "
+          f"relative (tolerance {NANO_GRAD_RTOL}); 3 adamw steps, losses "
+          f"{llama_losses}, max relative difference "
+          f"{llama_err['loss']:.3g} (tolerance {NANO_LOSS_RTOL})")
 
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
@@ -1480,10 +1747,12 @@ def main():
              f"training, {TRAIN_STEPS} steps"),
             ("flash_attention_bwd_fused", ":429", fa_launches,
              f"training, {TRAIN_STEPS} steps"),
-            ("flash_attention_bwd_dq", ":327", split_launches,
-             "training with DWT_FA_NO_FUSED, 3 steps"),
-            ("flash_attention_bwd_dkv", ":375", split_launches,
-             "training with DWT_FA_NO_FUSED, 3 steps")):
+            ("flash_attention_bwd_dq", ":327", llama_launches,
+             f"Llama-3 8B training ({LLAMA_LAYERS} layers), "
+             f"{LLAMA_STEPS} steps"),
+            ("flash_attention_bwd_dkv", ":375", llama_launches,
+             f"Llama-3 8B training ({LLAMA_LAYERS} layers), "
+             f"{LLAMA_STEPS} steps")):
         t = fa_times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -1495,12 +1764,17 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "timed_work": "GPT-2 attention, (288, 1024, 1024, 64) causal",
             "launches_in": run,
+            "launches_llama3_8b_training": llama_launches[name],
+            "launches_split_side_run": split_launches[name],
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {
                 key: t["llama3_8b"][key]
                 for key in ("shape", "ms", "ms_host_paced", "plain_ms",
-                            "bound_ms", "bound_by", "library_ms")}
+                            "bound_ms", "bound_by", "library_ms", "row_err",
+                            "max_abs_err")}
+    print(f"wall: {time.monotonic() - t_start:.1f} s from the start to the "
+          f"last check")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ and the one-device training path:
   trainer.train_step                    TrainState, make_train_step
                                         (accumulation, fused K steps), adamw
   models.gpt.GPT / cross_entropy_loss   GPT-2 as nn.Modules, flax names
+  models.llama.Llama                    Llama-3 (RMSNorm, RoPE, SwiGLU,
+                                        GQA), flax names, same loss
   models.attention / models.fp8         the flash route, flax's Dense
   ops.remat                             remat "full" per block
   ops.flash_attention                   forward + fused / split backward
@@ -28,7 +30,7 @@ and the one-device training path:
 shared by both:
 
   models.gpt.GPTConfig / init_params    GPT-2 configs, seeded flax-layout init
-  convert                               flax tree <-> tensors <-> GPT
+  convert                               flax tree <-> tensors <-> model
   _build                                nvcc -> ctypes, at first use
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

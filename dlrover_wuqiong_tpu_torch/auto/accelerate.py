@@ -11,6 +11,9 @@ train step of `trainer.train_step.make_train_step`::
     res.state, m = res.train_step(res.state, res.place_batch(
         {"input_ids": ids, "labels": labels}))
 
+The model is any port model with ``init_params(seed, device)`` that maps
+(B, T) token ids to logits: ``models.gpt.GPT`` or ``models.llama.Llama``.
+
 Sharding strategies and more than one device raise: they come with the
 port of ``parallel/`` (ROADMAP queue 1 item 8).
 """

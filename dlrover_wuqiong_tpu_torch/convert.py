@@ -1,25 +1,29 @@
-"""Converts parameters between a flax tree, the port's tensor tree and `GPT`.
+"""Converts parameters between a flax tree, the port's tensor tree and a model.
 
-Parity: the tree that dlrover_wuqiong_tpu/models/gpt.py:204
-(`GPT.init_params`) returns, as consumed by
+Parity: the trees that dlrover_wuqiong_tpu/models/gpt.py:204
+(`GPT.init_params`) and dlrover_wuqiong_tpu/models/llama.py:208
+(`Llama.init_params`) return; GPT's as consumed by
 dlrover_wuqiong_tpu/rl/generation.py:91 (`forward_step`) and by the
 serving engine's ``sync_from_trainer``
 (dlrover_wuqiong_tpu/serving/engine.py).
 
 - `params_from_jax`: a flax tree of numpy arrays -> the same nested dict of
   tensors (the serving engine's input).
-- `load_params`: such a tree (numpy arrays or tensors) -> a
-  ``models.gpt.GPT``'s parameters, matched by path (``h_0/attn/c_attn/
-  kernel`` is the parameter ``h_0.attn.c_attn.kernel``).
-- `export_params`: a `GPT`'s parameters -> the nested dict
-  ``ServingEngine.sync_from_trainer`` takes, as detached copies.
+- `load_params`: such a tree (numpy arrays or tensors) -> the parameters
+  of a port model (``models.gpt.GPT``, ``models.llama.Llama``), matched by
+  path (``h_0/attn/c_attn/kernel`` is the parameter
+  ``h_0.attn.c_attn.kernel``, ``layers_0/attention/q_proj/kernel`` the
+  parameter ``layers_0.attention.q_proj.kernel``).
+- `export_params`: a model's parameters -> the nested dict (for GPT, the
+  one ``ServingEngine.sync_from_trainer`` takes), as detached copies.
 
 The paths stay the same (``h_<i>/attn/c_attn/kernel``, ``ln_1/scale``,
-``wte/embedding``, ...) and so does every layout: a Dense kernel stays
-``(in, out)``, because the int8 store quantizes the flattened row-major
-kernel in 256-element blocks and a transposed kernel would quantize into
-other blocks, scales and values.  The caller hands over numpy arrays
-(``np.asarray`` of each jax leaf); this module imports no JAX.
+``wte/embedding``, ``embed_tokens/embedding``, ...) and so does every
+layout: a Dense kernel stays ``(in, out)``, because the int8 store
+quantizes the flattened row-major kernel in 256-element blocks and a
+transposed kernel would quantize into other blocks, scales and values.
+The caller hands over numpy arrays (``np.asarray`` of each jax leaf); this
+module imports no JAX.
 """
 
 from __future__ import annotations

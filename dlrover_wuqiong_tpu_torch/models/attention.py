@@ -1,4 +1,5 @@
-"""Attention dispatch for model modules: the flash route.
+"""Attention dispatch for model modules (GPT, and Llama after its GQA
+repeat): the flash route.
 
 Parity: dlrover_wuqiong_tpu/models/attention.py — `attend` (:20).  The
 model config's ``attn_impl`` picks the implementation; only "flash" (the
@@ -6,12 +7,14 @@ one-device route) is ported.  "ring" and "ulysses" with a mesh raise:
 context-parallel attention comes with `parallel/long_context.py`, ROADMAP
 queue 1 item 8.
 
-The dtype contract (``GPTConfig.dtype``): the flash route's CUDA kernels
-compute in bfloat16, so on a CUDA device `attend` rounds q, k and v of
-another dtype to bfloat16 and casts the output back.  A float32 model on
-the card therefore runs bfloat16 attention (products in bfloat16 with
-float32 accumulation); on the CPU the plain versions compute in the
-model's dtype.
+The dtype contract (``GPTConfig.dtype``, ``LlamaConfig.dtype``): the
+flash route's CUDA kernels compute in bfloat16, so on a CUDA device
+`attend` rounds q, k and v of another dtype to bfloat16 and casts the
+output back.  A float32 model on the card therefore runs bfloat16
+attention (products in bfloat16 with float32 accumulation); on the CPU
+the plain versions compute in the model's dtype.  Past one 1024-row
+block (Llama-3 at T = 4096) the backward takes the split dq and dk/dv
+kernels (`ops.flash_attention.backward_route`).
 """
 
 from __future__ import annotations

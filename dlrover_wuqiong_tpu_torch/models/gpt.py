@@ -99,10 +99,15 @@ class GPTConfig:
 _TRUNC_STD = 0.87962566103423978
 
 
-def _dense(fan_in: int, fan_out: int, gen, device) -> Dict[str, torch.Tensor]:
+def _dense(fan_in: int, fan_out: int, gen, device,
+           use_bias: bool = True) -> Dict[str, torch.Tensor]:
+    """flax Dense init: a lecun-normal (in, out) kernel and, with
+    `use_bias`, a zero bias."""
     kernel = torch.empty((fan_in, fan_out), device=device)
     torch.nn.init.trunc_normal_(kernel, 0.0, 1.0, -2.0, 2.0, generator=gen)
     kernel.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+    if not use_bias:
+        return {"kernel": kernel}
     return {"kernel": kernel, "bias": torch.zeros(fan_out, device=device)}
 
 

@@ -167,7 +167,8 @@ def make_lm_loss(model_apply: Optional[Callable] = None) -> Callable:
     """Causal-LM loss over a batch dict {input_ids, labels}:
     ``loss_fn(params, batch)``, where `params` is the model and
     ``model_apply(params, input_ids)`` (default: calling the model)
-    gives the logits."""
+    gives the logits.  GPT's `cross_entropy_loss` serves every model
+    family, Llama too, as in the JAX package."""
     from ..models.gpt import cross_entropy_loss
 
     apply = model_apply or (lambda model, idx: model(idx))

@@ -60,7 +60,7 @@ def test_import_loads_no_jax_and_no_cuda():
     assert leaked == []
     assert rec["cuda"] is False
     for mod in ("serving.engine", "ops.flash_attention", "models.gpt",
-                "models.attention", "models.fp8", "ops.remat",
+                "models.llama", "models.attention", "models.fp8", "ops.remat",
                 "trainer.train_step", "auto.accelerate"):
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in rec["mods"]
 
@@ -122,6 +122,23 @@ def test_training_entry_points_default_to_cuda(monkeypatch):
         tfa._fa_backward_kernel(x, x, x, x, x[..., 0].float(), x, True,
                                 0.125, None, "fused")
     assert sum(tfa.LAUNCHES.values()) == 0
+
+
+def test_llama_entry_points_default_to_cuda(monkeypatch):
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        init_params,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Llama(LlamaConfig.nano()).init_params()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(LlamaConfig.nano())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        auto_accelerate(Llama(LlamaConfig.nano()))
 
 
 def _check_nvcc_command(monkeypatch, name):
