@@ -71,6 +71,19 @@ Phases, in order; a failure in any of them exits non-zero:
    A profiled pass gives the device's busy share and launches per step.
    The same traffic with ``quant=""`` runs beside it, in turns with
    int8 (int8, bf16, bf16, int8).
+4d. The same int8 traffic through the master-backed worker: a port
+   ``JobMaster`` hosted in this process on 127.0.0.1, the 16 requests
+   submitted through a ``MasterClient``, ``ServingWorker(client,
+   engine).run`` on a thread leasing them over loopback RPC, in turns
+   with the direct route (direct, worker, worker, direct), timed from
+   the first submit to the master holding the last result.  Checks:
+   every request has 64 in-vocabulary tokens, the greedy ones equal
+   phase 4's, one quantize launch at the worker's engine build and one
+   dequantize launch per dispatch (counts set to 0 just before the
+   build).  Prints tokens/s, latency and TTFT p50/p99 of both routes and
+   the host ms of each RPC verb from the ``rpc:<verb>`` spans; then two
+   diagnostics in turns: the worker on the main thread, and the worker
+   beside a 2 ms poller of the master's queue.
 4b. The training path: ``auto_accelerate(GPT(GPTConfig.gpt2() with
    remat=False), optimizer=adamw(3e-4))`` at full width and depth, bf16
    compute over float32 masters, B = 24, T = 1024, one fixed batch of
@@ -111,6 +124,15 @@ Phases, in order; a failure in any of them exits non-zero:
    plain versions at Llama-3 8B's attention shape, per row, through the
    C entries and through the wrappers the model launches
    (``_fa_forward_kernel``, ``_fa_backward_kernel`` on the split route).
+6b. The drain drill (``chaos.serve_drain``, the JAX drill's parameters:
+   GPT nano, 8 requests x 24 tokens at temperature 1.0, 2 slots, 2 fused
+   tokens): an in-process master, a worker subprocess on the card
+   SIGKILLed once 2 requests are done and others leased, its failure
+   reported, a second worker draining.  Checks: zero dropped, requeues
+   attributed, results bitwise an alone-decode's at the workers'
+   geometry, one trace tree per request from both generations' flight
+   dumps.  Prints the recovery time and how many requests differ at the
+   JAX drill's other geometry (3 slots, 4 fused tokens).
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1060,6 +1082,163 @@ def profile_window(torch, engine, reqs):
             "kernels_per_decode_step": len(kern) / steps}
 
 
+# ------------------------------------------------------------ phase 4d
+
+
+def serve_worker(torch, np, cfg, params, reqs, variant="thread"):
+    """Serve `reqs` through the master-backed worker: a port JobMaster on
+    127.0.0.1, the requests submitted at once through a MasterClient, and
+    ``ServingWorker(client, engine).run`` leasing them over loopback RPC.
+    Returns (engine, tokens, metrics, launches, rpc).  The run is timed
+    from the first submit to the moment the master holds the last result;
+    latency and time to first token count from the submit to the master
+    holding each result, as phase 4's count from the submit to the
+    drain's step that finished it.  The master's queue stamps each result
+    as it takes it (its `complete` wrapped).
+
+    `variant`: "thread" runs the worker on a thread of its own while this
+    thread waits for the last stamp; two diagnostics of the host-bound
+    decode loop beside it: "main" runs the worker on this thread, stopped
+    by the master at the last stamp (as ``python -m
+    dlrover_wuqiong_tpu_torch.serving`` runs it, on its main thread);
+    "poll" has this thread read the master's queue every 2 ms instead of
+    the stamps (a poller that shares the interpreter lock)."""
+    import threading
+
+    from dlrover_wuqiong_tpu_torch.agent.master_client import MasterClient
+    from dlrover_wuqiong_tpu_torch.common import messages as msg
+    from dlrover_wuqiong_tpu_torch.master.master import JobMaster
+    from dlrover_wuqiong_tpu_torch.ops import quantization as tq
+    from dlrover_wuqiong_tpu_torch.serving import (
+        ServeSpec,
+        ServingEngine,
+        ServingWorker,
+    )
+    from dlrover_wuqiong_tpu_torch.telemetry import spans as tspans
+    from dlrover_wuqiong_tpu_torch.telemetry.serving import (
+        reset_serve_ledger,
+    )
+
+    reset_serve_ledger()
+    master = JobMaster(port=0, host="127.0.0.1")
+    master.start()
+    sub = MasterClient(master.addr, node_id=90, node_type="client")
+    cli = MasterClient(master.addr, node_id=1, node_type="serve-worker")
+    worker = th = None
+    try:
+        torch.cuda.synchronize()
+        tq.reset_launches()  # counts start at 0 just before the main path
+        t0 = time.monotonic()
+        engine = ServingEngine(cfg, params, ServeSpec(**SPEC, quant="int8"))
+        torch.cuda.synchronize()
+        t_build = time.monotonic() - t0
+        worker = ServingWorker(cli, engine)
+        tspans.clear_spans()
+        t1 = time.monotonic()
+        sub.submit_serve_requests([msg.ServeRequest(
+            **r, submitted_at=time.time()) for r in reqs])
+        arrived = {}
+        all_in = threading.Event()
+        complete = master.serve_queue.complete
+
+        def stamped_complete(results):
+            now = time.monotonic() - t1
+            n = complete(results)
+            for res in results:
+                arrived.setdefault(res.request_id, now)
+            if len(arrived) >= len(reqs):
+                all_in.set()
+                if variant == "main":
+                    worker.stop()
+            return n
+
+        if variant != "poll":
+            master.serve_queue.complete = stamped_complete
+        if variant == "main":
+            worker.run(max_seconds=300.0)
+        else:
+            th = threading.Thread(target=worker.run,
+                                  kwargs={"max_seconds": 300.0},
+                                  daemon=True)
+            th.start()
+        polls = 0
+        while not all_in.is_set():
+            check(variant != "main" and th.is_alive()
+                  and time.monotonic() - t1 < 300.0,
+                  f"the worker held back results: {len(arrived)} of "
+                  f"{len(reqs)} at the master")
+            if variant == "thread":
+                all_in.wait(1.0)
+                continue
+            now = time.monotonic() - t1
+            for rid in master.serve_queue.export_state()["done"]:
+                arrived.setdefault(rid, now)
+            polls += 1
+            if len(arrived) >= len(reqs):
+                all_in.set()
+            time.sleep(0.002)
+        wall = max(arrived.values())
+        worker.stop()
+        if th is not None:
+            th.join(timeout=60)
+            check(not th.is_alive(), "the worker did not stop")
+        torch.cuda.synchronize()
+        launches = dict(tq.LAUNCHES)
+        spans = tspans.spans_snapshot()
+        snap = worker.ledger.snapshot()
+        got = sub.get_serve_results([r["request_id"] for r in reqs])
+        summ = sub.get_serve_summary()
+    finally:
+        if worker is not None:
+            worker.stop()
+        if th is not None:
+            th.join(timeout=60)
+        sub.close()
+        cli.close()
+        master.stop()
+    done = {res.request_id: res for res in got.results}
+    out = {rid: list(res.tokens) for rid, res in done.items()}
+    n_tok = sum(len(v) for v in out.values())
+    lat = np.array([arrived[rid] for rid in done]) * 1e3
+    ttft = np.array([arrived[rid] - res.latency_s + res.ttft_s
+                     for rid, res in done.items()]) * 1e3
+    rpc = {}
+    for name, verb in (("ServeLeaseRequest", "lease"),
+                       ("ServeResultReport", "results"),
+                       ("ServeStatsReport", "stats"),
+                       ("ServeSubmitRequest", "submit")):
+        ms = [r["dur_s"] * 1e3 for r in spans
+              if r["name"].startswith("rpc:")
+              and r["attrs"].get("msg") == name]
+        check(ms, f"no rpc span of {verb}")
+        rpc[verb] = {"calls": len(ms), "median_ms": float(np.median(ms)),
+                     "min_ms": min(ms), "max_ms": max(ms),
+                     "total_ms": sum(ms)}
+    metrics = {
+        "route": "worker",
+        "requests": len(reqs),
+        "finished": summ.done_total,
+        "tokens_out": n_tok,
+        "wall_s": wall,
+        "tokens_per_s": n_tok / wall,
+        "latency_p50_ms": float(np.percentile(lat, 50)),
+        "latency_p99_ms": float(np.percentile(lat, 99)),
+        "ttft_p50_ms": float(np.percentile(ttft, 50)),
+        "ttft_p99_ms": float(np.percentile(ttft, 99)),
+        "dispatches": engine.dispatches,
+        "decode_windows": engine.dispatches - len(reqs),
+        "loop_turns": worker._windows,  # noqa: SLF001
+        "ms_per_decode_window": snap["states"]["decode"]
+        / (engine.dispatches - len(reqs)) * 1e3,
+        "ms_per_admit": snap["states"]["prefill"] / len(reqs) * 1e3,
+        "idle_ms": snap["states"]["idle"] * 1e3,
+        "variant": variant,
+        "polls": polls,
+        "engine_build_s": t_build,
+    }
+    return engine, out, metrics, launches, rpc
+
+
 # ------------------------------------------------------------ phase 5
 
 
@@ -1687,6 +1866,65 @@ def main():
         check(quant or sum(l.values()) == 0, "quant='' launched kernels")
         runs[quant or "bf16"].append(m)
     print("serving: " + json.dumps({**runs, "int8_profile": prof}))
+
+    # phase 4d — the same traffic through the master-backed worker, in
+    # turns with the direct route (direct, worker, worker, direct)
+    turns = {"direct": [], "worker": []}
+    rpc_turns = []
+    greedy_ids = [r["request_id"] for r in reqs if r["temperature"] == 0.0]
+    for route in ("direct", "worker", "worker", "direct"):
+        if route == "direct":
+            _, o, m, l = serve(torch, np, cfg, params, "int8", reqs)
+        else:
+            _, o, m, l, rpc = serve_worker(torch, np, cfg, params, reqs)
+            rpc_turns.append(rpc)
+            worker_launches = l
+        check(sorted(o) == sorted(r["request_id"] for r in reqs),
+              f"{route}: not every request finished")
+        for rid, toks in o.items():
+            check(len(toks) == NEW_TOKENS and all(
+                0 <= t < cfg.vocab_size for t in toks),
+                f"{route}: {rid} has {len(toks)} tokens or tokens out of "
+                f"the vocabulary")
+        check(all(o[rid] == out[rid] for rid in greedy_ids),
+              f"{route}: greedy tokens differ from phase 4's direct run")
+        m["same_as_phase4"] = sum(o[rid] == out[rid] for rid in out)
+        if route == "worker":
+            check(l["quantize_int8_blockwise"] == 1,
+                  f"worker: quantize launches {l} != 1 at engine build")
+            check(l["dequantize_int8_blockwise"] == m["dispatches"],
+                  f"worker: dequantize launches {l} != "
+                  f"{m['dispatches']} dispatches")
+        turns[route].append(m)
+    # diagnostics in turns: the worker on this thread, and on its own
+    # thread beside a 2 ms poller of the master's queue
+    diag = {"main": [], "poll": []}
+    for variant in ("main", "poll", "poll", "main"):
+        _, o, m, _, _ = serve_worker(torch, np, cfg, params, reqs,
+                                     variant=variant)
+        check(all(o[rid] == out[rid] for rid in greedy_ids),
+              f"worker ({variant}): greedy tokens differ from phase 4's")
+        diag[variant].append(m)
+    print("serving through the worker: " + json.dumps(
+        {**turns, "diagnostics": diag, "rpc": rpc_turns}))
+    for route, ms in list(turns.items()) + [
+            ("worker on the main thread", diag["main"]),
+            ("worker beside a 2 ms poller", diag["poll"])]:
+        tps = ", ".join(f"{m['tokens_per_s']:.1f}" for m in ms)
+        win = ", ".join(f"{m['ms_per_decode_window']:.2f}" for m in ms)
+        lat = ", ".join(f"{m['latency_p50_ms']:.1f}/{m['latency_p99_ms']:.1f}"
+                        for m in ms)
+        ttft = ", ".join(f"{m['ttft_p50_ms']:.1f}/{m['ttft_p99_ms']:.1f}"
+                         for m in ms)
+        print(f"serving: {route}, in turns: tokens/s {tps}; ms per decode "
+              f"window {win}; latency p50/p99 ms {lat}; TTFT p50/p99 ms "
+              f"{ttft}")
+    for verb in ("lease", "results", "stats"):
+        print(f"serving: rpc {verb}, host ms (median [min, max] over "
+              f"calls) per worker turn: " + "; ".join(
+                  f"{r[verb]['median_ms']:.3f} [{r[verb]['min_ms']:.3f}, "
+                  f"{r[verb]['max_ms']:.3f}] x{r[verb]['calls']}"
+                  for r in rpc_turns))
     del engine, alone, params
     torch.cuda.empty_cache()
 
@@ -1720,6 +1958,29 @@ def main():
           f"{llama_losses}, max relative difference "
           f"{llama_err['loss']:.3g} (tolerance {NANO_LOSS_RTOL})")
 
+    # phase 6b — the drain drill: decode workers as subprocesses on the
+    # card, each with its own CUDA context, so the training phases'
+    # memory goes back first
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    from dlrover_wuqiong_tpu_torch import chaos
+
+    drill = chaos.serve_drain(device="cuda")
+    print("serve-drain: " + json.dumps(drill))
+    check(drill["ok"], "serve-drain failed: " + json.dumps(drill))
+    print(f"serve-drain: {drill['requests']} requests x "
+          f"{drill['max_new_tokens']} tokens, SIGKILL at "
+          f"{drill['done_at_kill']} done; recovery (SIGKILL to the master "
+          f"holding the last result) {drill['recovery_s']:.3f} s, of "
+          f"which {drill.get('replacement_start_s', float('nan')):.3f} s "
+          f"until the second worker's first span; "
+          f"requeued {drill['requeued_total']}; bit-identical at the "
+          f"workers' geometry (2 slots, 2 fused tokens); "
+          f"{drill['mismatched_jax_geometry']} of {drill['requests']} "
+          f"requests differ at the JAX drill's (3 slots, 4 fused tokens)")
+
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -1740,6 +2001,7 @@ def main():
             "timed_work": "one grouped launch over the 50 weight matrices "
                           "of GPT-2 124M",
             "launches_in": "serving, 16 requests",
+            "launches_worker_route": worker_launches[name],
         })
     src = "dlrover_wuqiong_tpu_torch/csrc/flash_attention.cu"
     for name, replaces, counts, run in (

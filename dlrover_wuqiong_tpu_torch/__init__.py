@@ -13,6 +13,16 @@ Ported so far, the int8 serving path:
   ops.quantization                      blockwise int8 pair (CUDA kernels
                                         in csrc/int8_blockwise.cu)
 
+behind a master, the serving worker and its control plane:
+
+  serving.ServingWorker                 lease -> decode windows -> results
+  serving.__main__                      the worker process (--device)
+  agent.master_client.MasterClient      critical / buffered / polling verbs
+  master.master.JobMaster               serve queue + RPC server, no journal
+  common.comm / serialize / messages    framed-TCP RPC, the JAX wire format
+  telemetry.recorder / spans            flight dumps, cross-process traces
+  chaos.serve_drain                     SIGKILL a worker mid-traffic
+
 and the one-device training path:
 
   auto.accelerate.auto_accelerate       model + optimizer -> train step

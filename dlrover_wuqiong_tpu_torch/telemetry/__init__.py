@@ -1,1 +1,2 @@
-"""Serving ledger and trace spans (parity: dlrover_wuqiong_tpu/telemetry)."""
+"""Serving ledger, trace spans and the flight recorder (parity:
+dlrover_wuqiong_tpu/telemetry)."""

@@ -28,6 +28,16 @@ PKG = os.path.join(REPO, "dlrover_wuqiong_tpu_torch")
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "dlrover_wuqiong_tpu")
 
 
+#: the serving worker's control plane: each keeps its own copy of what it
+#: needs from the JAX package's jax-free modules
+CONTROL_PLANE = ("common.serialize", "common.comm", "common.log",
+                 "common.util", "common.global_context", "common.messages",
+                 "telemetry.recorder", "telemetry.spans", "master.journal",
+                 "master.serve_queue", "master.servicer", "master.master",
+                 "agent.master_client", "serving.worker", "serving.__main__",
+                 "chaos")
+
+
 def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN_ROOTS
 
@@ -61,12 +71,12 @@ def test_import_loads_no_jax_and_no_cuda():
     assert rec["cuda"] is False
     for mod in ("serving.engine", "ops.flash_attention", "models.gpt",
                 "models.llama", "models.attention", "models.fp8", "ops.remat",
-                "trainer.train_step", "auto.accelerate"):
+                "trainer.train_step", "auto.accelerate") + CONTROL_PLANE:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in rec["mods"]
 
 
 def test_ast_scan_finds_no_forbidden_import():
-    seen = []
+    seen, scanned = [], []
     for mod in _package_modules():
         path = os.path.join(REPO, *mod.split(".")) + (
             ".py" if os.path.isfile(os.path.join(REPO, *mod.split("."))
@@ -83,7 +93,10 @@ def test_ast_scan_finds_no_forbidden_import():
             seen.extend(names)
             bad = [n for n in names if _forbidden(n)]
             assert not bad, f"{path}:{node.lineno} imports {bad}"
+        scanned.append(mod)
     assert "torch" in seen  # the scan did walk the package
+    for mod in CONTROL_PLANE:
+        assert f"dlrover_wuqiong_tpu_torch.{mod}" in scanned
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -102,6 +115,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serving_worker_entry_points_default_to_cuda(monkeypatch):
+    """The worker's command line (``--device`` defaults to ``cuda``) and
+    the drain drill build on the card; without a GPU the worker raises
+    before it dials the master."""
+    import inspect
+
+    from dlrover_wuqiong_tpu_torch import chaos
+    from dlrover_wuqiong_tpu_torch.serving import __main__ as worker_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        worker_main.main(["--master", "127.0.0.1:1"])
+    assert inspect.signature(
+        chaos.serve_drain).parameters["device"].default == "cuda"
 
 
 def test_training_entry_points_default_to_cuda(monkeypatch):
