@@ -133,6 +133,31 @@ Phases, in order; a failure in any of them exits non-zero:
    geometry, one trace tree per request from both generations' flight
    dumps.  Prints the recovery time and how many requests differ at the
    JAX drill's other geometry (3 slots, 4 fused tokens).
+7. The flash checkpoint of GPT-2 124M's training state (1,493,710,860
+   bytes: float32 params, AdamW's mu and nu, the step and count).  First
+   the host's sizes (``df`` of /dev/shm and of the checkpoint directory,
+   free memory, the digest in use); the phase fails, naming the sizes,
+   when they cannot hold the state.  Then this run's rates (pinned D2H
+   and H2D, host memcpy, digest, disk write + fsync) and the bound of
+   each stage at them.  7.1: ``auto_accelerate(GPT(GPTConfig.gpt2() with
+   remat=False), optimizer=adamw(3e-4), seed=0)`` on phase 4b's batch,
+   2 warm-up steps and 3, ``save_checkpoint(5, state.tree(),
+   StorageType.DISK)``, steps 6-7; a model from seed 1 restored
+   (``load_checkpoint(state.tree())``) from shm and then from storage: every
+   leaf bitwise the saved one, each resumed pair of steps bitwise the
+   uninterrupted losses and grad norms, with 12 forward and 12 fused
+   backward launches a step (counts set to 0 just before, read just
+   after); then bf16 wire staging: float32 leaves the bf16 round trip,
+   int leaves exact.  7.2: 5 saves in turns with a step alone and a step
+   during the drain (blocked seconds, the snapshot's device time as
+   issued and back to back, drain, persist), one save chained behind
+   another, 2 timed restores a tier (verified load and H2D apart).  7.3:
+   the SIGKILL drill (``checkpoint.drill.sigkill_drill``): a trainer
+   subprocess saves to shm at step 5, takes step 6 and is SIGKILLed; a
+   second one restores from its segment (tier ``shm``) and runs steps
+   6-7, bitwise this process's; the seconds from the kill to the
+   restored state and the part of them that is the second process's
+   start.  One ``checkpoint:`` JSON line.
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -143,6 +168,7 @@ the package is not beside this script.  Profiler tables are written to
 ``chiprun_out/chip_smoke_llama_profile.txt`` (Llama training).
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1712,6 +1738,463 @@ def llama_reference(torch, np, tfa):
     return errs, losses
 
 
+# ------------------------------------------------------------ phase 7
+
+CKPT_SAVES = 5      # timed saves, each drained and committed before the next
+CKPT_RESTORES = 2   # timed restores a tier, beside phase 7.1's one
+RATE_BYTES = 256 << 20  # the rate probes' buffer
+
+
+def stats(xs) -> dict:
+    """p50 and [min, max] of a list of numbers."""
+    s = sorted(xs)
+    mid = len(s) // 2
+    p50 = s[mid] if len(s) % 2 else (s[mid - 1] + s[mid]) / 2
+    return {"p50": p50, "min": s[0], "max": s[-1], "n": len(s)}
+
+
+@contextlib.contextmanager
+def ckpt_workspace(prefix: str):
+    """A checkpoint directory and a socket directory of the run's own,
+    yielded as (ckpt_dir, checkpointers) and torn down on the way out,
+    whatever happened: each checkpointer put in the list is closed, the
+    in-process saver reset (which unlinks its segments) and both
+    directories removed.  The saver queue's and the shm locks' sockets go
+    under DWT_SOCKET_DIR, which common/multi_process reads when it is
+    first imported, so enter this before anything imports checkpoint/."""
+    import shutil
+    import tempfile
+
+    check("dlrover_wuqiong_tpu_torch.common.multi_process"
+          not in sys.modules,
+          "the checkpoint was imported before its socket directory was set")
+    prev = os.environ.get("DWT_SOCKET_DIR")
+    sock_dir = tempfile.mkdtemp(prefix=prefix + "sock-")
+    os.environ["DWT_SOCKET_DIR"] = sock_dir
+    ckpt_dir = tempfile.mkdtemp(prefix=prefix)
+    opened = []
+    try:
+        yield ckpt_dir, opened
+    finally:
+        try:
+            from dlrover_wuqiong_tpu_torch.checkpoint.ckpt_saver import (
+                AsyncCheckpointSaver,
+            )
+
+            for ck in opened:
+                ck.close()
+            AsyncCheckpointSaver.reset()
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            shutil.rmtree(sock_dir, ignore_errors=True)
+            if prev is None:
+                os.environ.pop("DWT_SOCKET_DIR", None)
+            else:
+                os.environ["DWT_SOCKET_DIR"] = prev
+
+
+def ckpt_host(ckpt_dir: str) -> dict:
+    """What the phase depends on: /dev/shm and the checkpoint directory's
+    filesystem (``df``), the host's memory, and the digest in use (crc32c
+    where ``google_crc32c`` imports, else zlib crc32)."""
+    import shutil
+
+    from dlrover_wuqiong_tpu_torch.checkpoint.integrity import DIGEST_ALGO
+
+    df = subprocess.run(["df", "-h", "/dev/shm", ckpt_dir],
+                        capture_output=True, text=True, timeout=60)
+    with open("/proc/meminfo") as f:
+        mem = dict(line.split(":", 1) for line in f)
+    return {
+        "df": df.stdout.strip().splitlines(),
+        "dev_shm_free_bytes": shutil.disk_usage("/dev/shm").free,
+        "ckpt_dir_free_bytes": shutil.disk_usage(ckpt_dir).free,
+        "mem_total_bytes": int(mem["MemTotal"].split()[0]) << 10,
+        "mem_available_bytes": int(mem["MemAvailable"].split()[0]) << 10,
+        "digest_algo": DIGEST_ALGO, "host_cpus": os.cpu_count()}
+
+
+def ckpt_fits(host: dict, state_bytes: int, tag: str):
+    """Fail, naming the sizes, when the host cannot hold the staged state:
+    its shm segment, its pinned drain buffer, and two generations on
+    disk.  The state is never shrunk to fit."""
+    seg = state_bytes + (1 << 20)
+    check(host["dev_shm_free_bytes"] >= seg,
+          f"{tag}: /dev/shm has {host['dev_shm_free_bytes']} bytes free; "
+          f"the segment needs {seg}")
+    check(host["mem_available_bytes"] >= 3 * seg,
+          f"{tag}: the host has {host['mem_available_bytes']} bytes "
+          f"available; the segment, the pinned drain buffer and a restore "
+          f"need {3 * seg}")
+    check(host["ckpt_dir_free_bytes"] >= 2 * seg,
+          f"{tag}: the checkpoint directory has "
+          f"{host['ckpt_dir_free_bytes']} bytes free; two generations "
+          f"(the one kept and the one written) need {2 * seg}")
+
+
+def ckpt_rates(torch, ckpt_dir: str, n: int = RATE_BYTES) -> dict:
+    """This host's rates, bytes/s, on one n-byte buffer: pinned D2H and
+    H2D copies (CUDA events, best of 3), a host memcpy, the checkpoint
+    digest (`digest_bytes`, as staging and persist call it) and a write +
+    fsync into the checkpoint directory."""
+    import numpy as np
+
+    from dlrover_wuqiong_tpu_torch.checkpoint.integrity import digest_bytes
+
+    dev = torch.randint(0, 255, (n,), dtype=torch.uint8, device="cuda")
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+
+    def copy_rate(dst, src):
+        best = float("inf")
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        return n / best
+
+    out = {"bytes": n, "d2h_pinned": copy_rate(pinned, dev),
+           "h2d_pinned": copy_rate(dev, pinned)}
+    src = pinned.numpy()
+    dst = np.ones(n, np.uint8)  # touched: no page faults in the copy
+    t0 = time.perf_counter()
+    np.copyto(dst, src)
+    out["host_memcpy"] = n / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    digest_bytes(src)
+    out["digest"] = n / (time.perf_counter() - t0)
+    path = os.path.join(ckpt_dir, "rate.bin")
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(memoryview(src))
+        f.flush()
+        os.fsync(f.fileno())
+    out["disk_write_fsync"] = n / (time.perf_counter() - t0)
+    os.remove(path)
+    return out
+
+
+def ckpt_bounds(state_bytes: int, rates: dict) -> dict:
+    """Least seconds for each stage at this run's rates, the stage's work
+    done one pass after another as the code does it: the snapshot reads
+    and writes the state in HBM; the drain copies it to the host, into
+    the segment and digests it; the persist digests it and writes it;
+    a shm restore copies it out of the segment and digests it; the H2D
+    fills the pinned buffer and copies it to the card."""
+    b = state_bytes
+    return {
+        "snapshot_ms": 2 * b / HBM_BYTES_PER_S * 1e3,
+        "drain_s": b / rates["d2h_pinned"] + b / rates["host_memcpy"]
+        + b / rates["digest"],
+        "persist_s": b / rates["digest"] + b / rates["disk_write_fsync"],
+        "restore_shm_verify_s": b / rates["host_memcpy"] + b / rates["digest"],
+        "restore_h2d_s": b / rates["host_memcpy"] + b / rates["h2d_pinned"],
+        "d2h_s": b / rates["d2h_pinned"], "h2d_s": b / rates["h2d_pinned"],
+        "digest_s": b / rates["digest"],
+        "disk_write_s": b / rates["disk_write_fsync"]}
+
+
+def tree_bytes(torch, tree) -> int:
+    from dlrover_wuqiong_tpu_torch.checkpoint.shm_handler import (
+        flatten_state_dict,
+    )
+
+    return sum(t.numel() * t.element_size()
+               for t in flatten_state_dict(tree).values())
+
+
+def timed_step(torch, res, batch) -> float:
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res.state, _ = res.train_step(res.state, batch)
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3
+
+
+def prune_generations(ckpt_dir: str, keep: int):
+    """Drop committed generations older than `keep`, so that at most two
+    lie on disk at once (the measuring machine caps a run's disk writes;
+    freed blocks are written again; the saver itself keeps every one)."""
+    import shutil
+
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("checkpoint-") and int(name.split("-")[1]) < keep:
+            shutil.rmtree(os.path.join(ckpt_dir, name), ignore_errors=True)
+
+
+def time_saves(torch, ck, res, batch, saves: int) -> list:
+    """`saves` rounds, in turns: a step alone; a step followed by a save
+    (the saving step, ending in a synchronise, so the snapshot's copy is
+    in it); a step while that save's drain is in flight.  Then the drain
+    (save call to `wait_staging`) and the persist (save call to the step
+    committed) are timed, and the older generations pruned, so no save
+    meets the chain bound."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import StorageType
+
+    rows = []
+    for _ in range(saves):
+        plain_ms = timed_step(torch, res, batch)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res.state, _ = res.train_step(res.state, batch)
+        t_save = time.monotonic()
+        step = int(res.state.step)
+        blocked = ck.save_checkpoint(step, res.state.tree(),
+                                     StorageType.DISK)
+        torch.cuda.synchronize()
+        saving_ms = (time.monotonic() - t0) * 1e3
+        drain_step_ms = timed_step(torch, res, batch)
+        # the drain records its stage time when it ends
+        in_flight = "stage_s" not in ck.engine.last_snapshot.timing
+        ck.wait_staging()
+        drain_s = time.monotonic() - t_save
+        check(ck.wait_latest_checkpoint(600), f"step {step} not committed")
+        persist_s = time.monotonic() - t_save
+        snap = ck.engine.last_snapshot
+        rows.append({"step": step, "blocked_s": blocked,
+                     "snapshot_device_ms": snap.device_ms(),
+                     "drain_s": drain_s, "persist_s": persist_s,
+                     "plain_step_ms": plain_ms, "saving_step_ms": saving_ms,
+                     "drain_step_ms": drain_step_ms,
+                     "drain_in_flight_after_step": in_flight, **snap.timing})
+        prune_generations(ck.checkpoint_dir, step)
+    return rows
+
+
+def time_chain(torch, ck, res, batch) -> dict:
+    """One save made while the previous one still drains: the second
+    blocks only for its snapshot (the chain holds two), and its drain
+    waits out the first.  Both stage to shm only (the chain is the
+    drains'; a persist each would put three generations on disk)."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import StorageType
+
+    res.state, _ = res.train_step(res.state, batch)
+    b1 = ck.save_checkpoint(int(res.state.step), res.state.tree(),
+                            StorageType.MEMORY)
+    first = ck.engine.last_snapshot
+    res.state, _ = res.train_step(res.state, batch)
+    check("stage_s" not in first.timing,
+          "the first save's drain ended within one step: no chain")
+    t0 = time.monotonic()
+    b2 = ck.save_checkpoint(int(res.state.step), res.state.tree(),
+                            StorageType.MEMORY)
+    snap = ck.engine.last_snapshot
+    ck.wait_staging()
+    out = {"first_blocked_s": b1, "second_blocked_s": b2,
+           "second_to_staged_s": time.monotonic() - t0, **snap.timing}
+    check(out.get("chain_wait_s", 0.0) > 0,
+          f"the second drain did not wait for the first: {out}")
+    return out
+
+
+def time_snapshot(torch, engine, tree, n: int) -> list:
+    """The snapshot's device time back to back, ms: the card sleeps while
+    the host allocates the slabs and enqueues their copies (a saving
+    step's events time the copies as the host issues them)."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        snap = engine._device_snapshot(tree)
+        out.append(snap.device_ms())
+        del snap
+    return out
+
+
+def timed_restore(torch, ck, state, tier: str) -> dict:
+    """One restore through the checkpointer's two halves: the verified
+    load (read, digest, assemble; for storage also the self-heal restage
+    into shm) and the copy into the state's tensors (pinned fill + H2D)."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.engine import restore_tree
+
+    ck.set_preferred_tier("" if tier == "shm" else tier)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    flat = ck.engine.load()
+    t1 = time.monotonic()
+    restore_tree(state, flat)
+    t2 = time.monotonic()
+    rep = ck.last_restore_report
+    check(rep.get("tier") == tier, f"restore from {tier}: report {rep}")
+    return {"verify_s": t1 - t0, "h2d_s": t2 - t1, "step": rep["step"]}
+
+
+def summarize(rows, restores, snapshot_ms) -> dict:
+    """p50 and [min, max] of every timed quantity."""
+    out = {k: stats([r[k] for r in rows]) for k in (
+        "blocked_s", "snapshot_device_ms", "drain_s", "d2h_s", "stage_s",
+        "persist_s", "plain_step_ms", "saving_step_ms", "drain_step_ms")}
+    out["snapshot_back_to_back_ms"] = stats(snapshot_ms)
+    for t, rs in restores.items():
+        for k in ("verify_s", "h2d_s"):
+            out[f"restore_{t}_{k}"] = stats([r[k] for r in rs])
+    return out
+
+
+def ckpt_phase(torch, tfa) -> tuple:
+    """Phase 7: GPT-2 124M's training state through the flash checkpoint.
+    Returns (report, launches of the resumed steps)."""
+    with ckpt_workspace("dwt-ckpt-smoke-") as (ckpt_dir, opened):
+        return ckpt_run(torch, tfa, ckpt_dir, opened)
+
+
+def ckpt_run(torch, tfa, ckpt_dir: str, opened: list) -> tuple:
+    """Phase 7's body in its workspace (`ckpt_workspace`)."""
+    import dataclasses
+    import shutil
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.checkpoint import drill
+    from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import (
+        FlashCheckpointer,
+        StorageType,
+    )
+    from dlrover_wuqiong_tpu_torch.checkpoint.ckpt_saver import (
+        AsyncCheckpointSaver,
+    )
+    from dlrover_wuqiong_tpu_torch.checkpoint.shm_handler import (
+        flatten_state_dict,
+    )
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    cfg = dataclasses.replace(GPTConfig.gpt2(), remat=False)
+    L = cfg.n_layer
+    job = f"dwt-smoke-{os.getpid()}"
+    out = {"host": ckpt_host(ckpt_dir)}
+    print("checkpoint host: " + json.dumps(out["host"]))
+    res = auto_accelerate(GPT(cfg), optimizer=adamw(3e-4), seed=0)
+    batch = drill.fixed_batch(drill.VOCAB["gpt2"], TRAIN_B, TRAIN_T, "cuda")
+    check(torch.equal(batch["input_ids"],
+                      train_batch(torch, 50257)["input_ids"]),
+          "the checkpoint batch is not phase 4b's")
+    nbytes = tree_bytes(torch, res.state.tree())
+    check(nbytes == cfg.num_params() * 12 + 8 + 4,
+          f"GPT-2 124M's training state is {nbytes} bytes")
+    ckpt_fits(out["host"], nbytes, "GPT-2 124M")
+    out["state_bytes"] = nbytes
+    rates = ckpt_rates(torch, ckpt_dir)
+    out["rates_bytes_per_s"] = rates
+    out["bounds"] = bounds = ckpt_bounds(nbytes, rates)
+
+    # 7.1: 2 warm-up steps and 3, a save, steps 6-7; restore into a model
+    # from seed 1 from each tier and run steps 6-7 again
+    AsyncCheckpointSaver.reset()
+    ck = FlashCheckpointer(ckpt_dir, job_name=job, standalone=True)
+    opened.append(ck)
+    metrics = []
+    for _ in range(5):
+        res.state, m = res.train_step(res.state, batch)
+        metrics.append(m)
+    blocked = ck.save_checkpoint(5, res.state.tree(), StorageType.DISK)
+    saved = {n: t.detach().clone()
+             for n, t in flatten_state_dict(res.state.tree()).items()}
+    for _ in range(2):
+        res.state, m = res.train_step(res.state, batch)
+        metrics.append(m)
+    run = torch.stack([torch.stack([m["loss"], m["grad_norm"]])
+                       for m in metrics]).cpu()
+    check(ck.wait_latest_checkpoint(600), "step 5 was not committed")
+    out["uninterrupted"] = {"losses": run[:, 0].tolist(),
+                            "grad_norms": run[:, 1].tolist(),
+                            "save_blocked_s": blocked}
+    res2 = auto_accelerate(GPT(cfg), optimizer=adamw(3e-4), seed=1)
+    launches = {}
+    for tier in ("shm", "storage"):
+        ck.set_preferred_tier("" if tier == "shm" else "storage")
+        t0 = time.monotonic()
+        tree = res2.state.tree()
+        check(ck.load_checkpoint(tree) is tree, f"{tier}: no checkpoint")
+        load_s = time.monotonic() - t0
+        rep = ck.last_restore_report
+        check((rep["tier"], rep["step"]) == (tier, 5),
+              f"restore from {tier}: report {rep}")
+        got = flatten_state_dict(res2.state.tree())
+        bad = [n for n, t in saved.items() if not torch.equal(got[n], t)]
+        check(not bad, f"{tier}: {len(bad)} leaves differ from the saved "
+              f"state, first {bad[:3]}")
+        check(all(float(s["step"]) == 5.0
+                  for s in res2.state.opt_state.state.values()),
+              f"{tier}: AdamW's step counts were not restored")
+        torch.cuda.synchronize()
+        tfa.reset_launches()
+        resumed = []
+        for _ in range(2):
+            res2.state, m = res2.train_step(res2.state, batch)
+            resumed.append(torch.stack([m["loss"], m["grad_norm"]]))
+        torch.cuda.synchronize()
+        launches[tier] = dict(tfa.LAUNCHES)
+        resumed = torch.stack(resumed).cpu()
+        check(torch.equal(resumed, run[5:]),
+              f"{tier}: resumed steps 6-7 {resumed.tolist()} != the "
+              f"uninterrupted {run[5:].tolist()}")
+        expect_launches(launches[tier], 2, L, 1, "fused",
+                        f"resumed from {tier}")
+        out[f"resumed_{tier}"] = {"load_checkpoint_s": load_s,
+                                  "losses": resumed[:, 0].tolist()}
+    del saved
+
+    # 7.2: the card's own times, each beside its bound
+    rows = time_saves(torch, ck, res, batch, CKPT_SAVES)
+    out["saves"] = rows
+    out["snapshot_back_to_back_ms"] = time_snapshot(
+        torch, ck.engine, res.state.tree(), CKPT_SAVES)
+    out["chain"] = time_chain(torch, ck, res, batch)
+    restores = {t: [timed_restore(torch, ck, res2.state, t)
+                    for _ in range(CKPT_RESTORES)]
+                for t in ("shm", "storage")}
+    out["restores"] = restores
+    out["summary"] = summarize(rows, restores, out[
+        "snapshot_back_to_back_ms"])
+    ck.close()
+    AsyncCheckpointSaver.reset()
+
+    # 7.1, bf16 wire (to shm: the CPU tests pin the files): float32
+    # leaves come back as their bf16 round trip, int leaves exactly
+    ckb = FlashCheckpointer(os.path.join(ckpt_dir, "wire"),
+                            job_name=f"{job}-wire", standalone=True,
+                            wire_dtype="bf16")
+    opened.append(ckb)
+    ckb.save_checkpoint(int(res.state.step), res.state.tree(),
+                        StorageType.MEMORY)
+    ckb.load_checkpoint(res2.state)
+    src = flatten_state_dict(res.state.tree())
+    got = flatten_state_dict(res2.state.tree())
+    bad = [n for n, t in src.items() if not torch.equal(
+        got[n], t.bfloat16().float() if t.dtype == torch.float32 else t)]
+    check(not bad, f"bf16 wire: {len(bad)} leaves are not the bf16 round "
+          f"trip (floats) or exact (ints), first {bad[:3]}")
+    out["bf16_wire"] = {"leaves": len(src), "tier": ckb.last_restore_report[
+        "tier"]}
+    ckb.close()
+    AsyncCheckpointSaver.reset()
+    del res, res2, src, got, metrics
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # 7.3: the SIGKILL drill, GPT-2 124M on the card
+    d = drill.sigkill_drill(model="gpt2", device="cuda", batch=TRAIN_B,
+                            seq=TRAIN_T)
+    out["sigkill_drill"] = d
+    check(d["tier"] == "shm" and d["restored_step"] == 5,
+          f"drill: restored from {d['tier']} step {d['restored_step']}")
+    check(d["saved_losses"][:5] == out["uninterrupted"]["losses"][:5],
+          f"drill: the saver's steps 1-5 {d['saved_losses'][:5]} differ "
+          f"from this process's")
+    check(d["resumed_losses"] == out["uninterrupted"]["losses"][5:],
+          f"drill: resumed steps 6-7 {d['resumed_losses']} != "
+          f"{out['uninterrupted']['losses'][5:]}")
+    check(not os.path.exists(f"/dev/shm/{d['job']}_ckpt_shm_0"),
+          "drill: the segment was not unlinked")
+    return out, launches
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1981,6 +2464,50 @@ def main():
           f"{drill['mismatched_jax_geometry']} of {drill['requests']} "
           f"requests differ at the JAX drill's (3 slots, 4 fused tokens)")
 
+    # phase 7 — the flash checkpoint of GPT-2 124M's training state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt, ckpt_launches = ckpt_phase(torch, tfa)
+    print("checkpoint: " + json.dumps(ckpt))
+    sm, b = ckpt["summary"], ckpt["bounds"]
+
+    def pm(st, scale=1.0, unit="s"):
+        return (f"{st['p50'] * scale:.4f} [{st['min'] * scale:.4f}, "
+                f"{st['max'] * scale:.4f}] {unit}")
+
+    print(f"checkpoint: GPT-2 124M state {ckpt['state_bytes']} bytes; "
+          f"digest {ckpt['host']['digest_algo']}; p50 [min, max] over "
+          f"{CKPT_SAVES} saves: blocked in save_checkpoint "
+          f"{pm(sm['blocked_s'], 1e3, 'ms')}; snapshot on the device "
+          f"back to back {pm(sm['snapshot_back_to_back_ms'], 1, 'ms')}, "
+          f"as issued in the saving step "
+          f"{pm(sm['snapshot_device_ms'], 1, 'ms')} (bound "
+          f"{b['snapshot_ms']:.4f} ms); drain to wait_staging "
+          f"{pm(sm['drain_s'])} (of it D2H {pm(sm['d2h_s'])}, shm write + "
+          f"digest {pm(sm['stage_s'])}; bound {b['drain_s']:.4f} s); "
+          f"persist to committed {pm(sm['persist_s'])} (bound "
+          f"{b['persist_s']:.4f} s)")
+    for tier in ("shm", "storage"):
+        print(f"checkpoint: restore from {tier}: verified load "
+              f"{pm(sm[f'restore_{tier}_verify_s'])}, copy into the state "
+              f"{pm(sm[f'restore_{tier}_h2d_s'])} (bounds: verify "
+              f"{b['restore_shm_verify_s']:.4f} s, H2D "
+              f"{b['restore_h2d_s']:.4f} s)")
+    print(f"checkpoint: steps in turns, ms: alone "
+          f"{pm(sm['plain_step_ms'], 1, 'ms')}; with the save "
+          f"{pm(sm['saving_step_ms'], 1, 'ms')}; with a drain in flight "
+          f"{pm(sm['drain_step_ms'], 1, 'ms')}; chained save blocked "
+          f"{ckpt['chain']['second_blocked_s'] * 1e3:.4f} ms, its drain "
+          f"waited {ckpt['chain']['chain_wait_s']:.4f} s for the first")
+    d = ckpt["sigkill_drill"]
+    print(f"checkpoint: SIGKILL drill: restored from {d['tier']} step "
+          f"{d['restored_step']}; resumed steps 6-7 bitwise the "
+          f"uninterrupted run; SIGKILL to restored state "
+          f"{d['kill_to_restored_s']:.3f} s, of which "
+          f"{d['start_s']:.3f} s the second process's start (python, "
+          f"imports, CUDA context, model build) and {d['restore_s']:.3f} s "
+          f"the restore")
+
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -2028,6 +2555,8 @@ def main():
             "launches_in": run,
             "launches_llama3_8b_training": llama_launches[name],
             "launches_split_side_run": split_launches[name],
+            "launches_checkpoint_resumes": {
+                t: ckpt_launches[t][name] for t in ckpt_launches},
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {

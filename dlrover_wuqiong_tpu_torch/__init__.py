@@ -37,6 +37,16 @@ and the one-device training path:
                                         (CUDA kernels in
                                         csrc/flash_attention.cu)
 
+the flash checkpoint of that training state:
+
+  checkpoint.checkpointer               FlashCheckpointer: HBM snapshot,
+                                        drain to shm, async persist,
+                                        verified tiered restore
+  checkpoint.engine / shm_handler       the JAX package's segment and
+  checkpoint.ckpt_saver / integrity     files, byte for byte
+  checkpoint.drill                      SIGKILL a trainer, restore from
+                                        its shm segment
+
 shared by both:
 
   models.gpt.GPTConfig / init_params    GPT-2 configs, seeded flax-layout init

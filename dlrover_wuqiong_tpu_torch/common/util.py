@@ -1,9 +1,10 @@
-"""The repo's retry policy.
+"""The repo's retry policy, and the device out-of-memory test.
 
 Parity: `retry_call` and its loop, copied from
-dlrover_wuqiong_tpu/common/util.py:21-97 (stdlib only).  The rest of that
-module (`sync_tree`, the transfer probe, OOM detection) is about JAX
-arrays and has no use here.
+dlrover_wuqiong_tpu/common/util.py:21-97 (stdlib only), and
+`is_oom_error` (:284-296) for torch.  The rest of that module
+(`sync_tree`, the transfer probe) is about JAX arrays and has no use
+here.
 """
 
 from __future__ import annotations
@@ -90,3 +91,15 @@ def _retry_loop(fn, attempts, deadline_s, base_delay_s, max_delay_s,
                 on_retry(i, e, delay)
             if delay > 0:
                 sleep(delay)
+
+
+def is_oom_error(exc: BaseException) -> bool:
+    """True when `exc` is an accelerator out-of-memory failure:
+    ``torch.cuda.OutOfMemoryError``, which the caching allocator raises
+    when an allocation does not fit the card.  Deliberately narrow, as
+    the JAX version (which matches XLA's RESOURCE_EXHAUSTED): a host
+    `MemoryError` or another error whose message mentions memory is not a
+    device OOM and must not trigger device-resource fallbacks."""
+    import torch
+
+    return isinstance(exc, torch.cuda.OutOfMemoryError)

@@ -2,9 +2,10 @@
 
 Port: a copy of dlrover_wuqiong_tpu/telemetry/recorder.py (stdlib only),
 kept in the port because the port imports nothing of the JAX package.
-The dump schema is the same.  The port has no goodput ledger (ROADMAP
-item 6a) and no perf observatory (item 15) yet, so a dump's ``ledger``
-and ``perf`` are null; ``serve_ledger`` is the port's serving ledger.
+The dump schema is the same: ``ledger`` is the port's goodput ledger
+(telemetry/ledger.py, which the checkpoint engine credits) once it has
+started, ``serve_ledger`` the port's serving ledger.  The port has no
+perf observatory yet (ROADMAP item 15), so a dump's ``perf`` is null.
 
 Parity: reference `dlrover/python/master/node/event_callback.py` +
 `diagnosis/diagnostician.py` (the reference reacts to faults with live
@@ -90,6 +91,7 @@ class FlightRecorder:
         if not ckpt_dir:
             return None
         try:
+            from .ledger import get_ledger
             from .serving import get_serve_ledger
             from .spans import process_role
 
@@ -111,8 +113,8 @@ class FlightRecorder:
                 # t_mono values onto the shared wall timeline
                 "flushed_at": time.time(),
                 "flushed_mono": time.monotonic(),
-                # no goodput ledger in the port yet (ROADMAP item 6a)
-                "ledger": None,
+                "ledger": (get_ledger().snapshot()
+                           if get_ledger().started() else None),
                 "serve_ledger": (get_serve_ledger().snapshot()
                                  if get_serve_ledger().started()
                                  else None),

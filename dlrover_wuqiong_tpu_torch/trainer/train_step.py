@@ -18,6 +18,10 @@ PyTorch holds state in place, so the pieces map as follows:
   order.
 - The grad norm is ``optax.global_norm``: the float32 square root of the
   sum of squares over all leaves.
+- `TrainState.tree` gives the state's live tensors under the names JAX
+  gives a `TrainState` with ``optax.adamw`` (the flash checkpoint's
+  tree), and `TrainState.load_tree` writes a checkpoint back into the
+  module and the optimizer.
 - ``fused_steps=K > 1`` runs the same step K times in a Python loop over
   batches stacked on a leading axis of size K; the per-step losses and
   grad norms stay on the device, so a fusion needs one host readback.
@@ -29,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -59,6 +64,100 @@ class TrainState:
         return cls(step=torch.zeros((), dtype=torch.int64, device=device),
                    params=params,
                    opt_state=optimizer(list(params.parameters())))
+
+    # ---------------------------------------------------- checkpoint tree
+
+    def _adam_states(self) -> Dict[str, Dict]:
+        """{param name: its Adam/AdamW state}, creating the state torch
+        creates lazily at the first step where there is none yet (the same
+        tensors `torch.optim.AdamW._init_group` makes), so a fresh state
+        has every leaf of the checkpoint tree."""
+        opt = self.opt_state
+        if not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+            raise TypeError(f"{type(opt).__name__}: the checkpoint tree maps "
+                            f"torch's Adam/AdamW state onto optax.adamw's")
+        groups = {id(p): g for g in opt.param_groups for p in g["params"]}
+        out = {}
+        for name, p in self.params.named_parameters():
+            group = groups[id(p)]
+            if group["amsgrad"]:
+                raise ValueError("amsgrad has no optax.adamw counterpart")
+            st = opt.state[p]
+            if not st:
+                on_device = group["capturable"] or group["fused"]
+                st["step"] = torch.zeros(
+                    (), dtype=torch.float32,
+                    device=p.device if on_device else "cpu")
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            out[name] = st
+        return out
+
+    def tree(self) -> "StateTree":
+        """The live tensors (no copies) under the names JAX's
+        ``flatten_state_dict`` gives a JAX `TrainState` with
+        ``optax.adamw``: ``step``, ``params/<flax path>``,
+        ``opt_state/0/count``, ``opt_state/0/mu/<flax path>`` (torch's
+        ``exp_avg``) and ``opt_state/0/nu/<flax path>`` (``exp_avg_sq``),
+        in JAX's order.
+
+        torch keeps one ``step`` count per parameter where optax keeps one
+        ``count``: the tree holds the first parameter's, and a restore
+        into the tree (``FlashCheckpointer.load_checkpoint(state.tree())``)
+        goes through `load_tree`, which writes it into every
+        parameter's."""
+        states = self._adam_states()
+
+        def nest(leaves: Dict[str, Any]) -> Dict[str, Any]:
+            """``h_0.attn.c_attn.kernel`` -> the flax nesting."""
+            tree: Dict[str, Any] = {}
+            for name, leaf in leaves.items():
+                *path, last = name.split(".")
+                node = tree
+                for k in path:
+                    node = node.setdefault(k, {})
+                node[last] = leaf
+            return tree
+
+        adam = OrderedDict(
+            count=next(iter(states.values()))["step"],
+            mu=nest({n: s["exp_avg"] for n, s in states.items()}),
+            nu=nest({n: s["exp_avg_sq"] for n, s in states.items()}))
+        return StateTree(self, step=self.step,
+                         params=nest(dict(self.params.named_parameters())),
+                         opt_state=(adam,))
+
+    @torch.no_grad()
+    def load_tree(self, flat: Dict[str, Any]) -> "TrainState":
+        """Write a checkpoint's flat name→array map (``CheckpointEngine
+        .load``) into the module and the optimizer, in place, on their
+        devices: the parameters and moments, ``count`` (JAX int32) into
+        every parameter's torch ``step``, and ``step`` (JAX int32) into
+        the int64 step.  Creates AdamW's state if it has taken no step."""
+        from ..checkpoint.engine import copy_into
+
+        tree = self.tree()
+        copy_into(tree, flat)
+        count = tree["opt_state"][0]["count"]
+        for st in self._adam_states().values():
+            if st["step"] is not count:
+                st["step"].copy_(count)
+        return self
+
+
+class StateTree(OrderedDict):
+    """`TrainState.tree`'s mapping.  A restore into it goes through its
+    state's `TrainState.load_tree`, so that torch's per-parameter step
+    counts all get the restored ``count``."""
+
+    def __init__(self, state: TrainState, **tree):
+        super().__init__(**tree)
+        self.state = state
+
+    def load_tree(self, flat: Dict[str, Any]) -> TrainState:
+        return self.state.load_tree(flat)
 
 
 def accumulate_grads(grad_fn: Callable[[Any], torch.Tensor],

@@ -10,6 +10,10 @@
   the flash-attention kernels, which never take a CPU tensor.
 - The kernel build holds both CUDA sources and uses the sm_90a target,
   IEEE division and accurate transcendentals (no fast math).
+- The flash checkpoint restores into the template's own tensors on their
+  device, asks nowhere whether CUDA is available, and raises for a leaf
+  on another device; its copies of the JAX package's jax-free modules
+  import no ``ml_dtypes`` either.
 """
 
 import ast
@@ -25,7 +29,8 @@ from dlrover_wuqiong_tpu_torch import _build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "dlrover_wuqiong_tpu_torch")
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "dlrover_wuqiong_tpu")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
+                   "dlrover_wuqiong_tpu")
 
 
 #: the serving worker's control plane: each keeps its own copy of what it
@@ -36,6 +41,14 @@ CONTROL_PLANE = ("common.serialize", "common.comm", "common.log",
                  "master.serve_queue", "master.servicer", "master.master",
                  "agent.master_client", "serving.worker", "serving.__main__",
                  "chaos")
+
+#: the flash checkpoint and the copies it needs (bfloat16 and float8 move
+#: as integer views: no ml_dtypes)
+CHECKPOINT = ("common.constants", "common.multi_process", "common.storage",
+              "telemetry.ledger", "master.metrics", "checkpoint.integrity",
+              "checkpoint.shm_handler", "checkpoint.ckpt_saver",
+              "checkpoint.engine", "checkpoint.checkpointer",
+              "checkpoint.drill")
 
 
 def _forbidden(module: str) -> bool:
@@ -71,7 +84,8 @@ def test_import_loads_no_jax_and_no_cuda():
     assert rec["cuda"] is False
     for mod in ("serving.engine", "ops.flash_attention", "models.gpt",
                 "models.llama", "models.attention", "models.fp8", "ops.remat",
-                "trainer.train_step", "auto.accelerate") + CONTROL_PLANE:
+                "trainer.train_step", "auto.accelerate") + CONTROL_PLANE \
+            + CHECKPOINT:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in rec["mods"]
 
 
@@ -95,7 +109,7 @@ def test_ast_scan_finds_no_forbidden_import():
             assert not bad, f"{path}:{node.lineno} imports {bad}"
         scanned.append(mod)
     assert "torch" in seen  # the scan did walk the package
-    for mod in CONTROL_PLANE:
+    for mod in CONTROL_PLANE + CHECKPOINT:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in scanned
 
 
@@ -202,3 +216,50 @@ def test_library_path_keyed_by_source_hash():
     assert os.path.basename(p1).startswith("int8_blockwise-")
     for src in _build.SOURCES.values():
         assert os.path.isfile(os.path.join(PKG, src))
+
+
+def test_checkpoint_restores_on_template_device_without_fallback(
+        monkeypatch, tmp_path):
+    """A restore writes into the template's own tensors, on their device,
+    with a narrower stored dtype (bf16 wire) upcast there; nothing in
+    checkpoint/ asks whether CUDA is available, and a leaf on another
+    device raises rather than moving."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import (
+        FlashCheckpointer,
+        StorageType,
+    )
+    from dlrover_wuqiong_tpu_torch.checkpoint.ckpt_saver import (
+        AsyncCheckpointSaver,
+    )
+    from dlrover_wuqiong_tpu_torch.checkpoint.engine import restore_tree
+    from dlrover_wuqiong_tpu_torch.telemetry.ledger import reset_ledger
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    AsyncCheckpointSaver.reset()
+    ck = FlashCheckpointer(str(tmp_path), job_name=f"ti{os.getpid()}",
+                           standalone=True, wire_dtype="bf16")
+    try:
+        state = {"w": torch.linspace(0, 1, 16), "n": torch.tensor(3)}
+        ck.save_checkpoint(1, state, StorageType.DISK)
+        assert ck.wait_latest_checkpoint(30)
+        template = {"w": torch.zeros(16), "n": torch.tensor(0)}
+        ptrs = {k: t.data_ptr() for k, t in template.items()}
+        assert ck.load_checkpoint(template) is template
+        assert {k: t.data_ptr() for k, t in template.items()} == ptrs
+        assert template["w"].device.type == "cpu"
+        assert template["w"].dtype == torch.float32
+        assert torch.equal(template["w"], state["w"].bfloat16().float())
+        meta = {"w": torch.zeros(16, device="meta"), "n": torch.tensor(0)}
+        with pytest.raises(ValueError, match="meta"):
+            ck.save_checkpoint(2, meta, StorageType.MEMORY)
+        with pytest.raises(ValueError, match="meta"):
+            restore_tree(meta, {"w": state["w"].numpy(), "n": 3})
+    finally:
+        ck.close()
+        AsyncCheckpointSaver.reset()
+        reset_ledger()  # the save started it: later dumps must not see it
+    assert torch.cuda.is_initialized() is False
+    for f in sorted(os.listdir(os.path.join(PKG, "checkpoint"))):
+        if f.endswith(".py"):
+            with open(os.path.join(PKG, "checkpoint", f)) as src:
+                assert "is_available" not in src.read(), f

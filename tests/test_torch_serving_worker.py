@@ -485,7 +485,11 @@ def test_rpc_spans_nest_across_the_wire(master, client):
 
 def test_spans_env_context_and_dump_schema_equal_jax(tmp_path):
     """The child hand-off carries the same variables as JAX's, and a
-    flight dump has JAX's keys."""
+    flight dump has JAX's keys; its ledger is null until something (a
+    checkpoint save) starts the goodput ledger."""
+    from dlrover_wuqiong_tpu_torch.telemetry.ledger import reset_ledger
+
+    reset_ledger()
     with tspans.span("a"):
         with tspans.env_context() as tenv:
             pass
