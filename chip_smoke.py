@@ -158,6 +158,26 @@ Phases, in order; a failure in any of them exits non-zero:
    6-7, bitwise this process's; the seconds from the kill to the
    restored state and the part of them that is the second process's
    start.  One ``checkpoint:`` JSON line.
+8. The elastic trainer (``trainer.drill``).  8.1: ``Trainer(GPT(GPT-2
+   124M), TrainingArgs(max_steps=60, warmup_steps=10, cosine,
+   save_steps=20, flash_stage_steps=1, logging_steps=1), data_fn)`` in
+   this process at B = 24, T = 1024, the data function drawing each
+   step's tokens from (seed, step): every loss finite, the last below the
+   first, step 60 committed, 12 forward and 12 fused-backward launches a
+   step.  8.2: the same Trainer as the worker of ``python -m
+   dlrover_wuqiong_tpu_torch.run --standalone --max_restarts=3``, a
+   SIGKILL at each of 2 seeded steps in [10, 50] (the worker waits out
+   its staging there).  Checks: the launcher exits 0 after exactly 2
+   restarts, ``latest_checkpointed_iteration.txt`` reads 60, the killed
+   generation's segment holds the step before its kill step and the next
+   generation resumes there from tier ``shm`` and trains from the step
+   after, every step's loss in every generation is bitwise 8.1's, and
+   every worker launched 12 forward and 12 fused-backward kernels a step
+   (its own counters, written to its marker directory) and no int8 one.
+   Prints each kill's split (the agent noticing the exit, the persist,
+   the failure report, the rendezvous, the worker's start, the restore,
+   the first resumed step) and the goodput fractions.  Its directories
+   and segments go whether it passes or fails.
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2195,6 +2215,162 @@ def ckpt_run(torch, tfa, ckpt_dir: str, opened: list) -> tuple:
     return out, launches
 
 
+# ------------------------------------------------------------ phase 8
+
+#: the elastic drill's run: GPT-2 124M at phase 4b's batch, warmup then
+#: cosine, a disk save every 20 steps (and a shm stage every step)
+ELASTIC = dict(batch=TRAIN_B, seq=TRAIN_T, max_steps=60, warmup=10,
+               save_steps=20)
+
+
+@contextlib.contextmanager
+def elastic_workspace(prefix: str):
+    """An output directory, a job name and a socket directory of the
+    phase's own for the in-process Trainer, torn down on the way out,
+    whatever happened: the trainer's checkpointer closed, the in-process
+    saver reset (which unlinks its segments), the socket directory (set
+    on common/multi_process, which phase 7 imported) restored and both
+    directories removed."""
+    import shutil
+    import tempfile
+
+    from dlrover_wuqiong_tpu_torch.common import multi_process
+
+    out_dir = tempfile.mkdtemp(prefix=prefix)
+    sock_dir = tempfile.mkdtemp(prefix=prefix + "sock-")
+    saved = {k: os.environ.get(k) for k in ("DWT_JOB_NAME",
+                                            "DWT_MASTER_ADDR")}
+    prev_sock = multi_process.SOCKET_DIR
+    multi_process.SOCKET_DIR = sock_dir
+    os.environ["DWT_JOB_NAME"] = f"{prefix}{os.getpid()}"
+    os.environ.pop("DWT_MASTER_ADDR", None)
+    opened = []
+    try:
+        yield out_dir, opened
+    finally:
+        try:
+            from dlrover_wuqiong_tpu_torch.checkpoint.ckpt_saver import (
+                AsyncCheckpointSaver,
+            )
+
+            for ck in opened:
+                ck.close()
+            AsyncCheckpointSaver.reset()
+        finally:
+            multi_process.SOCKET_DIR = prev_sock
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            shutil.rmtree(out_dir, ignore_errors=True)
+            shutil.rmtree(sock_dir, ignore_errors=True)
+
+
+def uninterrupted_run(torch, tfa) -> tuple:
+    """Phase 8.1: the drill's Trainer in this process, uninterrupted.
+    Returns ({step: loss}, launches, seconds a step)."""
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT
+    from dlrover_wuqiong_tpu_torch.telemetry.ledger import reset_ledger
+    from dlrover_wuqiong_tpu_torch.trainer import drill
+    from dlrover_wuqiong_tpu_torch.trainer.trainer import Trainer
+
+    e = ELASTIC
+    losses, stamps = {}, {}
+
+    def on_step(step, m):
+        losses[step] = m["loss"]
+        stamps[step] = time.monotonic()
+
+    with elastic_workspace("dwt-elastic-ref-") as (out_dir, opened):
+        tr = Trainer(GPT(drill.gpt_config("gpt2")), drill.training_args(
+            out_dir, e["max_steps"], e["warmup"], e["save_steps"],
+            e["batch"], e["seq"]),
+            drill.data_fn(drill.VOCAB["gpt2"], e["batch"], e["seq"]),
+            callbacks=[on_step])
+        opened.append(tr.ckpt)
+        torch.cuda.synchronize()
+        tfa.reset_launches()
+        tr.train()
+        torch.cuda.synchronize()
+        launches = dict(tfa.LAUNCHES)
+        tracker = os.path.join(out_dir, "checkpoints",
+                               "latest_checkpointed_iteration.txt")
+        with open(tracker) as f:
+            check(f.read().strip() == str(e["max_steps"]),
+                  "uninterrupted run: the last step was not committed")
+        del tr
+    reset_ledger()
+    n = e["max_steps"]
+    check(sorted(losses) == list(range(1, n + 1)),
+          f"uninterrupted run: losses at steps {sorted(losses)}")
+    check(all(l == l and abs(l) < float("inf") for l in losses.values()),
+          "uninterrupted run: a loss is not finite")
+    check(losses[n] < losses[1], f"uninterrupted run: loss {losses[1]} -> "
+          f"{losses[n]} did not fall")
+    expect_launches(launches, n, 12, 1, "fused", "uninterrupted run")
+    step_s = (stamps[n] - stamps[e["warmup"]]) / (n - e["warmup"])
+    return losses, launches, step_s
+
+
+def elastic_phase(torch, tfa) -> tuple:
+    """Phase 8: the uninterrupted run, then the drill under ``run
+    --standalone`` with 2 SIGKILLs; every check of the drill.  Returns
+    (report, the workers' summed launches)."""
+    import gc
+
+    from dlrover_wuqiong_tpu_torch.trainer import drill
+
+    losses, ref_launches, ref_step_s = uninterrupted_run(torch, tfa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e = ELASTIC
+    r = drill.elastic_drill(model="gpt2", device="cuda", timeout_s=600, **e)
+    gens = r["generations"]
+    check(r["rc"] == 0 and len(gens) == drill.KILLS + 1,
+          f"drill: launcher exit {r['rc']} after {len(gens) - 1} restarts")
+    check(r["committed_step"] == str(e["max_steps"]),
+          f"drill: latest_checkpointed_iteration.txt reads "
+          f"{r['committed_step']!r}")
+    check(gens[-1]["steps"] and gens[-1]["steps"][-1] == e["max_steps"],
+          "drill: the last generation did not reach max_steps")
+    for kill, prev, gen in zip(r["kills"], gens, gens[1:]):
+        staged = kill["staged_step"]
+        check(staged == kill["step"] - 1 and prev["steps"][-1] ==
+              kill["step"], f"drill: killed at {kill['step']}, staged "
+              f"{staged}, last step {prev['steps'][-1]}")
+        check((gen["start_step"], gen["tier"]) == (staged, "shm"),
+              f"drill: generation {gen['gen']} resumed at "
+              f"{gen['start_step']} from {gen['tier']}, not at {staged} "
+              f"from shm")
+        check(gen["steps"][0] == staged + 1,
+              f"drill: generation {gen['gen']} first step "
+              f"{gen['steps'][0]} != {staged + 1}")
+    summed = {}
+    for gen in gens:
+        want = [losses[s] for s in gen["steps"]]
+        check(gen["losses"] == want,
+              f"drill: generation {gen['gen']} losses {gen['losses']} != "
+              f"the uninterrupted {want}")
+        expect_launches({k: v for k, v in gen["launches"].items()
+                         if k.startswith("flash_")}, len(gen["steps"]), 12,
+                        1, "fused", f"drill generation {gen['gen']}")
+        check(gen["launches"]["quantize_int8_blockwise"] == 0 and
+              gen["launches"]["dequantize_int8_blockwise"] == 0,
+              f"drill generation {gen['gen']}: int8 launches")
+        for k, v in gen["launches"].items():
+            summed[k] = summed.get(k, 0) + v
+    check(len(r["splits"]) == drill.KILLS, f"drill: {len(r['splits'])} "
+          f"kill splits")
+    check(not os.path.exists(f"/dev/shm/{r['job']}_ckpt_shm_0"),
+          "drill: the segment was not unlinked")
+    r["uninterrupted"] = {"losses": [losses[s] for s in sorted(losses)],
+                          "launches": ref_launches,
+                          "step_s_after_warmup": ref_step_s}
+    return r, summed
+
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2508,6 +2684,41 @@ def main():
           f"imports, CUDA context, model build) and {d['restore_s']:.3f} s "
           f"the restore")
 
+    # phase 8 — the elastic drill: run --standalone, 2 SIGKILLs
+    gc.collect()
+    torch.cuda.empty_cache()
+    el, el_launches = elastic_phase(torch, tfa)
+    print("elastic: " + json.dumps(el))
+    print(f"elastic: GPT-2 124M, {ELASTIC['max_steps']} steps at B = "
+          f"{TRAIN_B}, T = {TRAIN_T}, shm stage every step, disk save "
+          f"every {ELASTIC['save_steps']}; uninterrupted in this process "
+          f"{el['uninterrupted']['step_s_after_warmup'] * 1e3:.1f} ms a "
+          f"step after warmup; SIGKILLs at steps {el['kill_steps']}, "
+          f"launcher exit {el['rc']} after {len(el['generations']) - 1} "
+          f"restarts in {el['wall_s']:.1f} s; every generation's losses "
+          f"bitwise the uninterrupted run's; committed step "
+          f"{el['committed_step']}")
+    for kill, gen, sp in zip(el["kills"], el["generations"][1:],
+                             el["splits"]):
+        parts = sum(v for k, v in sp.items() if k != "kill_to_first_step_s")
+        print(f"elastic: kill at step {kill['step']} (staged "
+              f"{kill['staged_step']}) -> generation {gen['gen']} from "
+              f"{gen['tier']} step {gen['start_step']}: "
+              f"{sp['kill_to_first_step_s']:.3f} s to the first resumed "
+              f"step = notice {sp['notice_s']:.3f} + persist "
+              f"{sp['persist_s']:.3f} + failure report "
+              f"{sp['report_s']:.3f} + rendezvous {sp['rendezvous_s']:.3f} "
+              f"+ worker start {sp['process_start_s']:.3f} + restore "
+              f"{sp['restore_s']:.3f} + first step "
+              f"{sp['first_step_s']:.3f} (+ "
+              f"{sp['kill_to_first_step_s'] - parts:.3f} between them)")
+    mg = el["master_goodput"] or {}
+    print(f"elastic: goodput: the drill's productive seconds over its wall "
+          f"{el['drill_goodput']:.4f}; the last generation's ledger "
+          f"{el['final_ledger_goodput']:.4f}; the master's summary "
+          f"{mg.get('goodput_fraction', float('nan')):.4f} over "
+          f"{mg.get('nodes')} node(s)")
+
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -2529,6 +2740,7 @@ def main():
                           "of GPT-2 124M",
             "launches_in": "serving, 16 requests",
             "launches_worker_route": worker_launches[name],
+            "launches_elastic_route": el_launches[name],
         })
     src = "dlrover_wuqiong_tpu_torch/csrc/flash_attention.cu"
     for name, replaces, counts, run in (
@@ -2557,6 +2769,7 @@ def main():
             "launches_split_side_run": split_launches[name],
             "launches_checkpoint_resumes": {
                 t: ckpt_launches[t][name] for t in ckpt_launches},
+            "launches_elastic_route": el_launches[name],
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {

@@ -1,29 +1,43 @@
 """Typed client wrapper over the master's get/report RPCs.
 
 Parity: dlrover_wuqiong_tpu/agent/master_client.py's `MasterClient`, copied
-(stdlib only) with the parts the serving worker uses: the three verb
-classes (`_call_critical` :165, `_call_buffered` :216 with its bounded
-buffer, `_call_polling` :258), `_maybe_flush`, `_next_idem`,
+(stdlib only) with the three verb classes (`_call_critical` :165,
+`_call_buffered` :216 with its bounded buffer, `_call_polling` :258),
+`_account_degraded` (:242, the ledger's ``degraded`` credit for time
+blocked on a dead master), `_maybe_flush`, `_next_idem`,
 `_on_epoch_change` (re-registers the node), endpoint-list failover
-dialing (:66-99, :140), `register_node`, `report_failure` and the serve
-verbs (:585-648).  The other verbs come with ROADMAP items 6a, 7a and
-15.  The JAX client credits time blocked on a dead master to the goodput
-ledger (`_account_degraded`); the port has no goodput ledger yet (item
-6a), so that credit is left out, and the serving worker credits its own
-``degraded`` state instead.
+dialing (:66-99, :140), and the verbs of the elastic trainer and of the
+serving worker, each in its JAX verb class:
+
+- rendezvous (:388-411): `join_rendezvous` (critical + idem),
+  `get_comm_world` (critical), `num_nodes_waiting` (polling);
+- lifecycle (:427-496): `register_node`, `report_failure` (critical);
+  `report_heart_beat_full`, `report_global_step`, `report_node_event`,
+  `report_custom_metric`, `report_goodput_ledger` (buffered);
+  `get_goodput_summary` (polling);
+- kv store (:663-719): `kv_store_set`, `kv_store_get`,
+  `kv_store_multi_get` (critical), `kv_store_add` (critical + idem),
+  `kv_store_wait` (fail-fast probes under the shared backoff);
+- serving (:585-648).
+
+The dataset-sharding, network-check, policy, mesh-transition, perf,
+timeline, diagnosis and config-tuner verbs come with ROADMAP items 13
+and 15.
 
 Master fault tolerance, as in the JAX client:
 
-- **three verb classes**: CRITICAL verbs (lease, results, submit,
-  registration) retry with backoff up to the outage grace deadline
-  (global_context.master_outage_grace_s) — a master restart is invisible
-  below that; BUFFERED fire-and-forget verbs (serving stats) never block
-  the caller: on an unreachable master they land in a bounded in-memory
-  queue that drains after reconnect; POLLING verbs (result and summary
-  queries) fail fast and let their caller's own cadence retry.
-- **idempotency keys** ride on submit, lease and result report: a retry
-  gets the master's recorded response instead of re-applying
-  (master/servicer.py).
+- **three verb classes**: CRITICAL verbs (rendezvous, kv, registration,
+  failure, lease, results, submit) retry with backoff up to the outage
+  grace deadline (global_context.master_outage_grace_s) — a master
+  restart is invisible below that; BUFFERED fire-and-forget verbs
+  (heartbeats, step, event, metric, ledger and serving-stats reports)
+  never block the caller: on an unreachable master they land in a
+  bounded in-memory queue that drains after reconnect; POLLING verbs
+  (waiting-node count, summaries, result queries) fail fast and let
+  their caller's own cadence retry.
+- **idempotency keys** ride on join_rendezvous, kv_store_add, submit,
+  lease and result report: a retry gets the master's recorded response
+  instead of re-applying (master/servicer.py).
 - **fencing epoch**: every response carries the master's epoch
   (common/comm.py); on a bump this client re-registers the node.
 - **failover dialing**: ``master_addr`` may be a comma-separated ORDERED
@@ -44,8 +58,10 @@ from typing import Dict, List, Optional
 
 from ..common import messages as msg
 from ..common.comm import MasterUnreachableError, RpcClient, RpcError
+from ..common.constants import RendezvousName
 from ..common.global_context import get_context
 from ..common.log import get_logger
+from ..common.util import retry_call
 
 logger = get_logger("master_client")
 
@@ -143,27 +159,41 @@ class MasterClient:
         (fail-fast inner calls) instead of parked on one address — the
         idem key makes the eventual landing exactly-once wherever the
         leader turned out to be."""
+        t0 = time.monotonic()
         if len(self._endpoints) == 1:
-            resp = self._client._call(  # noqa: SLF001 — typed facade
-                verb, payload, idem=idem, deadline_s=self._outage_grace_s)
+            try:
+                resp = self._client._call(  # noqa: SLF001 — typed facade
+                    verb, payload, idem=idem,
+                    deadline_s=self._outage_grace_s)
+            except MasterUnreachableError:
+                # wall time burned blocking on a dead master is the
+                # master-outage-degraded ledger split (telemetry/ledger.py)
+                self._account_degraded(time.monotonic() - t0)
+                raise
             self._maybe_flush()
             return resp
-        deadline = time.monotonic() + self._outage_grace_s
+        deadline = t0 + self._outage_grace_s
         backoff = 0.05
+        degraded = False
         while True:
             client = self._client
             try:
                 resp = client._call(verb, payload, idem=idem,  # noqa: SLF001
                                     attempts=2)
             except MasterUnreachableError:
-                pass
+                degraded = True
             except RpcError as e:
                 if not self._is_not_leader(e):
                     raise
+                degraded = True
             else:
+                if degraded:
+                    # the rotation time WAS blocked control-plane time
+                    self._account_degraded(time.monotonic() - t0)
                 self._maybe_flush()
                 return resp
             if time.monotonic() >= deadline:
+                self._account_degraded(time.monotonic() - t0)
                 raise MasterUnreachableError(
                     f"no reachable leader among {self._endpoints} within "
                     f"{self._outage_grace_s:.0f}s grace")
@@ -180,6 +210,7 @@ class MasterClient:
         answer buffers the SAME way (the standby never applied it) and
         additionally rotates the endpoint so the next beat lands on the
         leader — it must never crash the training loop."""
+        t0 = time.monotonic()
         client = self._client
         try:
             resp = client._call(  # noqa: SLF001
@@ -189,6 +220,7 @@ class MasterClient:
             if not not_leader and not isinstance(e,
                                                  MasterUnreachableError):
                 raise
+            self._account_degraded(time.monotonic() - t0)
             with self._buffer_lock:
                 if len(self._buffer) >= self.BUFFER_CAP:
                     self._buffer.popleft()
@@ -199,6 +231,18 @@ class MasterClient:
             return default
         self._maybe_flush()
         return resp
+
+    @staticmethod
+    def _account_degraded(seconds: float):
+        """Credit retry time burned against an unreachable master; only
+        seconds actually spent blocked count — training that continues
+        through the outage stays productive in the ledger."""
+        try:
+            from ..telemetry.ledger import get_ledger
+
+            get_ledger().account("degraded", seconds)
+        except Exception:  # noqa: BLE001 — telemetry must never break rpc
+            pass
 
     def _call_polling(self, verb: str, payload):
         """Advisory verb on a caller-owned cadence: fail fast (the caller's
@@ -287,6 +331,33 @@ class MasterClient:
                 "failovers": self._failovers,
                 "endpoints": list(self._endpoints)}
 
+    # ------------------------------------------------------------- rendezvous
+
+    def join_rendezvous(self, node_rank: int, local_world_size: int,
+                        rdzv_name: str = RendezvousName.ELASTIC_TRAINING,
+                        node_ip: str = "127.0.0.1",
+                        free_port: int = 0) -> int:
+        resp = self._call_critical("report", msg.JoinRendezvousRequest(
+            node_id=self.node_id, node_rank=node_rank,
+            local_world_size=local_world_size, rdzv_name=rdzv_name,
+            node_ip=node_ip, free_port=free_port,
+            slice_id=os.getenv("DWT_SLICE_ID", "")),
+            idem=self._next_idem())
+        return resp.rdzv_round
+
+    def get_comm_world(
+        self, rdzv_name: str = RendezvousName.ELASTIC_TRAINING
+    ) -> msg.RendezvousState:
+        return self._call_critical("get", msg.CommWorldRequest(
+            node_id=self.node_id, rdzv_name=rdzv_name))
+
+    def num_nodes_waiting(
+        self, rdzv_name: str = RendezvousName.ELASTIC_TRAINING
+    ) -> int:
+        resp = self._call_polling("get", msg.WaitingNodeNumRequest(
+            node_id=self.node_id, rdzv_name=rdzv_name))
+        return resp.waiting_num
+
     # ------------------------------------------------------------- lifecycle
 
     def register_node(self, node_rank: int, addr: str = "",
@@ -300,11 +371,122 @@ class MasterClient:
         self._registration = meta  # replayed on every epoch bump
         return self._call_critical("report", meta)
 
+    def report_heart_beat(self, global_step: int = 0) -> str:
+        return self.report_heart_beat_full(global_step).action
+
+    def report_heart_beat_full(self, global_step: int = 0
+                               ) -> msg.HeartbeatResponse:
+        """Full response — carries rollback_before_step for spike rollbacks.
+
+        Degraded mode: on an unreachable master the beat buffers and a
+        no-action response returns — training never blocks on heartbeats."""
+        return self._call_buffered(
+            msg.HeartBeat(node_id=self.node_id, timestamp=time.time(),
+                          global_step=global_step),
+            default=msg.HeartbeatResponse())
+
     def report_failure(self, error_data: str, restart_count: int = 0,
                        level: str = "process"):
         return self._call_critical("report", msg.NodeFailure(
             node_id=self.node_id, restart_count=restart_count,
             error_data=error_data, level=level))
+
+    def report_global_step(self, step: int,
+                           elapsed_time_per_step: float = 0.0):
+        return self._call_buffered(
+            msg.GlobalStep(step=step, timestamp=time.time(),
+                           elapsed_time_per_step=elapsed_time_per_step),
+            default=msg.OkResponse())
+
+    def report_node_event(self, event_type: str, message: str = "",
+                          level: str = "info"):
+        return self._call_buffered(
+            msg.NodeEventReport(node_id=self.node_id,
+                                node_type=self.node_type,
+                                event_type=event_type, message=message,
+                                level=level),
+            default=msg.OkResponse())
+
+    def report_custom_metric(self, data):
+        """Push {metric_name: value} to the master; dwt_* names land in the
+        master's metric registry."""
+        return self._call_buffered(msg.CustomMetric(data=dict(data)),
+                                   default=msg.OkResponse())
+
+    def report_goodput_ledger(self, snapshot: Dict):
+        """Push a cumulative ledger snapshot (telemetry/ledger.py
+        ``GoodputLedger.snapshot()``) — BUFFERED: cumulative totals make
+        drops and replays harmless (master keeps latest per node)."""
+        return self._call_buffered(
+            msg.GoodputLedgerReport(
+                node_id=self.node_id,
+                wall_s=float(snapshot.get("wall_s", 0.0)),
+                states={str(k): float(v)
+                        for k, v in snapshot.get("states", {}).items()},
+                other_s=float(snapshot.get("other_s", 0.0)),
+                goodput_fraction=float(
+                    snapshot.get("goodput_fraction", 0.0)),
+                sent_at=time.time()),
+            default=msg.OkResponse())
+
+    def get_goodput_summary(self) -> msg.GoodputSummary:
+        """Job-level ledger aggregation."""
+        return self._call_polling("get", msg.GoodputQuery())
+
+    # ------------------------------------------------------------- kv store
+
+    def kv_store_set(self, key: str, value: bytes):
+        return self._call_critical("report",
+                                   msg.KVStoreSetRequest(key=key,
+                                                         value=value))
+
+    def kv_store_get(self, key: str) -> Optional[bytes]:
+        resp = self._call_critical("get", msg.KVStoreGetRequest(key=key))
+        return resp.value if resp.found else None
+
+    def kv_store_multi_get(self, keys: List[str]) -> Optional[List[bytes]]:
+        resp = self._call_critical("get",
+                                   msg.KVStoreMultiGetRequest(keys=keys))
+        return resp.values if resp.found else None
+
+    def kv_store_add(self, key: str, amount: int = 1) -> int:
+        resp = self._call_critical("get",
+                                   msg.KVStoreAddRequest(key=key,
+                                                         amount=amount),
+                                   idem=self._next_idem())
+        return resp.num
+
+    class _KVNotReady(Exception):
+        pass
+
+    def kv_store_wait(self, keys: List[str], timeout: float = 300.0,
+                      poll: float = 0.2) -> bool:
+        """Block until every key exists; polls through the shared backoff
+        helper (retry_call) instead of a fixed-interval spin, riding a
+        master outage inside the window.  Raises TimeoutError (message
+        carries the master's fencing epoch) on expiry."""
+        def probe():
+            # fail-fast inner call: a long per-probe deadline would let one
+            # probe swallow the whole wait window during a master outage
+            try:
+                resp = self._client._call(  # noqa: SLF001
+                    "get", msg.KVStoreMultiGetRequest(keys=keys),
+                    attempts=2)
+            except MasterUnreachableError as e:
+                raise MasterClient._KVNotReady() from e
+            if not resp.found:
+                raise MasterClient._KVNotReady()
+            return True
+
+        try:
+            return retry_call(
+                probe, attempts=None, deadline_s=timeout,
+                base_delay_s=poll, max_delay_s=2.0, jitter=0.25,
+                retry_on=(MasterClient._KVNotReady,))
+        except MasterClient._KVNotReady:
+            raise TimeoutError(
+                f"kv_store_wait({keys!r}) timed out after {timeout:.0f}s "
+                f"(master epoch={self.epoch})") from None
 
     # ------------------------------------------------------------- serving
 

@@ -6,8 +6,9 @@ this process, and its decode workers are
 ``python -m dlrover_wuqiong_tpu_torch.serving`` subprocesses on
 ``device``.  The JAX drill's journal, group-commit and incident-timeline
 gates need the master journal, which the port does not have yet (ROADMAP
-item 15); the other drills (preempt, master-kill, hot-swap, ...) come
-with item 13.
+item 15); the other drills (preempt, pod-kill, master-kill, hot-swap,
+...) come with item 13.  The elastic trainer's SIGKILL drill under the
+port's launcher is `trainer.drill.elastic_drill`.
 
     python -m dlrover_wuqiong_tpu_torch.chaos serve-drain [--device cpu]
 

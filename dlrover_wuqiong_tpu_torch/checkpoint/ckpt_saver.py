@@ -4,10 +4,12 @@ Parity: a copy of dlrover_wuqiong_tpu/checkpoint/ckpt_saver.py:1-598
 (no JAX), kept in the port because the port imports nothing of the JAX
 package: the same on-disk layout, commit order, digests and
 ``DWT_CKPT_CRASH_POINT`` fault points, so a generation either package
-commits restores in the other.  With no agent ported yet (ROADMAP item
-7a) the engine hosts the saver in the training process, and the agent's
-two hooks after a persist are left out: `post_save_hook` (the replica
-backup, item 6b) and `metric_hook` (the master forward, item 7a).
+commits restores in the other.  Under ``run`` the elastic agent hosts
+the saver (agent/elastic_agent.py) and sets its `metric_hook`, which
+forwards each persist's seconds to the master; a trainer with no agent
+hosts it in-process (engine.py).  The agent's other hook after a
+persist, `post_save_hook` (the replica backup), comes with ROADMAP item
+6b.
 
 Parity: reference `elastic_agent/torch/ckpt_saver.py` (`AsyncCheckpointSaver`
 :344, `_save_shard` :544, `save_shm_to_storage` :634, `CommonDirCheckpointSaver`
@@ -175,6 +177,9 @@ class AsyncCheckpointSaver:
         self._last_persisted_step = -1
         self._latest_shm_step = -1
         self._latest_path = ""
+        # invoked with (kind, seconds) per persist — the agent forwards to
+        # the master's metric registry (the agent's own registry is local)
+        self.metric_hook = None
 
     # ---------------------------------------------------------------- factory
 
@@ -328,6 +333,11 @@ class AsyncCheckpointSaver:
                     {"job": self.job_name, "kind": "persist"})
             except Exception:  # noqa: BLE001 — metrics must never break IO
                 pass
+            if self.metric_hook is not None:
+                try:
+                    self.metric_hook("persist", elapsed)
+                except Exception:  # noqa: BLE001
+                    pass
         else:
             logger.error("failed to persist checkpoint step=%d", step)
 

@@ -32,9 +32,12 @@ device and are torch here:
   donation launder has no torch counterpart.  A `TrainState` template
   restores through its own `load_tree`.
 
-Not here yet: `_record_blocking_metric` and `_report_ckpt_health` write
-only the process's metric registry (master/metrics.py); their forwards to
-the master through the elastic context come with ROADMAP item 7a.  The
+`_record_blocking_metric` and `_report_ckpt_health` write the process's
+metric registry (master/metrics.py) and, in a worker launched by the
+elastic agent, forward to the master through the elastic context
+(trainer/elastic.py ``_context``), as JAX's do (:321-361): a blocking
+save's seconds as the custom metric ``dwt_ckpt_blocking_seconds``, a
+health event as a ``ckpt-health`` node event.  Not here yet: the
 replica tier between shm and storage (JAX's `replica_fetch`, the
 `on_degraded_restore` re-replication hook and the "replica" restore
 preference) comes with the replica ring, item 6b.
@@ -159,6 +162,15 @@ class CheckpointEngine:
         else:
             self._event_queue = SharedQueue(f"{job_name}-ckpt-events",
                                             master=False)
+        # the segment's owner, stamped as its creator pid (shm_handler.py):
+        # the process that hosts the saver and persists the segment after
+        # a worker dies.  A worker launched by an elastic agent stamps its
+        # parent, the agent: another job's saver, sweeping the segments
+        # of dead creators at its start, must spare a SIGKILLed worker's
+        # segment until the agent has persisted it and relaunched.
+        in_process = standalone or \
+            AsyncCheckpointSaver.get_ckpt_saver() is not None
+        self._owner_pid = os.getpid() if in_process else os.getppid()
         # client side of the saver's per-segment lock: staging must not
         # overwrite the payload while the saver streams it to disk
         self._shm_lock = SharedLock(shm_lock_name(job_name, local_rank),
@@ -179,6 +191,8 @@ class CheckpointEngine:
                 timeout=CheckpointConstant.SAVE_TIMEOUT)
         except Exception:  # noqa: BLE001 — saver gone: stage unlocked
             acquired = False
+        extra = dict(extra)
+        extra.setdefault("_pid", self._owner_pid)
         try:
             self._shm_handler.save_state_dict(state, step, extra)
         finally:
@@ -404,24 +418,37 @@ class CheckpointEngine:
             return blocked
 
     def _report_ckpt_health(self, tier: str, reason: str):
-        """Checkpoint-health event: a count in the process's metric
-        registry.  JAX's also sends the master a node event (``reason``),
-        where operators see corruption; that forward comes with item 7a."""
+        """Checkpoint-health event: local metric + master node event.
+
+        The master's event stream is where operators see corruption —
+        a quarantined generation on one node of a large job would
+        otherwise only exist in that node's logs."""
         try:
             get_registry().inc(
                 "dwt_ckpt_integrity_events",
                 labels={"job": self.job_name, "tier": tier})
+            from ..trainer import elastic as _elastic
+
+            ctx = getattr(_elastic, "_context", None)
+            if ctx is not None and ctx.mc is not None:
+                ctx.mc.report_node_event(
+                    "ckpt-health", f"{tier}: {reason}", level="warning")
         except Exception:  # noqa: BLE001 — health reporting must never
             pass           # break a restore
 
     def _record_blocking_metric(self, blocked: float):
-        """The blocking seconds into the process's metric registry.
-        JAX's also forwards them to the master (whose /metrics endpoint
-        operators scrape); that forward comes with item 7a."""
+        """Local registry + forward to the master (the worker's registry
+        is per-process)."""
         try:
             get_registry().observe("dwt_ckpt_seconds", blocked,
                                    {"job": self.job_name,
                                     "kind": "blocking"})
+            from ..trainer import elastic as _elastic
+
+            ctx = getattr(_elastic, "_context", None)
+            if ctx is not None and ctx.mc is not None:
+                ctx.mc.report_custom_metric(
+                    {"dwt_ckpt_blocking_seconds": blocked})
         except Exception:  # noqa: BLE001 — metrics must never break saves
             pass
 

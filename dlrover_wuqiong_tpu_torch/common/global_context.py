@@ -1,10 +1,14 @@
 """Global tunables singleton.
 
 Parity: dlrover_wuqiong_tpu/common/global_context.py, holding only the
-fields the port reads so far (`master_outage_grace_s`, which
-`MasterClient` reads).  The JAX module's other fields come with the
-modules that read them.  Values may be overridden from env vars prefixed
-``DWT_CTX_``, as there.
+fields the port reads, with the JAX defaults: the heartbeat interval and
+timeout (master/job_manager.py), the relaunch policy (`relaunch_always`,
+`max_relaunch_count`: job_manager.py, master/servicer.py), the speed
+monitor's window (`train_speed_record_num`) and the rendezvous join
+timeout (master/master.py), and `master_outage_grace_s`
+(agent/master_client.py).  The JAX module's other fields come with the
+modules that read them (ROADMAP items 13 and 15).  Values may be
+overridden from env vars prefixed ``DWT_CTX_``, as there.
 """
 
 from __future__ import annotations
@@ -16,6 +20,12 @@ from dataclasses import dataclass, fields
 
 @dataclass
 class Context:
+    node_heartbeat_interval: float = 15.0
+    node_heartbeat_timeout: float = 300.0
+    relaunch_always: bool = False
+    max_relaunch_count: int = 3
+    train_speed_record_num: int = 50
+    rdzv_join_timeout: float = 600.0
     # how long a MasterClient rides a master outage before giving up on a
     # critical verb (retry backoff caps at ~2s between attempts); the
     # fire-and-forget verbs buffer instead of waiting (master_client.py)

@@ -1,13 +1,17 @@
-"""Wire messages between the serving worker, its clients and the master.
+"""Wire messages between agents, workers, clients and the master.
 
 Parity: dlrover_wuqiong_tpu/common/messages.py — `OkResponse` (:25),
-`NodeMeta` (:155), `NodeFailure` (:194) and every ``Serve*`` record
-(:561-686), copied with the same names, fields, defaults and order, and
-registered under the same names by ``@message``, so the port's frames are
-byte-equal to the JAX package's (`analysis/schema.lock.json` pins the
-JAX side; tests/test_torch_serving_worker.py holds the two equal).  The
-other messages come with the verbs that carry them (ROADMAP items 6a, 7a
-and 15).
+the rendezvous records (:90-126), `NodeMeta` (:155), `HeartBeat` and its
+reply (:166-181), `NodeEventReport` (:184), `NodeFailure` (:194),
+`GlobalStep` (:205), `ModelInfo` and `CustomMetric` (:220-230), the
+goodput ledger's records (:234-268), the ``KVStore*`` records
+(:383-409) and every ``Serve*`` record (:561-686), copied with the same
+names, fields, defaults and order, and registered under the same names
+by ``@message``, so the port's frames are byte-equal to the JAX
+package's (`analysis/schema.lock.json` pins the JAX side;
+tests/test_torch_serving_worker.py and tests/test_torch_elastic.py hold
+the two equal).  The other messages come with the verbs that carry them
+(ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -22,6 +26,47 @@ from .serialize import message
 class OkResponse:
     success: bool = True
     reason: str = ""
+
+
+# ---------------------------------------------------------------- rendezvous
+
+
+@message
+class JoinRendezvousRequest:
+    node_id: int = -1
+    node_rank: int = -1
+    local_world_size: int = 1  # local accelerator/process count
+    rdzv_name: str = ""
+    node_ip: str = ""
+    free_port: int = 0
+    slice_id: str = ""  # locality hint (DWT_SLICE_ID)
+
+
+@message
+class CommWorldRequest:
+    node_id: int = -1
+    rdzv_name: str = ""
+
+
+@message
+class RendezvousState:
+    rdzv_round: int = 0
+    group: int = 0
+    # node_rank -> (node_id, local_world_size, node_ip, free_port)
+    world: Dict[str, List] = field(default_factory=dict)
+    coordinator_addr: str = ""
+    complete: bool = False
+
+
+@message
+class WaitingNodeNumRequest:
+    node_id: int = -1
+    rdzv_name: str = ""
+
+
+@message
+class WaitingNodeNumResponse:
+    waiting_num: int = 0
 
 
 # ---------------------------------------------------------------- node lifecycle
@@ -40,11 +85,130 @@ class NodeMeta:
 
 
 @message
+class HeartBeat:
+    node_id: int = -1
+    timestamp: float = 0.0
+    # piggyback diagnosis payloads (step progress, resource usage)
+    global_step: int = 0
+    resource: Dict[str, float] = field(default_factory=dict)
+
+
+@message
+class HeartbeatResponse:
+    action: str = ""  # "", "restart", "stop"
+    # for action="restart" fired by a loss-spike rollback: resume from the
+    # newest committed checkpoint whose step PRECEDES this (-1 = latest)
+    rollback_before_step: int = -1
+
+
+@message
+class NodeEventReport:
+    node_id: int = -1
+    node_type: str = "worker"
+    event_type: str = ""
+    reason: str = ""
+    message: str = ""
+    level: str = "info"
+
+
+@message
 class NodeFailure:
     node_id: int = -1
     restart_count: int = 0
     error_data: str = ""
     level: str = "process"
+
+
+@message
+class GlobalStep:
+    step: int = 0
+    timestamp: float = 0.0
+    elapsed_time_per_step: float = 0.0
+
+
+@message
+class ModelInfo:
+    num_params: int = 0
+    num_layers: int = 0
+    hidden_size: int = 0
+    seq_len: int = 0
+    flops_per_step: float = 0.0
+
+
+@message
+class CustomMetric:
+    data: Dict[str, float] = field(default_factory=dict)
+
+
+@message
+class GoodputLedgerReport:
+    """Cumulative per-node goodput ledger snapshot (telemetry/ledger.py).
+
+    Totals are cumulative since trainer start, so the report is drop- and
+    replay-safe over the BUFFERED verb class: the master keeps the latest
+    snapshot per node and sums across nodes.  ``states`` keys come from
+    ``LEDGER_STATES`` (add-only schema).
+    """
+
+    node_id: int = -1
+    wall_s: float = 0.0
+    states: Dict[str, float] = field(default_factory=dict)
+    other_s: float = 0.0
+    goodput_fraction: float = 0.0
+    # send-time wall-clock stamp (cross-process — time.time()): the
+    # degraded-mode buffer drains AFTER the frame that reconnected, so
+    # without it a stale buffered snapshot would overwrite the fresh one
+    # on the new master (latest-SENT must win, not latest-arrived)
+    sent_at: float = 0.0
+
+
+@message
+class GoodputQuery:
+    """Pull the job-level ledger aggregation."""
+
+    pass
+
+
+@message
+class GoodputSummary:
+    states: Dict[str, float] = field(default_factory=dict)
+    wall_s: float = 0.0
+    other_s: float = 0.0
+    goodput_fraction: float = 0.0
+    nodes: int = 0
+
+
+# ---------------------------------------------------------------- kv store
+
+
+@message
+class KVStoreSetRequest:
+    key: str = ""
+    value: bytes = b""
+
+
+@message
+class KVStoreGetRequest:
+    key: str = ""
+
+
+@message
+class KVStoreMultiGetRequest:
+    keys: List[str] = field(default_factory=list)
+
+
+@message
+class KVStoreAddRequest:
+    key: str = ""
+    amount: int = 1
+
+
+@message
+class KVStoreResponse:
+    found: bool = False
+    value: bytes = b""
+    values: List[bytes] = field(default_factory=list)
+    num: int = 0
 
 
 # ---------------------------------------------------------------- serving

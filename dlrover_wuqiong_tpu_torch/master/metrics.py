@@ -1,13 +1,17 @@
 """The process-wide metric registry.
 
-Parity: dlrover_wuqiong_tpu/master/metrics.py:1-167, cut to what the
-checkpoint uses: `MetricRegistry`'s labelled counters and bounded
-histograms, their readers, and `get_registry`.  The checkpoint engine and
-saver write their timings and integrity events into it
-(checkpoint/engine.py `_record_blocking_metric`, `_report_ckpt_health`;
-checkpoint/ckpt_saver.py after a persist).  Gauges, the Prometheus text
-rendering, `JobMetricCollector` and the HTTP `PrometheusExporter` come
-with the master's metric verbs (ROADMAP item 7a), which export it.
+Parity: dlrover_wuqiong_tpu/master/metrics.py:1-185, cut to what the
+checkpoint and the master write: `MetricRegistry`'s labelled counters
+and bounded histograms, their readers, `get_registry`, and the job label
+and registry of `JobMetricCollector` (:170-183).  The checkpoint engine
+and saver write their timings and integrity events into the process's
+registry (checkpoint/engine.py `_record_blocking_metric`,
+`_report_ckpt_health`; checkpoint/ckpt_saver.py after a persist); the
+master observes the ``dwt_*`` custom metrics that the engine and the
+agent's saver forward to it (master/master.py `collect_custom_data`).
+Gauges, the Prometheus text rendering, the collector's gauge writers and
+the HTTP `PrometheusExporter` come with the master's exporter (ROADMAP
+item 15).
 """
 
 from __future__ import annotations
@@ -71,3 +75,15 @@ def get_registry() -> MetricRegistry:
         if _REGISTRY is None:
             _REGISTRY = MetricRegistry()
         return _REGISTRY
+
+
+class JobMetricCollector:
+    """The master's registry and the job label its metrics carry.
+
+    Parity: dlrover_wuqiong_tpu/master/metrics.py:170-183 (its gauge
+    writers come with the exporter, ROADMAP item 15)."""
+
+    def __init__(self, job_name: str = "dwt",
+                 registry: Optional[MetricRegistry] = None):
+        self.job = job_name
+        self.reg = registry or get_registry()

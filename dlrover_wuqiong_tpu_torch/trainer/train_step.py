@@ -18,10 +18,18 @@ PyTorch holds state in place, so the pieces map as follows:
   order.
 - The grad norm is ``optax.global_norm``: the float32 square root of the
   sum of squares over all leaves.
+- `clip_adamw` stands in for the Trainer's ``optax.chain(
+  optax.clip_by_global_norm(1.0), optax.adamw(schedule,
+  weight_decay=wd))`` (`ClipAdamW`): optax's clip (the updates scaled by
+  ``1 / norm`` at or above the norm, untouched below it; torch's
+  ``clip_grad_norm_`` scales by ``1 / (norm + 1e-6)``), then each
+  param group's lr set on the host from the schedule at the count before
+  the update, as ``scale_by_schedule`` reads it.
 - `TrainState.tree` gives the state's live tensors under the names JAX
   gives a `TrainState` with ``optax.adamw`` (the flash checkpoint's
-  tree), and `TrainState.load_tree` writes a checkpoint back into the
-  module and the optimizer.
+  tree), or with the Trainer's chain for a `ClipAdamW`, and
+  `TrainState.load_tree` writes a checkpoint back into the module and
+  the optimizer.
 - ``fused_steps=K > 1`` runs the same step K times in a Python loop over
   batches stacked on a leading axis of size K; the per-step losses and
   grad norms stay on the device, so a fusion needs one host readback.
@@ -48,6 +56,61 @@ def adamw(learning_rate: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
     ``torch.optim.AdamW`` (default foreach implementation)."""
     return functools.partial(torch.optim.AdamW, lr=learning_rate,
                              betas=(b1, b2), eps=eps,
+                             weight_decay=weight_decay)
+
+
+class ClipAdamW(torch.optim.AdamW):
+    """``optax.chain(optax.clip_by_global_norm(1.0),
+    optax.adamw(schedule, weight_decay=weight_decay))`` on torch's AdamW,
+    with optax's other defaults.
+
+    `step` clips the gradients as optax does (no host sync: the scale is
+    a device tensor), sets every group's lr to ``schedule(count)`` from
+    the host-side count of updates taken so far, steps, and counts.  The
+    count is `schedule_count`, a CPU tensor that the checkpoint tree
+    carries as ``opt_state/1/2/count`` (optax's ``ScaleByScheduleState``),
+    so a restored optimizer resumes the schedule where it stopped."""
+
+    MAX_NORM = 1.0
+
+    def __init__(self, params, schedule: Callable[[int], float],
+                 weight_decay: float):
+        super().__init__(params, lr=float(schedule(0)), betas=(0.9, 0.999),
+                         eps=1e-8, weight_decay=weight_decay)
+        self.schedule = schedule
+        self.schedule_count = torch.zeros((), dtype=torch.float32)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        grads = [p.grad for g in self.param_groups for p in g["params"]
+                 if p.grad is not None]
+        if grads:
+            # optax: select(norm < max, g, g / norm * max)
+            norm = global_norm(grads)
+            keep = norm < self.MAX_NORM
+            torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+            torch._foreach_mul_(grads, torch.where(keep, 1.0,
+                                                   self.MAX_NORM))
+        lr = float(self.schedule(int(self.schedule_count)))
+        for group in self.param_groups:
+            group["lr"] = lr
+        loss = super().step(closure)
+        self.schedule_count += 1
+        return loss
+
+    def optax_state(self, adam: Dict) -> tuple:
+        """The chain's state around adamw's `adam` node: (clip's
+        EmptyState, (ScaleByAdamState, add_decayed_weights' EmptyState,
+        ScaleByScheduleState))."""
+        return ((), (adam, (), OrderedDict(count=self.schedule_count)))
+
+
+def clip_adamw(schedule: Callable[[int], float],
+               weight_decay: float) -> OptimizerFactory:
+    """The Trainer's optimizer, ``optax.chain(clip_by_global_norm(1.0),
+    adamw(schedule, weight_decay=weight_decay))``, as a factory of
+    `ClipAdamW`."""
+    return functools.partial(ClipAdamW, schedule=schedule,
                              weight_decay=weight_decay)
 
 
@@ -101,7 +164,9 @@ class TrainState:
         ``optax.adamw``: ``step``, ``params/<flax path>``,
         ``opt_state/0/count``, ``opt_state/0/mu/<flax path>`` (torch's
         ``exp_avg``) and ``opt_state/0/nu/<flax path>`` (``exp_avg_sq``),
-        in JAX's order.
+        in JAX's order.  A `ClipAdamW`'s state sits where the Trainer's
+        chain puts it: ``opt_state/1/0/{count,mu,nu}`` and the schedule's
+        ``opt_state/1/2/count``.
 
         torch keeps one ``step`` count per parameter where optax keeps one
         ``count``: the tree holds the first parameter's, and a restore
@@ -125,9 +190,10 @@ class TrainState:
             count=next(iter(states.values()))["step"],
             mu=nest({n: s["exp_avg"] for n, s in states.items()}),
             nu=nest({n: s["exp_avg_sq"] for n, s in states.items()}))
-        return StateTree(self, step=self.step,
+        wrap = getattr(self.opt_state, "optax_state", None)
+        return StateTree(self, adam, step=self.step,
                          params=nest(dict(self.params.named_parameters())),
-                         opt_state=(adam,))
+                         opt_state=wrap(adam) if wrap else (adam,))
 
     @torch.no_grad()
     def load_tree(self, flat: Dict[str, Any]) -> "TrainState":
@@ -140,7 +206,7 @@ class TrainState:
 
         tree = self.tree()
         copy_into(tree, flat)
-        count = tree["opt_state"][0]["count"]
+        count = tree.adam["count"]
         for st in self._adam_states().values():
             if st["step"] is not count:
                 st["step"].copy_(count)
@@ -152,9 +218,10 @@ class StateTree(OrderedDict):
     state's `TrainState.load_tree`, so that torch's per-parameter step
     counts all get the restored ``count``."""
 
-    def __init__(self, state: TrainState, **tree):
+    def __init__(self, state: TrainState, adam: Dict, **tree):
         super().__init__(**tree)
         self.state = state
+        self.adam = adam  # the AdamW node, wherever the layout puts it
 
     def load_tree(self, flat: Dict[str, Any]) -> TrainState:
         return self.state.load_tree(flat)

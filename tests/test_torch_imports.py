@@ -14,6 +14,9 @@
   device, asks nowhere whether CUDA is available, and raises for a leaf
   on another device; its copies of the JAX package's jax-free modules
   import no ``ml_dtypes`` either.
+- The elastic launcher's process (``run``: the master, the agent and its
+  checkpoint saver) never touches ``torch.cuda``, through a worker's
+  failure and restart; the `Trainer` defaults to ``cuda``.
 """
 
 import ast
@@ -50,6 +53,13 @@ CHECKPOINT = ("common.constants", "common.multi_process", "common.storage",
               "checkpoint.engine", "checkpoint.checkpointer",
               "checkpoint.drill")
 
+#: the elastic trainer: the launcher, the master's training managers, the
+#: agent, and the worker side
+ELASTIC = ("common.node", "master.error_monitor", "master.job_manager",
+           "master.net_topology", "master.rendezvous", "master.kv_store",
+           "master.speed_monitor", "agent.elastic_agent", "run",
+           "trainer.elastic", "trainer.trainer", "trainer.drill")
+
 
 def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN_ROOTS
@@ -85,7 +95,7 @@ def test_import_loads_no_jax_and_no_cuda():
     for mod in ("serving.engine", "ops.flash_attention", "models.gpt",
                 "models.llama", "models.attention", "models.fp8", "ops.remat",
                 "trainer.train_step", "auto.accelerate") + CONTROL_PLANE \
-            + CHECKPOINT:
+            + CHECKPOINT + ELASTIC:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in rec["mods"]
 
 
@@ -109,7 +119,7 @@ def test_ast_scan_finds_no_forbidden_import():
             assert not bad, f"{path}:{node.lineno} imports {bad}"
         scanned.append(mod)
     assert "torch" in seen  # the scan did walk the package
-    for mod in CONTROL_PLANE + CHECKPOINT:
+    for mod in CONTROL_PLANE + CHECKPOINT + ELASTIC:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in scanned
 
 
@@ -263,3 +273,65 @@ def test_checkpoint_restores_on_template_device_without_fallback(
         if f.endswith(".py"):
             with open(os.path.join(PKG, "checkpoint", f)) as src:
                 assert "is_available" not in src.read(), f
+
+
+def test_trainer_defaults_to_cuda(monkeypatch, tmp_path):
+    import inspect
+
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.trainer import drill
+    from dlrover_wuqiong_tpu_torch.trainer.trainer import (
+        Trainer,
+        TrainingArgs,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert inspect.signature(Trainer).parameters["device"].default is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(GPT(GPTConfig.nano()), TrainingArgs(
+            output_dir=str(tmp_path)), lambda step: {})
+    assert inspect.signature(
+        drill.elastic_drill).parameters["device"].default == "cuda"
+
+
+#: a worker that fails once, then succeeds: the launcher goes through
+#: the restart path (persist, failure report, rendezvous, relaunch)
+_FLAKY_WORKER = """
+import os, sys
+sys.exit(3 if os.environ["DWT_RESTART_COUNT"] == "0" else 0)
+"""
+
+_WATCH_CUDA = """
+import json, sys, torch
+touched = []
+for name in ("is_available", "init", "_lazy_init", "device_count",
+             "current_device", "set_device", "synchronize"):
+    def spy(*a, _name=name, _fn=getattr(torch.cuda, name), **k):
+        touched.append(_name)
+        return _fn(*a, **k)
+    setattr(torch.cuda, name, spy)
+from dlrover_wuqiong_tpu_torch import run
+rc = run.main(["--standalone", "--max_restarts=1", "--log_dir", "logs",
+               sys.argv[1]])
+print(json.dumps({"rc": rc, "touched": touched,
+                  "initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def test_launcher_process_never_touches_cuda(tmp_path):
+    """``run --standalone`` — master, agent, checkpoint saver — through
+    a failed worker and its restart, with every ``torch.cuda`` entry
+    that could start a context watched."""
+    worker = tmp_path / "worker.py"
+    worker.write_text(_FLAKY_WORKER)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "DWT_MASTER_ADDR")}
+    env.update(PYTHONPATH=REPO, DWT_JOB_NAME=f"tcuda-{os.getpid()}",
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _WATCH_CUDA, str(worker)],
+                         env=env, cwd=str(tmp_path), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec == {"rc": 0, "touched": [], "initialized": False}
+    assert "worker failed with exit code 3" in out.stderr

@@ -86,6 +86,16 @@ PORTED = ("OkResponse", "NodeMeta", "NodeFailure", "ServeRequest",
           "ServeResultQuery", "ServeResultResponse", "ServeStatsReport",
           "ServeStatsQuery", "ServeSummary")
 
+#: the elastic trainer's records, which share the registry (their frames
+#: are held against JAX's in tests/test_torch_elastic.py)
+ELASTIC_PORTED = (
+    "JoinRendezvousRequest", "CommWorldRequest", "RendezvousState",
+    "WaitingNodeNumRequest", "WaitingNodeNumResponse", "HeartBeat",
+    "HeartbeatResponse", "NodeEventReport", "GlobalStep", "ModelInfo",
+    "CustomMetric", "GoodputLedgerReport", "GoodputQuery", "GoodputSummary",
+    "KVStoreSetRequest", "KVStoreGetRequest", "KVStoreMultiGetRequest",
+    "KVStoreAddRequest", "KVStoreResponse")
+
 #: a short grace for every client that may dial a dead master (the
 #: default, 120 s, would park a test for two minutes)
 GRACE_S = 0.5
@@ -184,7 +194,8 @@ def test_fields_equal_schema_lock(name):
 
 
 def test_registry_holds_only_ported_messages_under_jax_names():
-    assert set(tser._MESSAGE_REGISTRY) == set(PORTED)  # noqa: SLF001
+    assert set(tser._MESSAGE_REGISTRY) == \
+        set(PORTED) | set(ELASTIC_PORTED)  # noqa: SLF001
     for name, cls in tser._MESSAGE_REGISTRY.items():  # noqa: SLF001
         assert cls.__name__ == name
         assert name in jser._MESSAGE_REGISTRY  # noqa: SLF001
@@ -344,8 +355,8 @@ def test_port_master_answers_jax_client(master):
         assert (summ.queue_depth, summ.leased, summ.done_total,
                 summ.workers) == (1, 1, 1, 1)
         assert jc.epoch == 1
-        with pytest.raises(jcomm.RpcError, match="HeartBeat"):
-            jc.report(jmsg.HeartBeat(node_id=5))
+        with pytest.raises(jcomm.RpcError, match="TaskRequest"):
+            jc.get(jmsg.TaskRequest(dataset_name="d"))
     finally:
         jc.close()
 
@@ -446,17 +457,20 @@ def test_servicer_rejects_verbs_it_does_not_answer(master):
     for verb, payload in (("get", tmsg.OkResponse()),
                           ("report", tmsg.ServeLease())):
         with pytest.raises(ValueError, match=r"unknown (get|report) "
-                           r"message: \w+ .*ROADMAP items 6a, 7a and 15"):
+                           r"message: \w+ .*ROADMAP items 13 and 15"):
             s.handle(verb, 1, "worker", payload)
 
 
 def test_node_registration_and_failure_reach_the_master(master, client):
     client.register_node(node_rank=1)
-    assert master.nodes[1].accelerator_type == "gpu"
+    node = master.job_manager.get_node(1)
+    assert node.config_resource.accelerator_type == "gpu"
     master.serve_queue.submit([tmsg.ServeRequest(request_id="a")])
     client.lease_serve_requests(max_requests=1)
-    client.report_failure("killed")
-    assert master.failed_nodes[1].error_data == "killed"
+    assert client.report_failure("killed").success
+    assert master.job_manager.error_monitor.error_class_history(1) == [
+        (0, "unknown")]
+    assert node.relaunch_count == 1
     summ = master.serve_summary()
     assert (summ.requeued_total, summ.queue_depth) == (1, 1)
 
