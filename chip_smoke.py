@@ -157,18 +157,27 @@ Phases, in order; a failure in any of them exits non-zero:
    second one restores from its segment (tier ``shm``) and runs steps
    6-7, bitwise this process's; the seconds from the kill to the
    restored state and the part of them that is the second process's
-   start.  One ``checkpoint:`` JSON line.
+   start.  7.4 (run after 7.2): the replica ring on that state, with a
+   ``ReplicaServer`` thread of this process as the peer holding rank 0's
+   backups: `RING_REPEATS` timed ``backup``, ``fetch_peer`` with
+   verification, ``restore`` into shm, and engine loads by tier
+   ``"replica"`` (verified load and H2D apart), each beside its bound at
+   this run's memcpy, digest and loopback-TCP rates; the step after the
+   replica load bitwise the step after a shm restore.  Then one byte of
+   the held blob is flipped: the load falls through to storage, lists
+   the replica fallback, fires the health hook, and its step too is
+   bitwise.  One ``checkpoint:`` JSON line.
 8. The elastic trainer (``trainer.drill``).  8.1: ``Trainer(GPT(GPT-2
-   124M), TrainingArgs(max_steps=60, warmup_steps=10, cosine,
-   save_steps=20, flash_stage_steps=1, logging_steps=1), data_fn)`` in
+   124M), TrainingArgs(max_steps=30, warmup_steps=5, cosine,
+   save_steps=10, flash_stage_steps=1, logging_steps=1), data_fn)`` in
    this process at B = 24, T = 1024, the data function drawing each
    step's tokens from (seed, step): every loss finite, the last below the
-   first, step 60 committed, 12 forward and 12 fused-backward launches a
+   first, step 30 committed, 12 forward and 12 fused-backward launches a
    step.  8.2: the same Trainer as the worker of ``python -m
    dlrover_wuqiong_tpu_torch.run --standalone --max_restarts=3``, a
-   SIGKILL at each of 2 seeded steps in [10, 50] (the worker waits out
+   SIGKILL at each of 2 seeded steps in [10, 25] (the worker waits out
    its staging there).  Checks: the launcher exits 0 after exactly 2
-   restarts, ``latest_checkpointed_iteration.txt`` reads 60, the killed
+   restarts, ``latest_checkpointed_iteration.txt`` reads 30, the killed
    generation's segment holds the step before its kill step and the next
    generation resumes there from tier ``shm`` and trains from the step
    after, every step's loss in every generation is bitwise 8.1's, and
@@ -178,6 +187,25 @@ Phases, in order; a failure in any of them exits non-zero:
    the failure report, the rendezvous, the worker's start, the restore,
    the first resumed step) and the goodput fractions.  Its directories
    and segments go whether it passes or fails.
+9. The node-loss drill (``trainer.drill.node_loss_drill``): each rank's
+   uninterrupted run in this process (GPT-2 124M at B = 8, T = 1024, 30
+   steps, warmup 5, tokens from (seed, step, rank)), then two ``python
+   -m dlrover_wuqiong_tpu_torch.run --nnodes=2`` launchers against an
+   in-process port master with ``DWT_CTX_CHECKPOINT_REPLICA=1``, their
+   workers the same Trainers on the card in a gloo world (NCCL refuses
+   two ranks on one card), a shm stage every 5 steps and a disk save
+   (persist, then the ring backup) every 10.  After step 20 is committed
+   and node 0's ReplicaServer holds node 1's segment of it, node 1's
+   agent and worker are SIGKILLed, its segment unlinked, and a fresh
+   node-1 launcher started.  Checks (`node_loss_checks`): both launchers
+   exit 0, step 30 committed, node 1's new agent spans and logs a ring
+   restore of step 20 from rank 0's holder, node 1's new worker resumes
+   from tier ``shm`` at step 20 with no storage read, node 0 from its own
+   shm, every loss of both ranks bitwise its uninterrupted run's, 12 + 12
+   flash launches a step in every worker.  Prints node 1's time from the
+   loss to its first resumed step by part, each ring backup, each
+   worker's peak memory and how long each of its stages waited on the
+   segment's lock.
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -194,6 +222,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG_DIR = os.path.join(HERE, "dlrover_wuqiong_tpu_torch")
@@ -1852,11 +1881,43 @@ def ckpt_fits(host: dict, state_bytes: int, tag: str):
           f"(the one kept and the one written) need {2 * seg}")
 
 
+def loopback_rate(buf) -> float:
+    """Bytes/s of one loopback TCP transfer of `buf` (``sendall`` into a
+    receiving thread's ``recv_into`` of a buffer of its size), as the
+    replica ring moves a segment."""
+    import socket
+    import threading
+
+    n = len(buf)
+    srv = socket.create_server(("127.0.0.1", 0))
+    dst = bytearray(n)
+
+    def recv():
+        conn, _ = srv.accept()
+        with conn:
+            view, got = memoryview(dst), 0
+            while got < n:
+                k = conn.recv_into(view[got:], min(1 << 20, n - got))
+                check(k > 0, "loopback probe: the peer closed early")
+                got += k
+
+    t = threading.Thread(target=recv)
+    t.start()
+    t0 = time.perf_counter()
+    with socket.create_connection(srv.getsockname()) as c:
+        c.sendall(memoryview(buf))
+        t.join()
+    elapsed = time.perf_counter() - t0
+    srv.close()
+    return n / elapsed
+
+
 def ckpt_rates(torch, ckpt_dir: str, n: int = RATE_BYTES) -> dict:
     """This host's rates, bytes/s, on one n-byte buffer: pinned D2H and
     H2D copies (CUDA events, best of 3), a host memcpy, the checkpoint
-    digest (`digest_bytes`, as staging and persist call it) and a write +
-    fsync into the checkpoint directory."""
+    digest (`digest_bytes`, as staging and persist call it), a write +
+    fsync into the checkpoint directory and a loopback TCP transfer
+    (best of 3)."""
     import numpy as np
 
     from dlrover_wuqiong_tpu_torch.checkpoint.integrity import digest_bytes
@@ -1894,6 +1955,7 @@ def ckpt_rates(torch, ckpt_dir: str, n: int = RATE_BYTES) -> dict:
         os.fsync(f.fileno())
     out["disk_write_fsync"] = n / (time.perf_counter() - t0)
     os.remove(path)
+    out["loopback_tcp"] = max(loopback_rate(src) for _ in range(3))
     return out
 
 
@@ -1914,7 +1976,20 @@ def ckpt_bounds(state_bytes: int, rates: dict) -> dict:
         "restore_h2d_s": b / rates["host_memcpy"] + b / rates["h2d_pinned"],
         "d2h_s": b / rates["d2h_pinned"], "h2d_s": b / rates["h2d_pinned"],
         "digest_s": b / rates["digest"],
-        "disk_write_s": b / rates["disk_write_fsync"]}
+        "disk_write_s": b / rates["disk_write_fsync"],
+        # the replica ring (checkpoint/replica.py): a backup copies the
+        # segment out, digests it and sends it; a fetch receives and
+        # digests; a restore also copies into the segment; the engine's
+        # load by tier "replica" is a restore, then the shm tier's verify
+        "loopback_s": b / rates["loopback_tcp"],
+        "ring_backup_s": b / rates["host_memcpy"] + b / rates["digest"]
+        + b / rates["loopback_tcp"],
+        "ring_fetch_s": b / rates["loopback_tcp"] + b / rates["digest"],
+        "ring_restore_s": b / rates["loopback_tcp"] + b / rates["digest"]
+        + b / rates["host_memcpy"],
+        "restore_replica_verify_s": b / rates["loopback_tcp"]
+        + b / rates["digest"] + 2 * b / rates["host_memcpy"]
+        + b / rates["digest"]}
 
 
 def tree_bytes(torch, tree) -> int:
@@ -2042,6 +2117,91 @@ def timed_restore(torch, ck, state, tier: str) -> dict:
     return {"verify_s": t1 - t0, "h2d_s": t2 - t1, "step": rep["step"]}
 
 
+RING_REPEATS = 3    # timed calls of each replica-ring stage
+
+
+def ring_run(torch, ck, mgr, srv, res, batch, health) -> dict:
+    """Phase 7.4: the replica ring on the state in the segment (the last
+    committed step, re-staged by 7.2's storage restores), with `srv` (a
+    ReplicaServer thread of this process) as rank 1, the holder of rank
+    0's backups.  A restore from shm and one step give the reference;
+    then `RING_REPEATS` timed backups, verified fetches, restores into
+    shm and engine loads by tier "replica" (verified load and H2D apart),
+    and one step from the last, which must be bitwise the reference's.
+    Then one byte of the held blob is flipped: the load must fall through
+    to storage, list the replica fallback, fire the health hook, and its
+    step too must be bitwise."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.engine import restore_tree
+
+    def one_step():
+        res.state, m = res.train_step(res.state, batch)
+        return torch.stack([m["loss"], m["grad_norm"]]).cpu()
+
+    ref = timed_restore(torch, ck, res.state, "shm")
+    step = ref["step"]
+    want = one_step()
+    out = {"step": step, "backup_s": [], "backup_parts": [], "fetch_s": [],
+           "restore_s": []}
+    for _ in range(RING_REPEATS):
+        t0 = time.monotonic()
+        copies = mgr.backup()
+        out["backup_s"].append(time.monotonic() - t0)
+        out["backup_parts"].append(dict(mgr.last_backup))
+        check(copies == 1, f"ring: backup landed {copies} copies")
+    for _ in range(RING_REPEATS):
+        t0 = time.monotonic()
+        got = mgr.fetch_peer(0)
+        out["fetch_s"].append(time.monotonic() - t0)
+        check(got is not None and got[0] == step,
+              f"ring: fetch_peer gave {got and got[0]}, not step {step}")
+        out["blob_bytes"] = len(got[1])
+        del got
+    for _ in range(RING_REPEATS):
+        t0 = time.monotonic()
+        got = mgr.restore()
+        out["restore_s"].append(time.monotonic() - t0)
+        check(got == step, f"ring: restore gave step {got}, not {step}")
+    loads = [timed_restore(torch, ck, res.state, "replica")
+             for _ in range(RING_REPEATS)]
+    out["load_verify_s"] = [r["verify_s"] for r in loads]
+    out["load_h2d_s"] = [r["h2d_s"] for r in loads]
+    check(all(r["step"] == step for r in loads),
+          f"ring: replica loads at steps {[r['step'] for r in loads]}")
+    got = one_step()
+    check(torch.equal(got, want), f"ring: the step after the replica "
+          f"load {got.tolist()} != {want.tolist()}")
+    out["resumed_bitwise"] = True
+
+    with srv._lock:
+        held_step, blob = srv._store[0]
+        bad = bytearray(blob)
+        bad[1 << 20] ^= 0xFF
+        srv._store[0] = (held_step, bytes(bad))
+    del blob, bad
+    n_health = len(health)
+    ck.set_preferred_tier("replica")
+    t0 = time.monotonic()
+    flat = ck.engine.load()
+    restore_tree(res.state, flat)
+    out["corrupt_load_s"] = time.monotonic() - t0
+    del flat
+    rep = ck.last_restore_report
+    ck.set_preferred_tier("")
+    out["corrupt_report"] = {k: rep.get(k) for k in ("tier", "step",
+                                                      "fallbacks", "healed")}
+    check((rep["tier"], rep["step"]) == ("storage", step),
+          f"ring: the corrupt blob's load came from {rep['tier']} step "
+          f"{rep['step']}")
+    check(any(f["tier"] == "replica" for f in rep["fallbacks"]),
+          f"ring: no replica fallback listed: {rep['fallbacks']}")
+    check(len(health) > n_health, "ring: the health hook did not fire")
+    out["health"] = health[n_health:]
+    got = one_step()
+    check(torch.equal(got, want), f"ring: the step after the storage "
+          f"fallback {got.tolist()} != {want.tolist()}")
+    return out
+
+
 def summarize(rows, restores, snapshot_ms) -> dict:
     """p50 and [min, max] of every timed quantity."""
     out = {k: stats([r[k] for r in rows]) for k in (
@@ -2075,6 +2235,10 @@ def ckpt_run(torch, tfa, ckpt_dir: str, opened: list) -> tuple:
     from dlrover_wuqiong_tpu_torch.checkpoint.ckpt_saver import (
         AsyncCheckpointSaver,
     )
+    from dlrover_wuqiong_tpu_torch.checkpoint.replica import (
+        CkptReplicaManager,
+        ReplicaServer,
+    )
     from dlrover_wuqiong_tpu_torch.checkpoint.shm_handler import (
         flatten_state_dict,
     )
@@ -2103,7 +2267,19 @@ def ckpt_run(torch, tfa, ckpt_dir: str, opened: list) -> tuple:
     # 7.1: 2 warm-up steps and 3, a save, steps 6-7; restore into a model
     # from seed 1 from each tier and run steps 6-7 again
     AsyncCheckpointSaver.reset()
-    ck = FlashCheckpointer(ckpt_dir, job_name=job, standalone=True)
+    # the replica ring of 7.4: this process is rank 0, a ReplicaServer
+    # thread rank 1 (the holder of its backups)
+    srv = ReplicaServer(host="127.0.0.1")
+    srv.start()
+    opened.append(types.SimpleNamespace(close=srv.stop))
+    health = []
+    mgr = CkptReplicaManager(
+        rank=0, peers={1: f"127.0.0.1:{srv.port}"}, job_name=job,
+        replica_count=1, health_hook=health.append,
+        quarantine_dir=os.path.join(ckpt_dir, "replica-quarantine"))
+    opened.append(mgr)
+    ck = FlashCheckpointer(ckpt_dir, job_name=job, standalone=True,
+                           replica_fetch=mgr.restore)
     opened.append(ck)
     metrics = []
     for _ in range(5):
@@ -2169,8 +2345,22 @@ def ckpt_run(torch, tfa, ckpt_dir: str, opened: list) -> tuple:
     out["restores"] = restores
     out["summary"] = summarize(rows, restores, out[
         "snapshot_back_to_back_ms"])
+
+    # 7.4: the replica ring (the server holds a copy of the state, a
+    # fetch another: the host must hold both beside the segment)
+    check(ckpt_host(ckpt_dir)["mem_available_bytes"] >= 4 * nbytes,
+          f"ring: the host has not 4 x {nbytes} bytes available")
+    out["ring"] = ring = ring_run(torch, ck, mgr, srv, res2, batch, health)
+    for k in ("backup_s", "fetch_s", "restore_s", "load_verify_s",
+              "load_h2d_s"):
+        out["summary"][f"ring_{k}"] = stats(ring[k])
+    for k in ("copy_s", "verify_s", "send_s"):
+        out["summary"][f"ring_backup_{k}"] = stats(
+            [p[k] for p in ring["backup_parts"]])
     ck.close()
     AsyncCheckpointSaver.reset()
+    mgr.close()
+    srv.stop()
 
     # 7.1, bf16 wire (to shm: the CPU tests pin the files): float32
     # leaves come back as their bf16 round trip, int leaves exactly
@@ -2218,9 +2408,10 @@ def ckpt_run(torch, tfa, ckpt_dir: str, opened: list) -> tuple:
 # ------------------------------------------------------------ phase 8
 
 #: the elastic drill's run: GPT-2 124M at phase 4b's batch, warmup then
-#: cosine, a disk save every 20 steps (and a shm stage every step)
-ELASTIC = dict(batch=TRAIN_B, seq=TRAIN_T, max_steps=60, warmup=10,
-               save_steps=20)
+#: cosine, a disk save every 10 steps (and a shm stage every step), the
+#: SIGKILLs at seeded steps in [10, 25]
+ELASTIC = dict(batch=TRAIN_B, seq=TRAIN_T, max_steps=30, warmup=5,
+               save_steps=10, kill_range=(10, 25))
 
 
 @contextlib.contextmanager
@@ -2369,6 +2560,50 @@ def elastic_phase(torch, tfa) -> tuple:
                           "step_s_after_warmup": ref_step_s}
     return r, summed
 
+
+
+# ------------------------------------------------------------ phase 9
+
+#: the node-loss drill's batch: two GPT-2 124M trainers share the card
+NODE_LOSS_B = 8
+
+
+def node_loss_phase(torch, tfa) -> tuple:
+    """Phase 9: each rank's uninterrupted run in this process, then the
+    node-loss drill (`trainer.drill.node_loss_drill`) on the card, and
+    every check of `trainer.drill.node_loss_checks`.  Returns (report,
+    the workers' summed launches)."""
+    import gc
+
+    from dlrover_wuqiong_tpu_torch.trainer import drill
+
+    knobs = dict(model="gpt2", device="cuda", batch=NODE_LOSS_B,
+                 seq=TRAIN_T, **drill.NODE_LOSS)
+    ref = {}
+    for rank in (0, 1):
+        with elastic_workspace(f"dwt-nl-ref{rank}-") as (out_dir, _):
+            ref[rank] = drill.uninterrupted_losses(rank, out_dir, **knobs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        n = knobs["max_steps"]
+        check(sorted(ref[rank]) == list(range(1, n + 1)) and all(
+            abs(v) < float("inf") for v in ref[rank].values()),
+            f"node-loss reference of rank {rank}: losses {ref[rank]}")
+    r = drill.node_loss_drill(timeout_s=300, **knobs)
+    r["checks"] = checks = drill.node_loss_checks(r, ref, 12)
+    failed = [k for k, ok in checks.items() if not ok]
+    check(not failed, f"node-loss drill: {failed} failed: "
+          f"{json.dumps(r)[:6000]}")
+    for job in r["jobs"]:
+        check(not os.path.exists(f"/dev/shm/{job}_ckpt_shm_0"),
+              f"node-loss drill: the segment of {job} was not unlinked")
+    summed = {}
+    for v in r["launches"].values():
+        for k, c in v["launches"].items():
+            summed[k] = summed.get(k, 0) + c
+    r["reference"] = {rank: [ref[rank][s] for s in sorted(ref[rank])]
+                      for rank in ref}
+    return r, summed
 
 
 # ------------------------------------------------------------ main
@@ -2675,6 +2910,26 @@ def main():
           f"{pm(sm['drain_step_ms'], 1, 'ms')}; chained save blocked "
           f"{ckpt['chain']['second_blocked_s'] * 1e3:.4f} ms, its drain "
           f"waited {ckpt['chain']['chain_wait_s']:.4f} s for the first")
+    rg = ckpt["ring"]
+    print(f"checkpoint: replica ring, {rg['blob_bytes']} bytes a blob, "
+          f"loopback {ckpt['rates_bytes_per_s']['loopback_tcp'] / 1e9:.3f} "
+          f"GB/s; p50 [min, max] over {RING_REPEATS}: backup "
+          f"{pm(sm['ring_backup_s'])} (bound {b['ring_backup_s']:.4f} s; "
+          f"of it the copy under the segment's lock "
+          f"{pm(sm['ring_backup_copy_s'])}, digests "
+          f"{pm(sm['ring_backup_verify_s'])}, send "
+          f"{pm(sm['ring_backup_send_s'])}); "
+          f"fetch_peer with verification {pm(sm['ring_fetch_s'])} (bound "
+          f"{b['ring_fetch_s']:.4f} s); restore into shm "
+          f"{pm(sm['ring_restore_s'])} (bound {b['ring_restore_s']:.4f} s); "
+          f"engine load by tier replica {pm(sm['ring_load_verify_s'])} "
+          f"(bound {b['restore_replica_verify_s']:.4f} s) + H2D "
+          f"{pm(sm['ring_load_h2d_s'])} (bound {b['restore_h2d_s']:.4f} s);"
+          f" the step after it bitwise; a flipped byte in the held blob: "
+          f"{rg['corrupt_report']['tier']} step "
+          f"{rg['corrupt_report']['step']} in {rg['corrupt_load_s']:.3f} s, "
+          f"fallbacks {rg['corrupt_report']['fallbacks']}, health hook "
+          f"{rg['health']}, the step after it bitwise")
     d = ckpt["sigkill_drill"]
     print(f"checkpoint: SIGKILL drill: restored from {d['tier']} step "
           f"{d['restored_step']}; resumed steps 6-7 bitwise the "
@@ -2719,6 +2974,53 @@ def main():
           f"{mg.get('goodput_fraction', float('nan')):.4f} over "
           f"{mg.get('nodes')} node(s)")
 
+    # phase 9 — the node-loss drill: 2 nodes, node 1 lost, the ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    nl, nl_launches = node_loss_phase(torch, tfa)
+    print("node-loss: " + json.dumps(nl))
+    ls, sp = nl["launches"], nl["split"]
+    print(f"node-loss: GPT-2 124M x 2 ranks, a gloo world of 2 nodes on "
+          f"this card, {nl['max_steps']} steps at B = {NODE_LOSS_B}, "
+          f"T = {TRAIN_T}, a shm stage every "
+          f"{nl['stage_steps']} steps, a disk save + ring backup "
+          f"every {nl['save_steps']}; node 1 lost after step "
+          f"{nl['lose_after']} (committed and held by node 0's server "
+          f"{nl['backed_up_wait_s']:.3f} s after both waited); launchers "
+          f"exit {nl['rcs']}; node 1's new agent restored step "
+          f"{nl['ring_restore'][0]['step']} from rank "
+          f"{nl['ring_restore'][0]['holder']} in "
+          f"{nl['ring_restore'][0]['s']:.3f} s; node 1 resumed from "
+          f"{ls['r1_1']['tier']} step {ls['r1_1']['start_step']} "
+          f"(restore_storage "
+          f"{ls['r1_1']['ledger_states'].get('restore_storage', 0.0)}), "
+          f"node 0 from {ls['r0_1']['tier']} step "
+          f"{ls['r0_1']['start_step']}; every loss of both ranks bitwise "
+          f"its uninterrupted run's; 12 + 12 flash launches a step in "
+          f"every worker; committed step {nl['committed_step']}; "
+          f"wall {nl['wall_s']:.1f} s")
+    parts = sum(v for k, v in sp.items() if k != "kill_to_first_step_s")
+    print(f"node-loss: node 1, loss to its first resumed step "
+          f"{sp['kill_to_first_step_s']:.3f} s = the new agent's start "
+          f"{sp['agent_start_s']:.3f} + rendezvous {sp['rendezvous_s']:.3f} "
+          f"+ peer exchange {sp['peer_exchange_s']:.3f} + ring restore "
+          f"{sp['ring_restore_s']:.3f} + launch {sp['launch_s']:.3f} + "
+          f"worker start {sp['process_start_s']:.3f} + restore from shm "
+          f"{sp['restore_s']:.3f} + first step {sp['first_step_s']:.3f} (+ "
+          f"{sp['kill_to_first_step_s'] - parts:.3f} between them)")
+    print("node-loss: ring backups (node, step, copies, s, of it the copy "
+          "under the segment's lock): " + ", ".join(
+              f"({b['node']}, {b['step']}, {b['copies']}, {b['s']:.3f}, "
+              f"{b.get('copy_s', float('nan')):.3f})"
+              for b in nl["backups"]))
+    for key, v in sorted(ls.items()):
+        waits = ", ".join(f"{x['step']}: {x.get('lock_wait_s', 0):.4f}"
+                          for x in v["saves"] or [])
+        peak = (v["peak_bytes"] or 0) / 1e9
+        print(f"node-loss: {key}: steps {v['steps'][0]}-{v['steps'][-1]}, "
+              f"from {v['tier']} (restore {v['restore_s']}), peak "
+              f"{peak:.2f} GB, stage lock waits by step (s) {{{waits}}}")
+
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -2741,6 +3043,7 @@ def main():
             "launches_in": "serving, 16 requests",
             "launches_worker_route": worker_launches[name],
             "launches_elastic_route": el_launches[name],
+            "launches_node_loss_route": nl_launches[name],
         })
     src = "dlrover_wuqiong_tpu_torch/csrc/flash_attention.cu"
     for name, replaces, counts, run in (
@@ -2770,6 +3073,7 @@ def main():
             "launches_checkpoint_resumes": {
                 t: ckpt_launches[t][name] for t in ckpt_launches},
             "launches_elastic_route": el_launches[name],
+            "launches_node_loss_route": nl_launches[name],
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {

@@ -4,11 +4,27 @@ Parity: dlrover_wuqiong_tpu/agent/elastic_agent.py — `ElasticLaunchConfig`
 (:37-57), `ElasticAgent` and `launch_agent` (:590-605), with:
 
 - the rendezvous (:116-170): join with a free port, poll the comm world
-  until it forms in a round newer than the last one this agent ran in;
-  rank 0's ip:port becomes the world's coordinator address;
+  until it forms in a round newer than the last one this agent ran in
+  and than the round the master had formed when the join landed (a
+  difference from JAX: a fresh agent that replaces a lost node under
+  the same node id would otherwise take the old world the master still
+  lists it in, and launch its worker at the old coordinator); rank 0's
+  ip:port becomes the world's coordinator address;
 - the checkpoint saver (:172-179), hosted here so that a staged shm
   generation outlives its worker, with its `metric_hook` forwarding each
   persist's seconds to the master;
+- the replica ring (`_setup_replication`, :181-231, and the saver's
+  `post_save_hook` = `backup`, :441-449) when ``DWT_CTX_CHECKPOINT_REPLICA``
+  is above 0: one `ReplicaServer` per agent, kept across rendezvous
+  rounds, peer addresses exchanged under ``replica/{round}/{rank}`` in
+  the master's kv store, a ``ckpt-health`` node event for a corrupt
+  holder, and a restore of the staged segment from a peer when (only
+  when) the local segment is missing — a replacement node's worker then
+  resumes from shm without reading storage.  The restored segment is
+  stamped with this agent as its owner (replica.py), and the restore is
+  the span ``agent:replica-restore``.  The server stops and the manager
+  closes when the agent stops (the JAX agent leaves both to the
+  process's end);
 - the heartbeat (:359-387), the worker launch (:233-306: the world
   contract in env vars, the package on ``PYTHONPATH``, stderr to a tail
   file the master's error catalogue classifies), the monitor (:546-573)
@@ -28,11 +44,11 @@ worker fault and when the agent ends (`launch_agent`).
 
 The agent never initialises CUDA: it imports the saver, the client and
 the telemetry, none of which touches ``torch.cuda``; the worker owns the
-card.  Left out, each named where it would sit and in ROADMAP: the
-replica ring (`_setup_replication`, :181-231, item 6b); the warm pool
-(`_kick_warm_pool`, :496-545) and the compile-cache env (:262), item 13;
-the config tuner (:424-428) and the policy knobs (:389-405), item 15;
-``--network-check`` (:597), item 13, which raises.
+card.  Left out, each named where it would sit and in ROADMAP: the warm
+pool (`_kick_warm_pool`, :496-545) and the compile-cache env (:262), item
+13; the config tuner (:424-428) and the policy knobs (:389-405, among
+them the replica count), item 15; ``--network-check`` (:597), item 13,
+which raises.
 """
 
 from __future__ import annotations
@@ -116,6 +132,8 @@ class ElasticAgent:
         self._rollback_before = -1  # loss-spike resume ceiling (one-shot)
         self._stopped = threading.Event()
         self._saver: Optional[AsyncCheckpointSaver] = None
+        self._replica_server = None
+        self._replica_manager = None
         self._heartbeat_thread: Optional[threading.Thread] = None
         self._last_restart_ts = 0.0
         # last rendezvous round this agent ran in, PER rendezvous name: a
@@ -136,16 +154,21 @@ class ElasticAgent:
 
     def _rendezvous_poll(self, name: str, span_rec) -> RendezvousOutcome:
         free_port = find_free_port()
-        self.mc.join_rendezvous(
+        joined = self.mc.join_rendezvous(
             self.node_rank, self.config.nproc_per_node, rdzv_name=name,
             node_ip=os.getenv("DWT_NODE_IP", "127.0.0.1"),
             free_port=free_port)
         deadline = time.monotonic() + self.config.rdzv_timeout
         while time.monotonic() < deadline:
             state = self.mc.get_comm_world(rdzv_name=name)
-            if state.complete and state.rdzv_round <= \
-                    self._last_rdzv_round.get(name, -1):
-                # stale world from before our re-join — wait for the next
+            if state.complete and state.rdzv_round <= max(
+                    joined, self._last_rdzv_round.get(name, -1)):
+                # stale world from before our (re-)join — wait for the
+                # next.  `joined`, the round the master had formed when
+                # this join landed, covers a fresh agent replacing a lost
+                # node under the same node id: the master still lists
+                # that node in the old world, which the JAX agent (its
+                # `_last_rdzv_round` empty) would take
                 time.sleep(0.5)
                 continue
             if state.complete:
@@ -159,7 +182,7 @@ class ElasticAgent:
                 if my_rank is None:
                     # we were not included (e.g. over max_nodes) — rejoin
                     time.sleep(1.0)
-                    self.mc.join_rendezvous(
+                    joined = self.mc.join_rendezvous(
                         self.node_rank, self.config.nproc_per_node,
                         rdzv_name=name,
                         node_ip=os.getenv("DWT_NODE_IP", "127.0.0.1"),
@@ -184,6 +207,73 @@ class ElasticAgent:
             self._saver.metric_hook = lambda kind, s: \
                 self.mc.report_custom_metric(
                     {f"dwt_ckpt_{kind}_seconds": s})
+
+    def _setup_replication(self, outcome: RendezvousOutcome):
+        """Ring replication of staged checkpoints over agent TCP.
+
+        Parity: dlrover_wuqiong_tpu/agent/elastic_agent.py:181-231 —
+        peer addresses rendezvous through the master KV store; a
+        replacement node restores its staged segment from a peer before
+        touching storage.
+        """
+        from ..checkpoint.replica import CkptReplicaManager, ReplicaServer
+        from ..common.global_context import get_context
+
+        replicas = get_context().checkpoint_replica
+        if replicas <= 0:
+            return
+        job = os.getenv(NodeEnv.JOB_NAME, "dwt")
+        if self._replica_server is None:
+            self._replica_server = ReplicaServer()
+            self._replica_server.start()
+        my_ip = os.getenv("DWT_NODE_IP", "127.0.0.1")
+        my_addr = f"{my_ip}:{self._replica_server.port}"
+        rdzv = outcome.rdzv_round
+        self.mc.kv_store_set(f"replica/{rdzv}/{outcome.process_id}",
+                             my_addr.encode())
+        peers = {}
+        keys = [f"replica/{rdzv}/{r}" for r in range(outcome.num_processes)]
+        try:
+            self.mc.kv_store_wait(keys, timeout=60.0)
+            vals = self.mc.kv_store_multi_get(keys) or []
+            for r, v in enumerate(vals):
+                if v:
+                    peers[r] = v.decode() if isinstance(v, bytes) else v
+        except TimeoutError as e:
+            # replication is best-effort: run with the peers that showed up
+            logger.warning("replica peer rendezvous incomplete: %s", e)
+        self._replica_manager = CkptReplicaManager(
+            rank=outcome.process_id, peers=peers, job_name=job,
+            replica_count=replicas,
+            # holder corruption must reach the master's event stream —
+            # the agent is the process that owns the mc here
+            health_hook=lambda reason: self.mc.report_node_event(
+                "ckpt-health", f"replica: {reason}", level="warning"))
+        if not self._replica_manager.has_local_segment():
+            # replacement node (or first boot after a node swap): the
+            # staged checkpoint exists only on a peer — pull it into local
+            # shm so the worker restores in-memory instead of re-reading
+            # storage.  Gating on the MISSING local segment (not restart
+            # counts, which reset with the agent process) also guarantees
+            # we never clobber a newer local segment with a peer's older
+            # copy.
+            with tspans.span("agent:replica-restore",
+                             {"rank": outcome.process_id}) as rec:
+                restored = self._replica_manager.restore()
+                rec["attrs"]["step"] = -1 if restored is None else restored
+                rec["attrs"]["holder"] = self._replica_manager.restored_from
+            if restored is not None:
+                logger.info("replica restore: staged step %d recovered "
+                            "from a peer", restored)
+
+    def _replica_backup(self, step: int):
+        """The saver's `post_save_hook`: ship the persisted segment to the
+        ring (span ``agent:replica-backup``: the step, the copies that
+        landed and the seconds of each part, `last_backup`)."""
+        manager = self._replica_manager
+        with tspans.span("agent:replica-backup", {"step": step}) as rec:
+            rec["attrs"]["copies"] = manager.backup()
+            rec["attrs"].update(manager.last_backup)
 
     def _launch_worker(self, outcome: RendezvousOutcome) -> WorkerContext:
         env = dict(os.environ)
@@ -356,7 +446,12 @@ class ElasticAgent:
                 # it applies on the saver thread, never racing a save
                 self._saver._event_queue.put(CheckpointEvent.update_world(
                     outcome.num_processes, outcome.process_id))
-            # (the replica ring is set up here: ROADMAP item 6b)
+            try:
+                self._setup_replication(outcome)
+                if self._replica_manager is not None:
+                    self._saver.post_save_hook = self._replica_backup
+            except Exception:  # noqa: BLE001 — replication is best-effort
+                logger.exception("checkpoint replication setup failed")
             self._worker = self._launch_worker(outcome)
             # (the warm pool is kicked here: ROADMAP item 13)
             exit_code = self._monitor_worker()
@@ -443,6 +538,12 @@ class ElasticAgent:
         if self._saver is not None:
             AsyncCheckpointSaver.reset()
             self._saver = None
+        if self._replica_server is not None:
+            self._replica_server.stop()
+            self._replica_server = None
+        if self._replica_manager is not None:
+            self._replica_manager.close()
+            self._replica_manager = None
 
 
 def launch_agent(config: ElasticLaunchConfig, entrypoint: List[str],

@@ -1,18 +1,31 @@
 """Chaos drills against the port.
 
-Parity: `serve_drain` of dlrover_wuqiong_tpu/chaos.py (:2914-3100),
-pointed at the port: its master is the port's `JobMaster`, hosted in
-this process, and its decode workers are
-``python -m dlrover_wuqiong_tpu_torch.serving`` subprocesses on
-``device``.  The JAX drill's journal, group-commit and incident-timeline
-gates need the master journal, which the port does not have yet (ROADMAP
-item 15); the other drills (preempt, pod-kill, master-kill, hot-swap,
-...) come with item 13.  The elastic trainer's SIGKILL drill under the
-port's launcher is `trainer.drill.elastic_drill`.
+Parity: two drills of dlrover_wuqiong_tpu/chaos.py, pointed at the port.
+
+- `serve_drain` (:2914-3100): its master is the port's `JobMaster`,
+  hosted in this process, and its decode workers are
+  ``python -m dlrover_wuqiong_tpu_torch.serving`` subprocesses on
+  ``device``.  The JAX drill's journal, group-commit and
+  incident-timeline gates need the master journal, which the port does
+  not have yet (ROADMAP item 15).
+- `ckpt_corrupt` (:1364-1747): the checkpoint trust boundary's fault
+  matrix on a live flash-checkpoint job (engine, in-process saver,
+  replica ring), its state a torch tree on ``device`` and its resumed
+  step a torch step there.  The JAX drill's last gate runs
+  ``tools/ckpt_doctor.py``, which imports the JAX package; here the same
+  verification (`checkpoint.integrity.verify_storage_step` over every
+  generation, as the doctor walks them) runs in this process
+  (`doctor_verdict`).
+
+The other drills (preempt, pod-kill, master-kill, hot-swap, ...) come
+with item 13.  The elastic trainer's SIGKILL drill under the port's
+launcher is `trainer.drill.elastic_drill`, and its node-loss drill
+through the replica ring `trainer.drill.node_loss_drill`.
 
     python -m dlrover_wuqiong_tpu_torch.chaos serve-drain [--device cpu]
+    python -m dlrover_wuqiong_tpu_torch.chaos ckpt-corrupt [--device cpu]
 
-prints the drill's one-line JSON report and exits 0 when ``ok``.
+prints each drill's one-line JSON report and exits 0 when ``ok``.
 """
 
 from __future__ import annotations
@@ -283,7 +296,375 @@ def serve_drain(n_requests: int = 8, max_new_tokens: int = 24,
             report["workdir"] = work
 
 
-SCENARIOS = {"serve-drain": serve_drain}
+# ----------------------------------------------------------- ckpt corrupt
+
+
+_CKPT_CORRUPT_SAVER = r"""
+import os, sys
+import torch
+
+from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import (
+    FlashCheckpointer, StorageType)
+
+ckpt_dir = sys.argv[1]
+ck = FlashCheckpointer(ckpt_dir, job_name=os.environ["DWT_JOB_NAME"],
+                       standalone=True)
+ck.save_checkpoint(2, {"w": torch.full((16, 16), 2.0),
+                       "step": torch.tensor(2, dtype=torch.int64)},
+                   storage_type=StorageType.DISK)
+assert ck.wait_latest_checkpoint(60)
+# arm the crash: the NEXT persist hard-exits right after the shard file
+# write, before meta/manifest — the SIGKILL-mid-persist moment
+os.environ["DWT_CKPT_CRASH_POINT"] = "after-bin"
+ck.save_checkpoint(4, {"w": torch.full((16, 16), 4.0),
+                       "step": torch.tensor(4, dtype=torch.int64)},
+                   storage_type=StorageType.DISK)
+ck.wait_latest_checkpoint(60)  # unreachable: the saver dies mid-persist
+"""
+
+_drill_seq = 0
+
+
+def _drill_job(prefix: str) -> str:
+    """A job name of this process's own (segments and sockets are named
+    by it)."""
+    global _drill_seq
+    _drill_seq += 1
+    return f"{prefix}{os.getpid()}n{_drill_seq}"
+
+
+def doctor_verdict(ckpt_dir: str) -> Dict:
+    """What ``tools/ckpt_doctor.py`` reports of a checkpoint directory,
+    through the port's own integrity module: every generation verified
+    against its manifest, newest first, and the rc the doctor would
+    exit with (1 when any fails)."""
+    from .checkpoint.integrity import verify_storage_step
+    from .common.constants import CheckpointConstant
+    from .common.storage import get_checkpoint_storage
+
+    storage = get_checkpoint_storage(path_hint=ckpt_dir)
+    prefix = CheckpointConstant.CKPT_NAME_PREFIX
+    steps = sorted((int(n[len(prefix):]) for n in storage.listdir(ckpt_dir)
+                    if n.startswith(prefix)
+                    and n[len(prefix):].isdigit()), reverse=True)
+    gens = []
+    for s in steps:
+        v = verify_storage_step(storage, ckpt_dir, s)
+        gens.append({"step": s, "ok": v["ok"], "reason": v["reason"]})
+    ok = bool(gens) and all(g["ok"] for g in gens)
+    return {"rc": 0 if ok else 1, "generations": gens,
+            "flagged_steps": [g["step"] for g in gens if not g["ok"]]}
+
+
+def ckpt_corrupt(timeout: float = 180.0, device: str = "cuda") -> Dict:
+    """Checkpoint trust-boundary drill: the full corruption fault matrix.
+
+    Runs a live flash-checkpoint job (engine + in-process async saver +
+    replica ring), commits generations {2, 4, 6}, then injects each fault
+    and asserts three invariants per case: (1) zero silent restores — the
+    corruption is DETECTED (it appears in the restore report's fallbacks,
+    or the torn generation is invisible by construction); (2) the
+    restore selects the best healthy tier and the resumed state, and one
+    step taken from it on `device`, are BIT-IDENTICAL to the uncorrupted
+    baseline for the step it claims; (3) after a degraded restore the
+    recovered state is re-staged into shm (self-heal), so the next load
+    takes the fast tier again.
+
+    Faults: flipped byte in shm; flipped byte in storage; truncated
+    shard file; missing manifest; stale-generation-only; corrupt replica
+    blob (falls through to storage); SIGKILL mid-persist (subprocess
+    saver hard-killed between shard write and manifest publish — restore
+    falls back to generation N-1 and the doctor's verification flags the
+    torn dir).
+
+    The drill also proves the telemetry contract: a degraded restore
+    must reconstruct as ONE trace tree (`ckpt:restore` root + per-tier
+    children) from a flight-recorder dump alone, and the goodput ledger
+    must carry nonzero `restore_replica`/`restore_storage` credits.
+    """
+    import glob as _glob
+
+    import torch
+
+    from . import resolve_device
+    from .checkpoint.checkpointer import FlashCheckpointer, StorageType
+    from .checkpoint.ckpt_saver import AsyncCheckpointSaver
+    from .checkpoint.integrity import QUARANTINE_DIR
+    from .checkpoint.replica import CkptReplicaManager, ReplicaServer
+    from .common.constants import CheckpointConstant
+    from .telemetry.ledger import get_ledger
+    from .telemetry.recorder import get_recorder, load_flight_dumps
+
+    dev = resolve_device(device)
+    work = tempfile.mkdtemp(prefix="dwt-chaos-ckptcorrupt-")
+    job = _drill_job("ckc")
+    ckpt_dir = os.path.join(work, "ckpt")
+    cases: List[Dict] = []
+    report: Dict = {"scenario": "ckpt-corrupt", "device": str(dev),
+                    "cases": cases}
+
+    def expected(step):
+        return {"w": torch.full((16, 16), float(step), device=dev),
+                "step": torch.tensor(step, dtype=torch.int64, device=dev)}
+
+    def resume_step(w):
+        # one deterministic "training step" — bit-identical resume means
+        # this produces equal bits from restored vs. baseline
+        return w * 1.0001 + 1.0
+
+    def check(name, restored, rep, want_step, want_tier, extra_ok=True):
+        exp = expected(want_step)
+        identical = bool(
+            restored is not None
+            and torch.equal(restored["w"], exp["w"])
+            and int(restored["step"]) == want_step
+            and torch.equal(resume_step(restored["w"]),
+                            resume_step(exp["w"])))
+        case = {"fault": name, "tier": rep.get("tier"),
+                "step": rep.get("step"),
+                "fallbacks": rep.get("fallbacks", []),
+                "healed": rep.get("healed", False),
+                "bit_identical": identical,
+                "ok": bool(identical and rep.get("tier") == want_tier
+                           and rep.get("step") == want_step and extra_ok)}
+        cases.append(case)
+        return case["ok"]
+
+    def template():
+        return {"w": torch.zeros((16, 16), device=dev),
+                "step": torch.tensor(0, dtype=torch.int64, device=dev)}
+
+    AsyncCheckpointSaver.reset()
+    srv = ReplicaServer(host="127.0.0.1")
+    srv.start()
+    mgr = None
+    ck = None
+    try:
+        addr = f"127.0.0.1:{srv.port}"
+        # rank 1 is the REMOTE peer holding our backups (rank 0 itself
+        # has no server entry: the ring walk refuses to ship a segment
+        # back to its creator's own address)
+        mgr = CkptReplicaManager(rank=0, peers={1: addr},
+                                 job_name=job, replica_count=1)
+        ck = FlashCheckpointer(ckpt_dir, job_name=job, standalone=True,
+                               replica_fetch=mgr.restore)
+        for s in (2, 4, 6):
+            ck.save_checkpoint(s, expected(s),
+                               storage_type=StorageType.DISK)
+            if not ck.wait_latest_checkpoint(60):
+                raise RuntimeError(f"commit of step {s} timed out")
+        mgr.backup()  # peer now holds the verified step-6 segment
+
+        shm = ck.engine._shm_handler  # noqa: SLF001 — drill injects faults
+
+        def flip_shm():
+            buf = shm._buf.buf  # noqa: SLF001
+            buf[1 << 20] = (buf[1 << 20] + 1) % 256
+
+        # --- 1) flipped byte in shm, valid replica -> replica tier serves
+        flip_shm()
+        restored = ck.load_checkpoint(template())
+        rep = ck.last_restore_report
+        ok1 = check("shm-flip->replica", restored, rep, 6, "replica",
+                    extra_ok=any(f["tier"] == "shm"
+                                 for f in rep["fallbacks"]))
+        # self-heal: the fetched segment re-verifies, next load is shm
+        restored = ck.load_checkpoint(template())
+        ok1 = ok1 and ck.last_restore_report["tier"] == "shm"
+        cases[-1]["ok"] = ok1
+
+        # --- 2) flipped byte in shm AND in the replica blob -> storage
+        flip_shm()
+        with srv._lock:  # noqa: SLF001 — corrupt the held backup
+            step6, blob = srv._store[0]  # noqa: SLF001
+            bad = bytearray(blob)
+            bad[1 << 20] ^= 0xFF
+            srv._store[0] = (step6, bytes(bad))  # noqa: SLF001
+        restored = ck.load_checkpoint(template())
+        rep = ck.last_restore_report
+        check("shm+replica-flip->storage", restored, rep, 6, "storage",
+              extra_ok=(any(f["tier"] == "shm" for f in rep["fallbacks"])
+                        and rep["healed"]))
+
+        # --- 3) flipped byte in the newest storage generation
+        shm.mark_empty()
+        bin6 = _glob.glob(os.path.join(
+            ckpt_dir, "checkpoint-6", "shards_rank*.bin"))[0]
+        with open(bin6, "rb") as f:
+            raw = bytearray(f.read())
+        raw[64] ^= 0x01
+        with open(bin6, "wb") as f:
+            f.write(raw)
+        restored = ck.load_checkpoint(template())
+        rep = ck.last_restore_report
+        qdir = os.path.join(ckpt_dir, QUARANTINE_DIR)
+        check("storage-flip->older-gen", restored, rep, 4, "storage",
+              extra_ok=(any(f.get("step") == 6 and f.get("quarantined")
+                            for f in rep["fallbacks"])
+                        and os.path.isdir(qdir)))
+
+        # --- 4) truncated shard file in the (now newest) generation
+        shm.mark_empty()
+        bin4 = _glob.glob(os.path.join(
+            ckpt_dir, "checkpoint-4", "shards_rank*.bin"))[0]
+        with open(bin4, "rb+") as f:
+            f.truncate(100)
+        restored = ck.load_checkpoint(template())
+        rep = ck.last_restore_report
+        check("truncated-leaf->older-gen", restored, rep, 2, "storage",
+              extra_ok=any(f.get("reason") == "truncated-shard-file"
+                           for f in rep["fallbacks"]))
+
+        # --- 5) missing manifest on a committed generation
+        shm.mark_empty()
+        # rebuild a fresh committed gen 8, then rip its manifest out
+        ck.save_checkpoint(8, expected(8), storage_type=StorageType.DISK)
+        if not ck.wait_latest_checkpoint(60):
+            raise RuntimeError("commit of step 8 timed out")
+        shm.mark_empty()
+        os.remove(os.path.join(ckpt_dir, "checkpoint-8", "manifest.json"))
+        restored = ck.load_checkpoint(template())
+        rep = ck.last_restore_report
+        check("missing-manifest->older-gen", restored, rep, 2, "storage",
+              extra_ok=any(f.get("reason") == "missing-manifest"
+                           for f in rep["fallbacks"]))
+
+        # --- 6) stale generation only: tracker names a vanished gen,
+        # only an OLDER committed generation survives on storage
+        shm.mark_empty()
+        shutil.rmtree(os.path.join(ckpt_dir, "checkpoint-2"))
+        ck.save_checkpoint(1, expected(1), storage_type=StorageType.DISK)
+        # wait on the generation's OWN manifest: the tracker still says 2
+        # (repointed by the earlier quarantine), so the step-agnostic
+        # wait_latest_checkpoint would return before the persist lands
+        manifest1 = os.path.join(ckpt_dir, "checkpoint-1", "manifest.json")
+        deadline = time.monotonic() + 60
+        while not os.path.exists(manifest1) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        if not os.path.exists(manifest1):
+            raise RuntimeError("step-1 persist never committed")
+        shm.mark_empty()
+        # the drill forges a stale tracker on purpose
+        with open(os.path.join(ckpt_dir,
+                               CheckpointConstant.TRACKER_FILE), "w") as f:
+            f.write("2")  # retention ate checkpoint-2; tracker is stale
+        restored = ck.load_checkpoint(template())
+        rep = ck.last_restore_report
+        check("stale-generation-only", restored, rep, 1, "storage",
+              extra_ok=any(f.get("reason") == "missing-generation"
+                           for f in rep["fallbacks"]))
+    finally:
+        if ck is not None:
+            try:
+                ck.close()
+            except Exception:  # noqa: BLE001
+                pass
+        AsyncCheckpointSaver.reset()
+        if mgr is not None:
+            mgr.close()
+        srv.stop()
+
+    # flight recorder: every restore above recorded a `ckpt:restore`
+    # span with per-tier children (telemetry/spans.py via engine.load).
+    # Flush the ring next to the checkpoints and prove a DEGRADED
+    # restore reconstructs as one trace tree from the dump alone —
+    # root + >1 distinct tier children sharing its trace_id/span_id.
+    get_recorder().flush(ckpt_dir, "drill")
+    dumps = load_flight_dumps(ckpt_dir)
+    spans = [e["data"] for d in dumps for e in d.get("events", [])
+             if e.get("kind") == "span"]
+    roots = [s for s in spans if s.get("name") == "ckpt:restore"]
+    trees = 0
+    for root in roots:
+        tiers = {s["name"] for s in spans
+                 if s.get("trace_id") == root.get("trace_id")
+                 and s.get("parent_span") == root.get("span_id")
+                 and s.get("name", "").startswith("ckpt:restore:")}
+        if len(tiers) > 1 and root.get("attrs", {}).get("fallbacks", 0):
+            trees += 1
+    led_states = get_ledger().snapshot()["states"]
+    report["flight"] = {
+        "dumps": len(dumps), "restore_spans": len(roots),
+        "degraded_trace_trees": trees,
+        "ledger": {k: round(led_states.get(k, 0.0), 4)
+                   for k in ("restore_shm", "restore_replica",
+                             "restore_storage")},
+    }
+    flight_ok = bool(dumps and trees > 0
+                     and led_states.get("restore_replica", 0.0) > 0
+                     and led_states.get("restore_storage", 0.0) > 0)
+
+    # --- 7) SIGKILL mid-persist (subprocess saver, crash between shard
+    # write and manifest publish) -> restore serves generation N-1.  The
+    # subprocess stages host tensors, as the JAX drill's runs on the CPU
+    sub_work = os.path.join(work, "midpersist")
+    os.makedirs(sub_work)
+    sub_ckpt = os.path.join(sub_work, "ckpt")
+    sub_job = _drill_job("ckm")
+    env = dict(os.environ, DWT_JOB_NAME=sub_job,
+               DWT_SOCKET_DIR=os.path.join(sub_work, "sockets"),
+               PYTHONPATH=os.path.dirname(os.path.dirname(
+                   os.path.abspath(__file__))) + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    env.pop("DWT_MASTER_ADDR", None)
+    script = os.path.join(sub_work, "saver.py")
+    with open(script, "w") as f:
+        f.write(_CKPT_CORRUPT_SAVER)
+    proc = subprocess.run([sys.executable, script, sub_ckpt], env=env,
+                          cwd=sub_work, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          timeout=timeout)
+    AsyncCheckpointSaver.reset()
+    ck2 = FlashCheckpointer(sub_ckpt, job_name=_drill_job("ckv"),
+                            standalone=True)
+    try:
+        restored = ck2.load_checkpoint(template())
+        rep = ck2.last_restore_report
+        # the dead saver's shm segment must have been reaped on startup
+        # (stale-segment sweeper) — its creator pid is gone
+        swept = not os.path.exists(f"/dev/shm/{sub_job}_ckpt_shm_0")
+        torn_dir = os.path.join(sub_ckpt, "checkpoint-4")
+        torn_detectable = (os.path.isdir(torn_dir) and not os.path.exists(
+            os.path.join(torn_dir, "manifest.json")))
+        identical = bool(
+            restored is not None
+            and torch.equal(restored["w"],
+                            torch.full((16, 16), 2.0, device=dev))
+            and int(restored["step"]) == 2)
+        cases.append({
+            "fault": "sigkill-mid-persist", "tier": rep.get("tier"),
+            "step": rep.get("step"), "saver_rc": proc.returncode,
+            "bit_identical": identical, "swept_stale_shm": swept,
+            "torn_gen_detectable": torn_detectable,
+            "ok": bool(proc.returncode == 137 and identical
+                       and rep.get("step") == 2 and swept
+                       and torn_detectable)})
+    finally:
+        ck2.close()
+        AsyncCheckpointSaver.reset()
+
+    # the doctor's verification must independently flag the torn
+    # generation
+    verdict = doctor_verdict(sub_ckpt)
+    report["doctor"] = {"rc": verdict["rc"],
+                        "flagged_steps": verdict["flagged_steps"]}
+    doctor_ok = verdict["rc"] == 1 and 4 in verdict["flagged_steps"]
+
+    report["silent_restores"] = sum(
+        1 for c in cases if not c.get("bit_identical"))
+    report["ok"] = bool(all(c["ok"] for c in cases) and doctor_ok
+                        and flight_ok and len(cases) == 7)
+    if report["ok"]:
+        shutil.rmtree(work, ignore_errors=True)
+    else:
+        report["workdir"] = work
+        if proc.stdout:
+            report["saver_tail"] = proc.stdout[-1500:]
+    return report
+
+
+SCENARIOS = {"serve-drain": serve_drain, "ckpt-corrupt": ckpt_corrupt}
 
 
 def main(argv=None) -> int:

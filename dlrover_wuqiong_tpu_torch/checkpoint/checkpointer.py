@@ -6,8 +6,9 @@ reference's `trainer/torch/flash_checkpoint/checkpointer.py`): the same
 tensors (a `TrainState`'s is ``state.tree()``); a restore writes into the
 template's tensors in place (engine.py `restore_tree`), and a
 `TrainState` or its tree restores through ``TrainState.load_tree``.
-JAX's `replica_fetch`, `set_replica_count` and "replica" restore
-preference come with the replica ring, ROADMAP queue 1 item 6b.
+`replica_fetch`, `replica_manager`, `set_replica_count` and the
+"replica" restore preference are JAX's (:41-61, :113-126): the middle
+tier of the verified restore chain (checkpoint/replica.py).
 """
 
 from __future__ import annotations
@@ -40,18 +41,29 @@ class FlashCheckpointer:
                  job_name: str = "dwt", node_rank: int = 0,
                  local_shard_num: int = 1,
                  standalone: Optional[bool] = None,
-                 wire_dtype: Optional[str] = None):
+                 wire_dtype: Optional[str] = None,
+                 replica_fetch=None):
         """`wire_dtype="bf16"` halves checkpoint bytes end to end (D2H
         staging, disk, restore H2D) by narrowing float32 leaves to bf16
         on the device; restore upcasts back on the device.  NOT bit-exact
         for float32 state (bf16/int leaves round-trip exactly) — for
         transfer-bound links where restore latency beats the last 16
-        mantissa bits."""
+        mantissa bits.
+
+        `replica_fetch`: optional callable pulling this rank's staged
+        segment from a peer replica holder into local shm (the engine
+        tries it when the local segment fails verification — the middle
+        tier of the verified restore chain)."""
         self.engine = CheckpointEngine(
             checkpoint_dir, local_rank=local_rank, job_name=job_name,
             node_rank=node_rank, local_shard_num=local_shard_num,
-            standalone=standalone, wire_dtype=wire_dtype)
+            standalone=standalone, wire_dtype=wire_dtype,
+            replica_fetch=replica_fetch)
         self.checkpoint_dir = checkpoint_dir
+        # optional CkptReplicaManager attachment so replica-count changes
+        # have somewhere to land (the agent owns the ring; standalone
+        # runs may attach their own)
+        self.replica_manager = None
 
     @property
     def last_restore_report(self) -> Dict:
@@ -103,14 +115,21 @@ class FlashCheckpointer:
     # ----------------------------------------------------------- restore route
 
     def set_preferred_tier(self, tier: str):
-        """Restore-route hint: "" default verified chain, "shm"/"storage"
-        prefer that tier (the engine only ever SKIPS hot tiers — every
-        tier stays digest-verified).  Effective on the next load."""
-        if tier not in ("", "shm", "storage"):
+        """Restore-route hint: "" default verified chain,
+        "shm"/"replica"/"storage" prefer that tier (the engine only ever
+        SKIPS hot tiers — every tier stays digest-verified).  Effective
+        on the next load."""
+        if tier not in ("", "shm", "replica", "storage"):
             raise ValueError(f"unknown restore tier {tier!r}")
         if tier != self.engine.preferred_tier:
             logger.info("preferred restore tier -> %r", tier or "auto")
             self.engine.preferred_tier = tier
+
+    def set_replica_count(self, count: int):
+        """Forward a replica-count change to the attached ring manager
+        (no-op without one); effective on the next backup."""
+        if count >= 0 and self.replica_manager is not None:
+            self.replica_manager.set_replica_count(count)
 
     def last_step(self) -> int:
         return self.engine.latest_step()

@@ -6,10 +6,10 @@ package: the same on-disk layout, commit order, digests and
 ``DWT_CKPT_CRASH_POINT`` fault points, so a generation either package
 commits restores in the other.  Under ``run`` the elastic agent hosts
 the saver (agent/elastic_agent.py) and sets its `metric_hook`, which
-forwards each persist's seconds to the master; a trainer with no agent
-hosts it in-process (engine.py).  The agent's other hook after a
-persist, `post_save_hook` (the replica backup), comes with ROADMAP item
-6b.
+forwards each persist's seconds to the master, and its
+`post_save_hook`, the ring backup of the persisted segment
+(checkpoint/replica.py); a trainer with no agent hosts it in-process
+(engine.py).
 
 Parity: reference `elastic_agent/torch/ckpt_saver.py` (`AsyncCheckpointSaver`
 :344, `_save_shard` :544, `save_shm_to_storage` :634, `CommonDirCheckpointSaver`
@@ -180,6 +180,9 @@ class AsyncCheckpointSaver:
         # invoked with (kind, seconds) per persist — the agent forwards to
         # the master's metric registry (the agent's own registry is local)
         self.metric_hook = None
+        # invoked with the step after a successful persist — the agent hangs
+        # cross-node replica backup here (checkpoint/replica.py)
+        self.post_save_hook = None
 
     # ---------------------------------------------------------------- factory
 
@@ -338,6 +341,12 @@ class AsyncCheckpointSaver:
                     self.metric_hook("persist", elapsed)
                 except Exception:  # noqa: BLE001
                     pass
+            if self.post_save_hook is not None:
+                try:
+                    self.post_save_hook(step)
+                except Exception:  # noqa: BLE001 — replication best-effort
+                    logger.exception("post-save hook failed for step %d",
+                                     step)
         else:
             logger.error("failed to persist checkpoint step=%d", step)
 

@@ -1,8 +1,8 @@
 """Checkpoint engine: training-process side of flash checkpointing, for torch.
 
 Parity: dlrover_wuqiong_tpu/checkpoint/engine.py:1-898 (the reference's
-`trainer/torch/flash_checkpoint/engine.py`), with the same tiers but the replica (shm → storage generations, newest
-committed first), the same
+`trainer/torch/flash_checkpoint/engine.py`), with the same tiers (shm →
+peer replica → storage generations, newest committed first), the same
 quarantine, self-heal and `last_restore` report, the same
 ``ckpt:save`` / ``ckpt:restore`` spans and ledger credits, and the same
 chain of at most two snapshots in device memory.  Three parts touch the
@@ -37,10 +37,15 @@ metric registry (master/metrics.py) and, in a worker launched by the
 elastic agent, forward to the master through the elastic context
 (trainer/elastic.py ``_context``), as JAX's do (:321-361): a blocking
 save's seconds as the custom metric ``dwt_ckpt_blocking_seconds``, a
-health event as a ``ckpt-health`` node event.  Not here yet: the
-replica tier between shm and storage (JAX's `replica_fetch`, the
-`on_degraded_restore` re-replication hook and the "replica" restore
-preference) comes with the replica ring, item 6b.
+health event as a ``ckpt-health`` node event.  The replica tier
+(JAX :440-500) is JAX's: `replica_fetch` pulls this rank's segment from a
+ring holder into local shm (checkpoint/replica.py ``restore``), the
+segment is verified again end to end, and a restore it serves reports
+``tier="replica"`` and fires `on_degraded_restore`, where a caller hangs
+re-replication.  One addition to JAX's report: a replica tier that
+was tried and served nothing lists the fallback ``{"tier": "replica",
+"reason": "no-verified-copy"}`` (benign here: the ring's manager reports
+each corrupt holder itself), so a report always names every tier tried.
 """
 
 from __future__ import annotations
@@ -90,7 +95,7 @@ logger = get_logger("ckpt_engine")
 # checkpoint-health events) vs. benign tier misses (cold shm, a segment
 # from another job/step, a single rank of a multi-process world)
 _BENIGN_REASONS = ("stale", "foreign-segment", "step-mismatch",
-                   "partial-local-coverage")
+                   "partial-local-coverage", "no-verified-copy")
 
 
 def _is_corruption(reason: str) -> bool:
@@ -102,7 +107,8 @@ class CheckpointEngine:
                  job_name: str = "dwt", standalone: Optional[bool] = None,
                  storage: Optional[CheckpointStorage] = None,
                  local_shard_num: int = 1, node_rank: int = 0,
-                 wire_dtype: Optional[str] = None):
+                 wire_dtype: Optional[str] = None,
+                 replica_fetch=None):
         """`wire_dtype="bf16"`: f32 float leaves are cast to bf16 ON
         DEVICE during the snapshot — halving D2H staging, disk bytes, and
         restore H2D (restore upcasts on device).  NOT bit-exact for f32
@@ -175,22 +181,37 @@ class CheckpointEngine:
         # overwrite the payload while the saver streams it to disk
         self._shm_lock = SharedLock(shm_lock_name(job_name, local_rank),
                                     master=False)
+        # verified tiered restore (checkpoint/integrity.py): optional
+        # callable that pulls this rank's segment from a peer replica
+        # holder into local shm (CkptReplicaManager.restore); tried when
+        # the local segment fails verification
+        self.replica_fetch = replica_fetch
+        # invoked with the restored step after a DEGRADED restore (a tier
+        # other than local shm served it) — re-replication hangs here so
+        # the next failure doesn't pay the slow path again
+        self.on_degraded_restore = None
         # report of the last load(): which tier/generation served, every
         # fallback taken and why, whether self-heal re-staged shm
         self.last_restore: Dict = {}
         # restore hint: "" keeps the default verified chain shm →
-        # storage; "storage" skips the local shm fast path and forces the
+        # replica → storage; "replica" skips the local shm fast path
+        # (judged likely stale or dead); "storage" forces the
         # authoritative read.  Every tier stays digest-verified — the
         # hint only SKIPS hot tiers, it never adds an unverified path.
         self.preferred_tier = ""
 
-    def _stage_locked(self, state: Any, step: int, extra: Dict):
+    def _stage_locked(self, state: Any, step: int, extra: Dict) -> float:
+        """Stage under the segment's lock; returns the seconds spent
+        waiting for it (the saver's persist and the replica backup hold
+        it while they read the segment)."""
         acquired = False
+        t0 = time.monotonic()
         try:
             acquired = self._shm_lock.acquire(
                 timeout=CheckpointConstant.SAVE_TIMEOUT)
         except Exception:  # noqa: BLE001 — saver gone: stage unlocked
             acquired = False
+        waited = time.monotonic() - t0
         extra = dict(extra)
         extra.setdefault("_pid", self._owner_pid)
         try:
@@ -201,6 +222,7 @@ class CheckpointEngine:
                     self._shm_lock.release()
                 except Exception:  # noqa: BLE001
                     pass
+        return waited
 
     # ------------------------------------------------------------------ save
 
@@ -337,7 +359,8 @@ class CheckpointEngine:
                     self._chain_wait_s += waited
             host = self._to_host(snapshot)
             t0 = time.monotonic()
-            self._stage_locked(host, step, extra)
+            snapshot.timing["lock_wait_s"] = self._stage_locked(
+                host, step, extra)
             snapshot.timing["stage_s"] = time.monotonic() - t0
             if storage_path is not None:
                 self._event_queue.put(CheckpointEvent.save(step,
@@ -498,10 +521,10 @@ class CheckpointEngine:
         arrays, and CPU tensors for bfloat16 and float8 leaves
         (`_assemble`).
 
-        Walks shm segment → storage generations (newest committed
-        first), digest-verifying each tier BEFORE any bytes are assembled
-        or reach the device — a flipped byte, torn persist, or truncated
-        shard can never be silently restored.  A
+        Walks shm segment → peer replica fetch → storage generations
+        (newest committed first), digest-verifying each tier BEFORE any
+        bytes are assembled or reach the device — a flipped byte, torn
+        persist, or truncated shard can never be silently restored.  A
         storage generation that fails verification is QUARANTINED to the
         ``.quarantine/`` sidecar (evidence, not deletion) and the walk
         continues to the next-older commit.  After a degraded restore
@@ -513,8 +536,9 @@ class CheckpointEngine:
 
         Telemetry: the walk opens a ``ckpt:restore`` span with one child
         per tier attempted, and each tier's wall time is credited to its
-        own ledger state (restore_shm / restore_storage)
-        — a degraded restore shows exactly where the time went.
+        own ledger state (restore_shm / restore_replica /
+        restore_storage) — a degraded restore shows exactly where the
+        time went.
         """
         with tspans.span("ckpt:restore",
                          {"step": -1 if step is None else step}) as rec:
@@ -539,7 +563,7 @@ class CheckpointEngine:
         stale_shm = None  # verified shm OLDER than the storage tracker:
         # kept as a candidate in case the newer storage gens are corrupt
         flat, shm_step, reason = None, -1, None
-        if preferred != "storage":
+        if preferred not in ("replica", "storage"):
             with tspans.span("ckpt:restore:shm"), \
                     led.window("restore_shm"):
                 flat, shm_step, reason = self._load_verified_shm(path, step)
@@ -554,6 +578,45 @@ class CheckpointEngine:
             report["fallbacks"].append({"tier": "shm", "reason": reason})
             if _is_corruption(reason):
                 self._report_ckpt_health("shm", reason)
+
+        # replica tier: pull my segment from a peer holder into shm
+        # (replica.py digest-checks the blob before it touches the
+        # segment), then re-verify end to end
+        if stale_shm is None and self.replica_fetch is not None and \
+                preferred != "storage":
+            with tspans.span("ckpt:restore:replica"), \
+                    led.window("restore_replica"):
+                try:
+                    fetched = self.replica_fetch()
+                except Exception:  # noqa: BLE001 — replica is best-effort
+                    logger.exception("replica fetch failed")
+                    fetched = None
+                if fetched is not None:
+                    flat, shm_step, reason = self._load_verified_shm(
+                        path, step)
+                else:
+                    flat, shm_step, reason = None, -1, None
+            if fetched is not None:
+                if flat is not None and (
+                        step is not None or shm_step >= read_last_step(
+                            path, self.storage)):
+                    report.update(tier="replica", step=shm_step)
+                    self._finish_degraded(flat, shm_step, path, report,
+                                          restage=False)
+                    return flat
+                if flat is not None:
+                    stale_shm = (shm_step, flat)
+                    reason = "stale"
+                if reason:
+                    report["fallbacks"].append({"tier": "replica",
+                                                "reason": reason})
+                    if _is_corruption(reason):
+                        self._report_ckpt_health("replica", reason)
+            else:
+                # no holder served a copy that verifies: the manager
+                # reported each corrupt one through its health hook
+                report["fallbacks"].append({"tier": "replica",
+                                            "reason": "no-verified-copy"})
 
         with tspans.span("ckpt:restore:storage"), \
                 led.window("restore_storage"):
@@ -617,7 +680,8 @@ class CheckpointEngine:
     def _finish_degraded(self, flat: Dict, step: int, path: str,
                          report: Dict, restage: bool):
         """Self-heal after a degraded restore: re-stage the recovered
-        state into shm (so the NEXT failure reads the fast tier)."""
+        state into shm (so the NEXT failure reads the fast tier) and let
+        the wiring re-replicate it to peers."""
         if restage:
             try:
                 self._stage_locked(flat, step, {"_ckpt_dir": path})
@@ -628,7 +692,14 @@ class CheckpointEngine:
                                    "verification: %s", why)
             except Exception:  # noqa: BLE001 — healing must not break restore
                 logger.exception("self-heal restage failed")
+        else:
+            report["healed"] = True  # replica fetch already filled shm
         self._latest_step = max(self._latest_step, step)
+        if self.on_degraded_restore is not None:
+            try:
+                self.on_degraded_restore(step)
+            except Exception:  # noqa: BLE001
+                logger.exception("on_degraded_restore hook failed")
         logger.warning(
             "DEGRADED restore: tier=%s step=%d fallbacks=%s healed=%s",
             report["tier"], step, report["fallbacks"], report["healed"])
@@ -871,7 +942,8 @@ class _Snapshot:
     """One save's point-in-time copy: the tree's leaf names in order, the
     host leaves, the device slabs (device, dtype, slab, names, shapes),
     and per device the CUDA events around the copy.  `timing` collects
-    the drain's seconds (``d2h_s``, ``stage_s``, ``chain_wait_s``)."""
+    the drain's seconds (``d2h_s``, ``stage_s`` with its ``lock_wait_s``,
+    ``chain_wait_s``)."""
 
     def __init__(self, order: List[str]):
         self.order = order

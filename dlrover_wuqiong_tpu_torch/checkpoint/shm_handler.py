@@ -5,9 +5,16 @@ segment format byte for byte: a 1 MiB header region ([0:8] big-endian
 json length, published last; [8:12] the crc of the json; [12:12+n] the
 json), payload from 1 MiB on, one `TensorMeta` per leaf with the same
 fields, each leaf's digest over its staged bytes, the creator pid in
-``extra``.  A segment either package writes loads in the other.  The
-replica ring's blob helpers (`verify_segment_blob`, `blob_state_dict`)
-come with it (ROADMAP queue 1 item 6b).
+``extra``.  A segment either package writes loads in the other, and so
+does a blob, the segment's bytes as the replica ring ships them
+(`verify_segment_blob`, `blob_state_dict`; JAX :351-394).
+
+One departure from the JAX module: a handler re-attaches when the
+segment under its name was re-created (another inode or size), where the
+JAX one keeps reading its old mapping.  A segment is re-created when a
+writer needs more room (`_ensure_size`) or the replica ring restores it,
+and an agent's saver left on the unlinked mapping would skip every later
+step ("shm holds step N, expected M").
 
 Where the JAX module walks ``jax.Array`` shards, this one takes
 `torch.Tensor` leaves (and numpy arrays, and Python or numpy scalars):
@@ -166,6 +173,9 @@ def flatten_state_dict(state: Any) -> Dict[str, Any]:
     return flat
 
 
+_SHM_ROOT = "/dev/shm"
+
+
 class SharedMemoryHandler:
     """Owns one shm segment staging one process's checkpoint shards."""
 
@@ -173,23 +183,52 @@ class SharedMemoryHandler:
         self._name = f"{job_name}_ckpt_shm_{local_rank}"
         self.local_rank = local_rank
         self._buf: Optional[SharedMemoryBuffer] = None
+        # (inode, size) of the segment `_buf` maps, None where the host
+        # has no /dev/shm to compare against
+        self._mapped: Optional[Tuple[int, int]] = None
         self._lock = threading.Lock()
 
     @property
     def shm_name(self) -> str:
         return self._name
 
+    def _segment_id(self) -> Optional[Tuple[int, int]]:
+        """(inode, size) of the segment now under this name; None when
+        there is none (or no /dev/shm)."""
+        try:
+            st = os.stat(os.path.join(_SHM_ROOT, self._name))
+        except OSError:
+            return None
+        return st.st_ino, st.st_size
+
+    def _map(self, buf: SharedMemoryBuffer):
+        self._buf = buf
+        self._mapped = self._segment_id()
+
+    def _drop_stale(self):
+        """Forget a mapping whose segment was unlinked or re-created."""
+        if self._buf is None or self._mapped is None:
+            return
+        if self._segment_id() != self._mapped:
+            logger.info("shm segment %s was re-created: re-attaching",
+                        self._name)
+            self._buf.close()
+            self._buf = None
+            self._mapped = None
+
     def _ensure_size(self, needed: int):
+        self._drop_stale()
         if self._buf is None or self._buf.size < needed:
             if self._buf is not None:
                 self._buf.close()
             size = 1 << max(20, math.ceil(math.log2(needed)))
-            self._buf = SharedMemoryBuffer(self._name, create=True, size=size)
+            self._map(SharedMemoryBuffer(self._name, create=True, size=size))
 
     def attach(self) -> bool:
+        self._drop_stale()
         try:
             if self._buf is None:
-                self._buf = SharedMemoryBuffer(self._name)
+                self._map(SharedMemoryBuffer(self._name))
             return True
         except FileNotFoundError:
             return False
@@ -316,6 +355,30 @@ class SharedMemoryHandler:
         header = self.load_header() or {}
         return verify_segment_entries(metas, flat, header.get("algo", ""))
 
+    def restamp_owner(self, pid: int) -> bool:
+        """Stamp `pid` as the staged segment's owner (``extra._pid``, the
+        creator pid `sweep_stale_segments` reads), publishing the header
+        last as staging does.  For a segment written from another host's
+        bytes (the replica ring's restore): the stamp it came with names
+        a process of that host.  False when nothing is staged."""
+        with self._lock:
+            if not self.attach():
+                return False
+            buf = self._buf.buf
+            header = _parse_header(buf)
+            if header is None:
+                return False
+            header.setdefault("extra", {})["_pid"] = int(pid)
+            header_bytes = json.dumps(header).encode()
+            if len(header_bytes) + _HDR_JSON_OFF > _HEADER_SIZE:
+                raise ValueError("checkpoint meta header exceeds 1MB")
+            buf[0:8] = (0).to_bytes(8, "big")
+            buf[8:12] = digest_bytes(header_bytes).to_bytes(4, "big")
+            buf[_HDR_JSON_OFF:_HDR_JSON_OFF + len(header_bytes)] = \
+                header_bytes
+            buf[0:8] = len(header_bytes).to_bytes(8, "big")
+            return True
+
     def mark_empty(self):
         if self._buf is not None:
             self._buf.buf[0:8] = (0).to_bytes(8, "big")
@@ -325,9 +388,11 @@ class SharedMemoryHandler:
             if self._buf is not None:
                 self._buf.close()
                 self._buf = None
+                self._mapped = None
 
     def unlink(self):
         with self._lock:
+            self._drop_stale()
             if self._buf is None:
                 try:
                     self._buf = SharedMemoryBuffer(self._name)
@@ -336,6 +401,7 @@ class SharedMemoryHandler:
             self._buf.unlink()
             self._buf.close()
             self._buf = None
+            self._mapped = None
 
 
 # -------------------------------------------------- header / blob helpers
@@ -362,6 +428,58 @@ def _parse_header(buf) -> Optional[Dict]:
         return None
 
 
+def verify_segment_blob(blob) -> Tuple[Optional[int], str]:
+    """Verify a raw segment copy (replica wire blob) WITHOUT touching shm.
+
+    Returns (step, "") when every shard's digest matches its header meta,
+    else (None, reason) — the replica restore path checks the pulled blob
+    BEFORE overwriting the local segment, so a corrupt peer copy can
+    never clobber local state or reach the device.  Each leaf is digested
+    through a view of the blob (the JAX helper digests a bytes slice:
+    the same value, without the copy)."""
+    header = _parse_header(blob)
+    if header is None:
+        return None, "torn-header"
+    if header.get("algo", "") != DIGEST_ALGO:
+        return None, "algo-mismatch"
+    view = memoryview(blob)
+    for m in header.get("metas", []):
+        d = m.get("digest", -1)
+        if d is None or int(d) < 0:
+            return None, f"undigested-leaf:{m.get('name')}"
+        end = m["offset"] + m["nbytes"]
+        if end > len(blob):
+            return None, f"truncated-payload:{m.get('name')}"
+        if digest_bytes(view[m["offset"]:end]) != int(d):
+            return None, f"leaf-digest-mismatch:{m.get('name')}"
+    return header.get("step", 0), ""
+
+
+def blob_state_dict(blob) -> Optional[Tuple[int, Dict[str, np.ndarray],
+                                            Dict]]:
+    """Parse a segment blob into (step, {name: np.ndarray}, extra).
+
+    For the hot-swap hydration path: a survivor holds a DEAD rank's
+    segment as wire bytes (replica.fetch_peer) and needs its arrays
+    without routing them through the local shm segment (which holds the
+    survivor's OWN shards).  Callers must verify first
+    (verify_segment_blob) — this helper only decodes.  The arrays are
+    read-only views of the blob; a bfloat16 or float8 leaf is its
+    unsigned integer view, as in `load_state_dict`."""
+    header = _parse_header(blob)
+    if header is None:
+        return None
+    out: Dict[str, np.ndarray] = {}
+    for m in header.get("metas", []):
+        meta = TensorMeta.from_dict(m)
+        dtype = _np_dtype(meta.dtype)
+        raw = np.frombuffer(blob, dtype=dtype,
+                            count=meta.nbytes // dtype.itemsize,
+                            offset=meta.offset)
+        out[meta.name] = raw.reshape(meta.shape)
+    return header.get("step", 0), out, header.get("extra", {})
+
+
 # ------------------------------------------------- stale-segment sweeper
 
 
@@ -381,7 +499,7 @@ def sweep_stale_segments(current_job: str) -> List[str]:
     """
     from ..common.multi_process import _pid_alive
 
-    shm_root = "/dev/shm"
+    shm_root = _SHM_ROOT
     if not os.path.isdir(shm_root):  # non-Linux: nothing to sweep
         return []
     reaped: List[str] = []

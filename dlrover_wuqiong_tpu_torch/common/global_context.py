@@ -5,8 +5,10 @@ fields the port reads, with the JAX defaults: the heartbeat interval and
 timeout (master/job_manager.py), the relaunch policy (`relaunch_always`,
 `max_relaunch_count`: job_manager.py, master/servicer.py), the speed
 monitor's window (`train_speed_record_num`) and the rendezvous join
-timeout (master/master.py), and `master_outage_grace_s`
-(agent/master_client.py).  The JAX module's other fields come with the
+timeout (master/master.py), `master_outage_grace_s`
+(agent/master_client.py) and `checkpoint_replica`, the ring fan-out of
+the agent's replica backup (agent/elastic_agent.py
+`_setup_replication`, 0 = off).  The JAX module's other fields come with the
 modules that read them (ROADMAP items 13 and 15).  Values may be
 overridden from env vars prefixed ``DWT_CTX_``, as there.
 """
@@ -26,6 +28,9 @@ class Context:
     max_relaunch_count: int = 3
     train_speed_record_num: int = 50
     rdzv_join_timeout: float = 600.0
+    # copies of each node's staged checkpoint held by ring successors
+    # (checkpoint/replica.py); 0 keeps the replica ring off
+    checkpoint_replica: int = 0
     # how long a MasterClient rides a master outage before giving up on a
     # critical verb (retry backoff caps at ~2s between attempts); the
     # fire-and-forget verbs buffer instead of waiting (master_client.py)

@@ -641,8 +641,10 @@ class TestTrustBoundary:
         for tier in ("shm", "degraded-restore"):
             assert reg.get_counter("dwt_ckpt_integrity_events",
                                    {"job": job, "tier": tier}) == 1.0, tier
-        with pytest.raises(ValueError, match="replica"):
-            ck.set_preferred_tier("replica")  # the ring is item 6b
+        ck.set_preferred_tier("replica")  # the ring's tier (replica.py)
+        assert ck.engine.preferred_tier == "replica"
+        with pytest.raises(ValueError, match="disk"):
+            ck.set_preferred_tier("disk")  # no such tier
         ck.close()
 
 

@@ -51,7 +51,7 @@ CHECKPOINT = ("common.constants", "common.multi_process", "common.storage",
               "telemetry.ledger", "master.metrics", "checkpoint.integrity",
               "checkpoint.shm_handler", "checkpoint.ckpt_saver",
               "checkpoint.engine", "checkpoint.checkpointer",
-              "checkpoint.drill")
+              "checkpoint.drill", "checkpoint.replica")
 
 #: the elastic trainer: the launcher, the master's training managers, the
 #: agent, and the worker side
@@ -153,8 +153,9 @@ def test_serving_worker_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         worker_main.main(["--master", "127.0.0.1:1"])
-    assert inspect.signature(
-        chaos.serve_drain).parameters["device"].default == "cuda"
+    for drill in (chaos.serve_drain, chaos.ckpt_corrupt):
+        assert inspect.signature(drill).parameters["device"].default == \
+            "cuda"
 
 
 def test_training_entry_points_default_to_cuda(monkeypatch):
@@ -290,8 +291,9 @@ def test_trainer_defaults_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(GPT(GPTConfig.nano()), TrainingArgs(
             output_dir=str(tmp_path)), lambda step: {})
-    assert inspect.signature(
-        drill.elastic_drill).parameters["device"].default == "cuda"
+    for fn in (drill.elastic_drill, drill.node_loss_drill,
+               drill.uninterrupted_losses):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 #: a worker that fails once, then succeeds: the launcher goes through
