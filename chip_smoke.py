@@ -206,6 +206,34 @@ Phases, in order; a failure in any of them exits non-zero:
    loss to its first resumed step by part, each ring backup, each
    worker's peak memory and how long each of its stages waited on the
    segment's lock.
+10. The journaled master (``chaos.master_kill``, GPT-2 124M at full
+   width and depth, bf16 compute over float32 masters, B = 8, T = 1024).
+   10.1: ``auto_accelerate(GPT(cfg with remat=False), optimizer=adamw(
+   3e-4), seed=0)`` in this process over the sample ranges [0, 2048) in
+   order, 8 samples a step (each sample a row of 1025 tokens from (seed,
+   sample index)): 256 reference losses, every one finite, the last
+   below the first, the median step, and 12 forward and 12
+   fused-backward launches a step (counts set to 0 just before, read
+   just after).  10.2: ``python -m dlrover_wuqiong_tpu_torch.master
+   --journal-dir=...`` as a subprocess, ``python -m
+   dlrover_wuqiong_tpu_torch.run --nnodes=1 --max_restarts=2`` dialing
+   it, its worker the same trainer on the card fed by the master's
+   dataset shards (2048 samples, 32 minibatches a shard: 8 shards of 32
+   steps); after the 2nd fetch and 4 of its steps the master is
+   SIGKILLed, and 1.5 s later a new one starts on the same journal and
+   port.  Checks, every invariant of the drill: one worker generation,
+   the launcher exits 0, the 2048 samples tiled once (fetched ==
+   completed), steps inside the outage, heartbeats buffered and drained,
+   the epoch at 2 and the node re-registered, the worker's ledger
+   degraded and productive both > 0, goodput_wall >= 0.5 (the ideal step
+   10.1's median), the restarted master on group commit; every one of
+   the 256 losses bitwise 10.1's; and the worker's own counters at 12
+   forward and 12 fused-backward launches a step and no int8 one.  Prints the outage,
+   the restart gap, the frames and seconds of the replay, the journal's
+   gauges, the steps in the outage, the degraded and productive seconds,
+   the goodput, and the host ms p50 / p99 of the journaled ``get_task``
+   and ``report_task_result`` before the kill and after the restart.
+   Its directories and both masters go whether it passes or fails.
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2606,6 +2634,90 @@ def node_loss_phase(torch, tfa) -> tuple:
     return r, summed
 
 
+
+# ------------------------------------------------------------ phase 10
+
+
+def master_kill_phase(torch, tfa) -> tuple:
+    """Phase 10: the uninterrupted run in this process (10.1), then the
+    master-kill drill (`chaos.master_kill`) against it (10.2), with
+    every check of the drill.  Returns (report, the reference, the
+    worker's launches)."""
+    import gc
+
+    from dlrover_wuqiong_tpu_torch import chaos
+
+    geo = chaos.MASTER_KILL["gpt2"]
+    n = geo["dataset_size"] // geo["batch"]
+    torch.cuda.synchronize()
+    tfa.reset_launches()
+    ref = chaos.master_kill_reference(model="gpt2", device="cuda")
+    torch.cuda.synchronize()
+    ref_launches = dict(tfa.LAUNCHES)
+    losses = [float.fromhex(h) for h in ref["losses"]]
+    check(len(losses) == n, f"master-kill reference: {len(losses)} losses")
+    check(all(abs(v) < float("inf") for v in losses),
+          "master-kill reference: a loss is not finite")
+    check(losses[-1] < losses[0], f"master-kill reference: loss "
+          f"{losses[0]} -> {losses[-1]} did not fall")
+    expect_launches(ref_launches, n, 12, 1, "fused",
+                    "master-kill reference")
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = chaos.master_kill(model="gpt2", device="cuda", reference=ref,
+                          timeout=300.0)
+    check(r["ok"], "master-kill drill failed: " + json.dumps(r)[:8000])
+    check(r["steps"] == n and r["losses_bitwise"],
+          f"master-kill: {r['steps']} steps, losses bitwise "
+          f"{r['losses_bitwise']}")
+    launches = {k: v for k, v in r["launches"].items()
+                if k.startswith("flash_")}
+    expect_launches(launches, n, 12, 1, "fused", "master-kill worker")
+    check(r["launches"]["quantize_int8_blockwise"] == 0 and
+          r["launches"]["dequantize_int8_blockwise"] == 0,
+          f"master-kill worker: int8 launches {r['launches']}")
+    ref["launches"] = ref_launches
+    return r, ref, r["launches"]
+
+
+
+def print_master_kill(mk: dict, mk_ref: dict):
+    """Phase 10's lines: the report as JSON, then its numbers."""
+    print("master-kill: " + json.dumps(
+        {**mk, "reference": {"step_s": mk_ref["step_s"],
+                             "launches": mk_ref["launches"]}}))
+    js, rp, lg = mk["journal_group_commit"], mk["replay"], mk["ledger"]
+    print(f"master-kill: GPT-2 124M, {mk['steps']} steps at B = "
+          f"{mk['batch']}, T = {mk['seq']} from {mk['shards_completed']} "
+          f"master-dispatched shards; uninterrupted in this process "
+          f"{mk_ref['step_s'] * 1e3:.2f} ms a step (median); master "
+          f"SIGKILLed after fetch 2 and 4 of its steps; outage "
+          f"{mk['measured_outage_s']:.3f} s, restart gap (spawn, imports, "
+          f"replay until it answers) {mk['restart_gap_s']:.3f} s; replay "
+          f"{rp.get('frames')} frames in {rp.get('seconds')} s; journal "
+          f"batches {js['batches']}, frames {js['frames']}, batch mean "
+          f"{js['batch_mean']:.3f}, max {js['batch_max']}, durable seq "
+          f"{js['durable_seq']}, epoch {js['epoch']}; steps in the outage "
+          f"{mk['steps_in_outage']}; heartbeats buffered "
+          f"{mk['heartbeats_buffered']}, drained {mk['buffer_drained']}; "
+          f"ledger degraded {lg['degraded_s']:.3f} s, productive "
+          f"{lg['productive_s']:.3f} s; goodput_wall "
+          f"{mk['goodput_wall']:.4f}; one worker generation, launcher exit "
+          f"{mk['cli_rc']}, {mk['dataset_size']} samples tiled once, all "
+          f"{mk['steps']} "
+          f"losses bitwise the uninterrupted run's")
+    for verb, label in (("TaskRequest", "get_task"),
+                        ("TaskResult", "report_task_result")):
+        parts = []
+        for when in ("before_kill", "after_restart", "across_outage"):
+            st = mk["rpc_ms"].get(f"{verb}:{when}")
+            if st:
+                parts.append(f"{when.replace('_', ' ')} p50 "
+                             f"{st['p50']:.3f} / p99 {st['p99']:.3f} ms "
+                             f"(max {st['max']:.3f}) x{st['calls']}")
+        print(f"master-kill: journaled {label}, host ms: " + "; ".join(parts))
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3021,6 +3133,12 @@ def main():
               f"from {v['tier']} (restore {v['restore_s']}), peak "
               f"{peak:.2f} GB, stage lock waits by step (s) {{{waits}}}")
 
+    # phase 10 — the journaled master: SIGKILLed mid-shard, replayed
+    gc.collect()
+    torch.cuda.empty_cache()
+    mk, mk_ref, mk_launches = master_kill_phase(torch, tfa)
+    print_master_kill(mk, mk_ref)
+
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -3044,6 +3162,7 @@ def main():
             "launches_worker_route": worker_launches[name],
             "launches_elastic_route": el_launches[name],
             "launches_node_loss_route": nl_launches[name],
+            "launches_master_kill_route": mk_launches[name],
         })
     src = "dlrover_wuqiong_tpu_torch/csrc/flash_attention.cu"
     for name, replaces, counts, run in (
@@ -3074,6 +3193,7 @@ def main():
                 t: ckpt_launches[t][name] for t in ckpt_launches},
             "launches_elastic_route": el_launches[name],
             "launches_node_loss_route": nl_launches[name],
+            "launches_master_kill_route": mk_launches[name],
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {

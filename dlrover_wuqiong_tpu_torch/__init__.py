@@ -18,7 +18,7 @@ behind a master, the serving worker and its control plane:
   serving.ServingWorker                 lease -> decode windows -> results
   serving.__main__                      the worker process (--device)
   agent.master_client.MasterClient      critical / buffered / polling verbs
-  master.master.JobMaster               serve queue + RPC server, no journal
+  master.master.JobMaster               serve queue + RPC server
   common.comm / serialize / messages    framed-TCP RPC, the JAX wire format
   telemetry.recorder / spans            flight dumps, cross-process traces
   chaos.serve_drain                     SIGKILL a worker mid-traffic
@@ -47,7 +47,16 @@ the flash checkpoint of that training state:
   checkpoint.drill                      SIGKILL a trainer, restore from
                                         its shm segment
 
-shared by both:
+the journaled master, which a SIGKILL does not lose:
+
+  master.journal.MasterJournal          group-committed frames, snapshot,
+                                        replay (the JAX package's files)
+  master.__main__                       ``python -m ...master`` (no torch)
+  master.task_manager / dataset_splitter  dataset shards, journaled
+  agent.sharding_client                 a worker's shards from the master
+  chaos.master_kill                     SIGKILL the master mid-shard
+
+shared by all of them:
 
   models.gpt.GPTConfig / init_params    GPT-2 configs, seeded flax-layout init
   convert                               flax tree <-> tensors <-> model

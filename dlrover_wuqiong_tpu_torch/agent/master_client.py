@@ -18,11 +18,15 @@ serving worker, each in its JAX verb class:
 - kv store (:663-719): `kv_store_set`, `kv_store_get`,
   `kv_store_multi_get` (critical), `kv_store_add` (critical + idem),
   `kv_store_wait` (fail-fast probes under the shared backoff);
+- dataset sharding (:353-382): `report_dataset_shard_params`,
+  `get_task` (critical + idem), `report_task_result` (critical + idem,
+  kept for the epoch-bump re-sync), `get_shard_checkpoint`,
+  `report_shard_checkpoint` (critical);
+- the journal's gauges, `get_journal_stats` (polling, :512);
 - serving (:585-648).
 
-The dataset-sharding, network-check, policy, mesh-transition, perf,
-timeline, diagnosis and config-tuner verbs come with ROADMAP items 13
-and 15.
+The network-check, policy, mesh-transition, perf, timeline, diagnosis
+and config-tuner verbs come with ROADMAP items 7b, 13 and 15.
 
 Master fault tolerance, as in the JAX client:
 
@@ -35,11 +39,13 @@ Master fault tolerance, as in the JAX client:
   bounded in-memory queue that drains after reconnect; POLLING verbs
   (waiting-node count, summaries, result queries) fail fast and let
   their caller's own cadence retry.
-- **idempotency keys** ride on join_rendezvous, kv_store_add, submit,
-  lease and result report: a retry gets the master's recorded response
-  instead of re-applying (master/servicer.py).
+- **idempotency keys** ride on get_task, report_task_result,
+  join_rendezvous, kv_store_add, submit, lease and result report: a
+  retry gets the master's recorded response instead of re-applying
+  (master/servicer.py).
 - **fencing epoch**: every response carries the master's epoch
-  (common/comm.py); on a bump this client re-registers the node.
+  (common/comm.py); on a bump this client re-registers the node and
+  re-syncs its recently acked task results under their original keys.
 - **failover dialing**: ``master_addr`` may be a comma-separated ORDERED
   endpoint list ("primary,standby").  An unreachable endpoint or a
   ``NotLeaderError`` answer rotates to the next endpoint; CRITICAL verbs
@@ -69,6 +75,8 @@ logger = get_logger("master_client")
 class MasterClient:
     #: bounded degraded-mode buffer (fire-and-forget frames per client)
     BUFFER_CAP = 512
+    #: acked task results kept for epoch-bump re-sync
+    RESYNC_CAP = 64
 
     def __init__(self, master_addr: str, node_id: int,
                  node_type: str = "worker",
@@ -96,6 +104,7 @@ class MasterClient:
         self._idem_seq = 0
         # epoch-bump resync state
         self._registration: Optional[msg.NodeMeta] = None
+        self._recent_results: deque = deque(maxlen=self.RESYNC_CAP)
         # stats (chaos drills assert on these)
         self._buffered_total = 0
         self._flushed_total = 0
@@ -297,19 +306,25 @@ class MasterClient:
                 self._flushed_total += 1
 
     def _on_epoch_change(self, old: int, new: int):
-        """A DIFFERENT master answered: re-register the node, drain the
-        buffer.  (The JAX client also re-syncs acked task results; the
-        port has no task verbs yet.)
+        """A DIFFERENT master answered: re-register, re-sync in-flight
+        task results (idempotent via their original keys), drain buffers.
 
         Fired by the RpcClient exactly once per bump, outside its socket
         lock (common/comm.py)."""
         self.epochs_seen.append(new)
-        logger.warning("master epoch changed %d -> %d — re-registering",
-                       old, new)
+        logger.warning("master epoch changed %d -> %d — re-registering "
+                       "and re-syncing in-flight state", old, new)
         try:
             if self._registration is not None:
                 self._client._call("report", self._registration,  # noqa: SLF001
                                    attempts=2)
+            for dataset_name, task_id, err, idem in list(
+                    self._recent_results):
+                self._client._call(  # noqa: SLF001
+                    "report",
+                    msg.TaskResult(dataset_name=dataset_name,
+                                   task_id=task_id, err_message=err),
+                    idem=idem, attempts=2)
             self._reregistrations += 1
         except MasterUnreachableError:
             logger.warning("re-sync with epoch-%d master interrupted — "
@@ -330,6 +345,38 @@ class MasterClient:
                 # ADD-ONLY failover-dialing gauges
                 "failovers": self._failovers,
                 "endpoints": list(self._endpoints)}
+
+    # ------------------------------------------------------------- dataset
+
+    def report_dataset_shard_params(self, **kwargs):
+        return self._call_critical("report", msg.DatasetShardParams(**kwargs))
+
+    def get_task(self, dataset_name: str) -> msg.Task:
+        # idem key per REQUEST (each poll is a distinct dispatch decision);
+        # a retry of this one request across a master restart replays the
+        # journaled Task instead of double-dispatching
+        return self._call_critical(
+            "get", msg.TaskRequest(dataset_name=dataset_name),
+            idem=self._next_idem())
+
+    def report_task_result(self, dataset_name: str, task_id: int,
+                           err_message: str = ""):
+        idem = self._next_idem()
+        self._recent_results.append((dataset_name, task_id, err_message,
+                                     idem))
+        return self._call_critical("report", msg.TaskResult(
+            dataset_name=dataset_name, task_id=task_id,
+            err_message=err_message), idem=idem)
+
+    def get_shard_checkpoint(self, dataset_name: str) -> str:
+        resp = self._call_critical("get",
+                                   msg.ShardCheckpointRequest(
+                                       dataset_name=dataset_name))
+        return resp.content
+
+    def report_shard_checkpoint(self, content: str):
+        return self._call_critical("report",
+                                   msg.ShardCheckpoint(content=content))
 
     # ------------------------------------------------------------- rendezvous
 
@@ -432,6 +479,10 @@ class MasterClient:
     def get_goodput_summary(self) -> msg.GoodputSummary:
         """Job-level ledger aggregation."""
         return self._call_polling("get", msg.GoodputQuery())
+
+    def get_journal_stats(self) -> msg.JournalStats:
+        """Journal group-commit gauges."""
+        return self._call_polling("get", msg.JournalStatsQuery())
 
     # ------------------------------------------------------------- kv store
 

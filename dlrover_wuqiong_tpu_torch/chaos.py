@@ -1,13 +1,13 @@
 """Chaos drills against the port.
 
-Parity: two drills of dlrover_wuqiong_tpu/chaos.py, pointed at the port.
+Parity: three drills of dlrover_wuqiong_tpu/chaos.py, pointed at the port.
 
 - `serve_drain` (:2914-3100): its master is the port's `JobMaster`,
   hosted in this process, and its decode workers are
   ``python -m dlrover_wuqiong_tpu_torch.serving`` subprocesses on
   ``device``.  The JAX drill's journal, group-commit and
-  incident-timeline gates need the master journal, which the port does
-  not have yet (ROADMAP item 15).
+  incident-timeline gates are left out: this drill's master is
+  in-process and journal-less.
 - `ckpt_corrupt` (:1364-1747): the checkpoint trust boundary's fault
   matrix on a live flash-checkpoint job (engine, in-process saver,
   replica ring), its state a torch tree on ``device`` and its resumed
@@ -16,16 +16,26 @@ Parity: two drills of dlrover_wuqiong_tpu/chaos.py, pointed at the port.
   verification (`checkpoint.integrity.verify_storage_step` over every
   generation, as the doctor walks them) runs in this process
   (`doctor_verdict`).
+- `master_kill` (:1688-2025): ``python -m dlrover_wuqiong_tpu_torch.master``
+  on a journal is SIGKILLed while a worker under the port's launcher
+  trains a GPT on ``device`` from the shards the master hands out, and a
+  successor replays the journal; every step's loss is held bitwise
+  against an uninterrupted run (`master_kill_reference`).  The JAX
+  drill's incident-timeline gates are left out (ROADMAP items 13 and
+  15).
 
-The other drills (preempt, pod-kill, master-kill, hot-swap, ...) come
-with item 13.  The elastic trainer's SIGKILL drill under the port's
-launcher is `trainer.drill.elastic_drill`, and its node-loss drill
-through the replica ring `trainer.drill.node_loss_drill`.
+The other drills (preempt, pod-kill, master-failover, hot-swap, ...)
+come with items 7b and 13.  The elastic trainer's SIGKILL drill under
+the port's launcher is `trainer.drill.elastic_drill`, and its node-loss
+drill through the replica ring `trainer.drill.node_loss_drill`.
 
     python -m dlrover_wuqiong_tpu_torch.chaos serve-drain [--device cpu]
     python -m dlrover_wuqiong_tpu_torch.chaos ckpt-corrupt [--device cpu]
+    python -m dlrover_wuqiong_tpu_torch.chaos master-kill [--device cpu]
 
-prints each drill's one-line JSON report and exits 0 when ``ok``.
+prints each drill's one-line JSON report and exits 0 when ``ok``
+(``master-kill`` trains GPT nano; `master_kill(model="gpt2")` is
+GPT-2 124M, as chip_smoke.py's phase 10 runs it).
 """
 
 from __future__ import annotations
@@ -664,7 +674,456 @@ def ckpt_corrupt(timeout: float = 180.0, device: str = "cuda") -> Dict:
     return report
 
 
-SCENARIOS = {"serve-drain": serve_drain, "ckpt-corrupt": ckpt_corrupt}
+# -------------------------------------------------------------- master kill
+
+#: the drill's dataset geometry by model: on the card GPT-2 124M at
+#: B = 8, T = 1024, 2048 samples in 8 shards of 32 minibatches; on the
+#: CPU GPT nano at the JAX drill's 576 samples, B = 4 and 24 minibatches
+#: a shard
+MASTER_KILL = {
+    "gpt2": dict(dataset_size=2048, batch=8, minibatches=32, seq=1024),
+    "nano": dict(dataset_size=576, batch=4, minibatches=24, seq=128),
+}
+#: the seed of every sample's tokens and of the model's weights
+MASTER_KILL_SEED = 0
+#: the master dies after this fetch and this many of its steps: the
+#: worker is then provably mid-shard through the outage
+KILL_AFTER_FETCHES, KILL_AFTER_STEPS = 2, 4
+
+
+def master_kill_trainer(model: str, device):
+    """The drill's trainer: ``auto_accelerate(GPT(cfg with remat=False),
+    optimizer=adamw(3e-4), seed=0)`` on `device`."""
+    from .auto.accelerate import auto_accelerate
+    from .models.gpt import GPT
+    from .trainer.drill import gpt_config
+    from .trainer.train_step import adamw
+
+    return auto_accelerate(GPT(gpt_config(model)), optimizer=adamw(3e-4),
+                           device=device, seed=MASTER_KILL_SEED)
+
+
+def sample_batch(indices, model: str, seq: int) -> Dict:
+    """Host batch of the samples `indices`: each sample is one row of
+    ``seq + 1`` tokens drawn with numpy from (seed, sample index), so a
+    sample is the same wherever and whenever it is trained."""
+    import numpy as np
+
+    from .trainer.drill import VOCAB
+
+    x = np.stack([np.random.default_rng([MASTER_KILL_SEED, int(i)]).integers(
+        0, VOCAB[model], seq + 1, dtype=np.int64) for i in indices])
+    return {"input_ids": x[:, :-1], "labels": x[:, 1:]}
+
+
+def train_on(res, indices, model: str, seq: int) -> float:
+    """One train step on the samples `indices`; the loss, read back."""
+    res.state, m = res.train_step(res.state, res.place_batch(
+        sample_batch(indices, model, seq)))
+    return float(m["loss"])
+
+
+def master_kill_reference(model: str = "nano", device: str = "cuda"
+                          ) -> Dict:
+    """The uninterrupted run the drill is held to: the same trainer in
+    this process over the sample ranges [0, dataset_size) of
+    `MASTER_KILL[model]` in order, `batch` samples a step.  Returns
+    {"losses": each step's loss as ``float.hex()``, "step_s": the median
+    step's seconds, "steps_s": every step's}."""
+    from .telemetry.serving import _percentile
+
+    dataset_size, batch, seq = (MASTER_KILL[model][k] for k in
+                                ("dataset_size", "batch", "seq"))
+    res = master_kill_trainer(model, device)
+    losses, steps_s = [], []
+    for start in range(0, dataset_size - batch + 1, batch):
+        t0 = time.monotonic()
+        loss = train_on(res, range(start, start + batch), model, seq)
+        steps_s.append(time.monotonic() - t0)
+        losses.append(loss.hex())
+    del res
+    return {"losses": losses, "steps_s": steps_s,
+            "step_s": _percentile(steps_s, 0.5)}
+
+
+_MASTER_KILL_WORKER = r"""
+import json, os, sys, time
+
+(marker_dir, model, device, dataset_size, batch, minibatches, seq) = (
+    sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4]),
+    int(sys.argv[5]), int(sys.argv[6]), int(sys.argv[7]))
+from dlrover_wuqiong_tpu_torch import chaos
+from dlrover_wuqiong_tpu_torch.ops import flash_attention as tfa
+from dlrover_wuqiong_tpu_torch.ops import quantization as tq
+from dlrover_wuqiong_tpu_torch.telemetry import spans as tspans
+from dlrover_wuqiong_tpu_torch.telemetry.ledger import get_ledger
+from dlrover_wuqiong_tpu_torch.trainer.elastic import init_elastic
+
+ctx = init_elastic()
+restart = ctx.world.restart_count
+# the outage's cost surfaces in the GOODPUT LEDGER: master_client
+# credits `degraded` for every second a verb burned blocked on the dead
+# master, while training through the outage stays `productive`
+led = get_ledger()
+led.start()
+with open(os.path.join(marker_dir, f"start_r{restart}"), "w") as f:
+    f.write(str(os.getpid()))
+res = chaos.master_kill_trainer(model, device)
+tfa.reset_launches()
+tq.reset_launches()
+# dynamic sharding straight off the master: every fetched range, every
+# step's loss and every completed range is logged so the drill can prove
+# the journal replayed EXACTLY (no range lost, none handed out twice)
+sc = ctx.sharding_client("chaos-mk", batch_size=batch,
+                         dataset_size=dataset_size,
+                         num_minibatches_per_shard=minibatches)
+log = open(os.path.join(marker_dir, "shards.log"), "a")
+step = 0
+while True:
+    task = sc.fetch_shard(wait=True, timeout=120.0)
+    if task is None:
+        break
+    log.write(f"fetch {time.time():.6f} {task.task_id} "
+              f"{task.shard.start} {task.shard.end}\n")
+    log.flush()
+    idx = task.shard.indices or list(range(task.shard.start,
+                                           task.shard.end))
+    for i in range(len(idx) // batch):
+        with led.window("productive"):
+            loss = chaos.train_on(res, idx[i * batch:(i + 1) * batch],
+                                  model, seq)
+        step += 1
+        # per-step heartbeat: these are the frames that must buffer (not
+        # block, not crash) while the master is dead, then drain
+        ctx.mc.report_heart_beat(step)
+        log.write(f"step {time.time():.6f} {step} {loss.hex()}\n")
+        log.flush()
+    sc.report_shard_done(task.task_id)
+    log.write(f"done {time.time():.6f} {task.task_id} "
+              f"{task.shard.start} {task.shard.end}\n")
+    log.flush()
+# the host time of the journaled task verbs, from this process's spans
+rpc = [{"msg": r["attrs"].get("msg"), "t_wall": r["t_wall"],
+        "dur_s": r["dur_s"]} for r in tspans.spans_snapshot()
+       if r["name"].startswith("rpc:")
+       and r["attrs"].get("msg") in ("TaskRequest", "TaskResult")]
+with open(os.path.join(marker_dir, "done.tmp"), "w") as f:
+    json.dump({"steps": step, "stats": ctx.mc.degraded_stats(),
+               "ledger": led.snapshot(),
+               "launches": {**tfa.LAUNCHES, **tq.LAUNCHES},
+               "rpc": rpc}, f)
+os.replace(os.path.join(marker_dir, "done.tmp"),
+           os.path.join(marker_dir, "done"))
+"""
+
+
+def _replay_line(log_path: str) -> Dict:
+    """The replay the master logged: {"frames", "seconds"}."""
+    import re
+
+    try:
+        with open(log_path) as f:
+            text = f.read()
+    except OSError:
+        return {}
+    m = re.search(r"journal replay: snapshot=\w+ \+ (\d+) events "
+                  r"\(last epoch \d+\) in ([0-9.]+) s", text)
+    return {"frames": int(m.group(1)), "seconds": float(m.group(2))} \
+        if m else {}
+
+
+def master_kill(model: str = "nano", device: str = "cuda",
+                outage_s: float = 1.5, target: float = 0.5,
+                timeout: float = 240.0, reference: Dict = None) -> Dict:
+    """SIGKILL the job MASTER mid-shard; restart it on the same journal.
+
+    Parity: dlrover_wuqiong_tpu/chaos.py `master_kill` (:1748-2025), on
+    the port: ``python -m dlrover_wuqiong_tpu_torch.master`` journals
+    every control-plane mutation, ``python -m dlrover_wuqiong_tpu_torch.run
+    --nnodes=1`` dials it and runs the drill's worker, which trains the
+    drill's GPT (`master_kill_trainer`) on `device` on the shards the
+    master hands out (`MASTER_KILL[model]`); after fetch
+    `KILL_AFTER_FETCHES` and `KILL_AFTER_STEPS` of its steps the master
+    is SIGKILLed and, after
+    `outage_s`, a new one starts on the same journal and port.  Where the
+    JAX drill's step is a sleep, each step here trains on the samples
+    the shard names, and each step's loss is held bitwise against
+    `reference` (`master_kill_reference`, run in this process when not
+    given): only an exact replay hands out the same ranges in the same
+    order.  Invariants, the JAX drill's:
+
+    - the worker never crashes or restarts (one generation), and the
+      launcher exits 0;
+    - dataset ranges tile exactly, with as many fetched as completed;
+    - training steps land inside the outage (heartbeats buffer);
+    - the heartbeat buffer drains after reconnect, and the client saw
+      the fencing epoch reach 2 and re-registered;
+    - the worker's goodput ledger shows `degraded` > 0 and `productive`
+      > 0;
+    - the wall-clock goodput (the reference's median step over the span
+      of steps) is at least `target`;
+    - the restarted master runs the group-commit journal.
+
+    The JAX drill's incident-timeline gates (``timeline_*``,
+    ``incident_report_*``) need ``telemetry/timeline.py``, the master's
+    timeline verb and ``tools/incident_report.py``, which the port does
+    not have (ROADMAP items 13 and 15): the report says
+    ``timeline_gates: "not checked"``.
+
+    The report also carries the measured outage, the restart gap (spawn,
+    imports and replay until the new master answers), the frames and
+    seconds of the replay (from the new master's log), the journal's
+    gauges, the host ms p50 / p99 of the journaled `get_task` and
+    `report_task_result` before the kill and after the restart (the
+    worker's ``rpc:`` spans), and the worker's kernel launches.  The
+    work directory, both masters and the launcher go away whether the
+    drill passes or fails.
+    """
+    from .agent.master_client import MasterClient
+    from .common.comm import addr_connectable, find_free_port
+    from .telemetry.serving import _percentile
+
+    geo = MASTER_KILL[model]
+    dataset_size, batch, minibatches, seq = (
+        geo[k] for k in ("dataset_size", "batch", "minibatches", "seq"))
+    if reference is None:
+        reference = master_kill_reference(model, device)
+    work = tempfile.mkdtemp(prefix="dwt-torch-masterkill-")
+    marker = os.path.join(work, "markers")
+    journal_dir = os.path.join(work, "journal")
+    os.makedirs(marker)
+    script = os.path.join(work, "worker.py")
+    with open(script, "w") as f:
+        f.write(_MASTER_KILL_WORKER)
+    job = _drill_job("masterkill")
+    port = find_free_port()
+    addr = f"127.0.0.1:{port}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, DWT_JOB_NAME=job,
+               DWT_SOCKET_DIR=os.path.join(work, "sockets"),
+               PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("DWT_MASTER_ADDR", None)
+    masters: List = []
+
+    def spawn_master():
+        log = open(os.path.join(work, f"master{len(masters) + 1}.log"), "w")
+        try:
+            masters.append(subprocess.Popen(
+                [sys.executable, "-m", "dlrover_wuqiong_tpu_torch.master",
+                 f"--port={port}", "--min_nodes=1", "--max_nodes=1",
+                 f"--journal-dir={journal_dir}", "--poll-interval=0.5"],
+                env=env, cwd=work, stdout=log, stderr=subprocess.STDOUT))
+        finally:
+            log.close()
+        return masters[-1]
+
+    def wait_up(deadline_s: float) -> bool:
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            if addr_connectable(addr, timeout=0.2):
+                return True
+            time.sleep(0.02)
+        return False
+
+    report: Dict = {"scenario": "master-kill", "model": model,
+                    "device": device, "dataset_size": dataset_size,
+                    "batch": batch, "minibatches": minibatches, "seq": seq,
+                    "outage_s": outage_s, "ok": False,
+                    "timeline_gates": "not checked"}
+    cli = None
+    cli_log = os.path.join(work, "launcher.log")
+    shards_log = os.path.join(marker, "shards.log")
+    try:
+        spawn_master()
+        if not wait_up(30.0):
+            report["error"] = "master never came up"
+            return report
+        with open(cli_log, "w") as log:
+            cli = subprocess.Popen(
+                [sys.executable, "-m", "dlrover_wuqiong_tpu_torch.run",
+                 "--nnodes=1", "--nproc_per_node=1", "--max_restarts=2",
+                 script, marker, model, device, str(dataset_size),
+                 str(batch), str(minibatches), str(seq)],
+                env=dict(env, DWT_MASTER_ADDR=addr), cwd=work, stdout=log,
+                stderr=subprocess.STDOUT)
+
+        # kill the master inside a mid-run shard: after its fetch and
+        # some of its steps, so the worker is provably mid-shard through
+        # the outage window
+        deadline = time.monotonic() + timeout / 2
+        reached = False
+        while time.monotonic() < deadline and cli.poll() is None:
+            try:
+                with open(shards_log) as f:
+                    lines = f.read().splitlines()
+            except OSError:
+                lines = []
+            fetches = [i for i, ln in enumerate(lines)
+                       if ln.startswith("fetch ")]
+            if len(fetches) >= KILL_AFTER_FETCHES and sum(
+                    1 for ln in lines[fetches[KILL_AFTER_FETCHES - 1]:]
+                    if ln.startswith("step ")) >= KILL_AFTER_STEPS:
+                reached = True
+                break
+            time.sleep(0.005)
+        if not reached:
+            report.update(error="worker never reached the kill point",
+                          cli_rc=cli.poll())
+            return report
+        masters[0].kill()  # SIGKILL — no snapshot, no goodbye
+        masters[0].wait(timeout=10)
+        # kill_t / restart_t stay WALL clock: they bracket the step
+        # stamps the worker logs with time.time() in another process
+        kill_t = time.time()
+        time.sleep(outage_s)
+        spawn_master()
+        if not wait_up(60.0):
+            report["error"] = "the restarted master never came up"
+            return report
+        restart_t = time.time()
+        report["measured_outage_s"] = restart_t - kill_t
+        # process spawn + imports + journal replay until it answers
+        report["restart_gap_s"] = restart_t - kill_t - outage_s
+        try:
+            cli.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            cli.kill()
+            cli.wait()
+
+        # ------------------------------------------------------ invariants
+        report["cli_rc"] = cli.returncode
+        report["worker_generations"] = sum(
+            1 for f in os.listdir(marker) if f.startswith("start_r"))
+        done_path = os.path.join(marker, "done")
+        report["completed"] = os.path.exists(done_path)
+        payload: Dict = {}
+        if report["completed"]:
+            with open(done_path) as f:
+                payload = json.load(f)
+        stats = payload.get("stats", {})
+        report["degraded"] = stats
+        led = payload.get("ledger", {})
+        states = led.get("states", {})
+        report["ledger"] = {
+            "degraded_s": float(states.get("degraded", 0.0)),
+            "productive_s": float(states.get("productive", 0.0)),
+            "goodput_fraction": float(led.get("goodput_fraction", 0.0))}
+        report["launches"] = payload.get("launches", {})
+        fetched, completed, stamps, losses = [], [], [], []
+        try:
+            with open(shards_log) as f:
+                for ln in f:
+                    parts = ln.split()
+                    if parts[0] == "fetch":
+                        fetched.append((int(parts[3]), int(parts[4])))
+                    elif parts[0] == "done":
+                        completed.append((int(parts[3]), int(parts[4])))
+                    elif parts[0] == "step":
+                        stamps.append(float(parts[1]))
+                        losses.append(parts[3])
+        except OSError:
+            pass
+        # exact tiling: completed ranges cover [0, dataset_size) once
+        covered = sorted(completed)
+        tiles_ok = (sum(e - s for s, e in covered) == dataset_size
+                    and all(covered[i][1] == covered[i + 1][0]
+                            for i in range(len(covered) - 1))
+                    and bool(covered) and covered[0][0] == 0
+                    and covered[-1][1] == dataset_size)
+        report["shards_fetched"] = len(fetched)
+        report["shards_completed"] = len(completed)
+        report["no_shard_lost_or_double"] = bool(
+            tiles_ok and len(fetched) == len(completed))
+        report["steps"] = len(losses)
+        report["steps_in_outage"] = sum(
+            1 for t in stamps if kill_t <= t <= restart_t)
+        ref = reference["losses"]
+        report["losses_bitwise"] = losses == ref
+        if losses != ref:
+            report["first_loss_mismatch"] = next(
+                (i for i, (a, b) in enumerate(zip(losses, ref)) if a != b),
+                min(len(losses), len(ref)))
+        ideal = reference["step_s"]
+        report["ideal_step_s"] = ideal
+        if stamps:
+            span = max(stamps) - min(stamps) + ideal
+            report["goodput_wall"] = len(ref) * ideal / span
+        else:
+            report["goodput_wall"] = 0.0
+        report["heartbeats_buffered"] = stats.get("buffered_total", 0)
+        report["buffer_drained"] = (stats.get("pending", 1) == 0
+                                    and stats.get("dropped_total", 1) == 0)
+        report["epoch_bumped"] = 2 in stats.get("epochs_seen", [])
+        report["reregistered"] = stats.get("reregistrations", 0) >= 1
+        # the journaled task verbs' host time, before the kill and after
+        # the restart (a call the outage held is in neither)
+        rpc: Dict = {}
+        for r in payload.get("rpc", []):
+            end = r["t_wall"] + r["dur_s"]
+            when = ("before_kill" if end < kill_t else
+                    "after_restart" if r["t_wall"] > restart_t else
+                    "across_outage")
+            rpc.setdefault(f"{r['msg']}:{when}", []).append(
+                r["dur_s"] * 1e3)
+        report["rpc_ms"] = {k: {"calls": len(v), "p50": _percentile(v, 0.5),
+                                "p99": _percentile(v, 0.99), "max": max(v)}
+                            for k, v in sorted(rpc.items())}
+        report["replay"] = _replay_line(os.path.join(work, "master2.log"))
+
+        mc = MasterClient(addr, node_id=-1, outage_grace_s=5.0)
+        try:
+            # the restarted master must run the group-commit journal:
+            # the exactly-once claims hold UNDER batched fsync
+            js = mc.get_journal_stats()
+            report["journal_group_commit"] = {
+                "enabled": js.enabled, "group_commit": js.group_commit,
+                "max_frames": js.max_frames, "batches": js.batches,
+                "frames": js.frames, "batch_mean": js.batch_mean,
+                "batch_max": js.batch_max, "durable_seq": js.durable_seq,
+                "epoch": js.epoch}
+        finally:
+            mc.close()
+
+        report["ok"] = bool(
+            report["completed"] and cli.returncode == 0
+            and report["worker_generations"] == 1
+            and report["no_shard_lost_or_double"]
+            and report["losses_bitwise"]
+            and report["steps_in_outage"] > 0
+            and report["heartbeats_buffered"] > 0
+            and report["buffer_drained"]
+            and report["epoch_bumped"] and report["reregistered"]
+            and report["ledger"]["degraded_s"] > 0
+            and report["ledger"]["productive_s"] > 0
+            and report["goodput_wall"] >= target
+            and report["journal_group_commit"]["enabled"]
+            and report["journal_group_commit"]["group_commit"])
+        return report
+    finally:
+        for proc in masters + ([cli] if cli is not None else []):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=10)
+        if not report.get("ok"):
+            for name in ("master1.log", "master2.log", "launcher.log"):
+                try:
+                    with open(os.path.join(work, name)) as f:
+                        report[f"{name[:-4]}_tail"] = f.read()[-2000:]
+                except OSError:
+                    pass
+        for seg in os.listdir("/dev/shm") if os.path.isdir("/dev/shm") \
+                else []:
+            if seg.startswith(f"{job}_"):
+                try:
+                    os.unlink(os.path.join("/dev/shm", seg))
+                except OSError:
+                    pass
+        shutil.rmtree(work, ignore_errors=True)
+
+
+SCENARIOS = {"serve-drain": serve_drain, "ckpt-corrupt": ckpt_corrupt,
+             "master-kill": master_kill}
 
 
 def main(argv=None) -> int:
@@ -682,7 +1141,7 @@ def main(argv=None) -> int:
             raise ValueError(
                 f"scenario {name!r} is not ported: the port has "
                 f"{list(SCENARIOS)}; the other drills come with ROADMAP "
-                f"item 13")
+                f"items 7b and 13")
         report = fn(device=device)
         print(json.dumps(report))
         ok = ok and report.get("ok", False)

@@ -4,10 +4,11 @@ Parity: dlrover_wuqiong_tpu/common/constants.py — `NodeEnv` (:13-35) but
 `PARAL_CONFIG_PATH` (the config tuner's file, ROADMAP item 15) and
 `COMPILE_CACHE_DIR` (the warm pool's cache, item 13); `NodeType`,
 `NodeStatus`, `NodeEventType`, `NodeExitReason`, `JobExitReason`,
-`RendezvousName`, `NetworkFailureReason` and `CheckpointConstant`
-(:37-137) whole; and `JobConstant` (:140-152).  The other classes there
+`RendezvousName`, `NetworkFailureReason`, `TaskType` (the dataset
+sharding's, master/task_manager.py) and `CheckpointConstant` (:37-148)
+whole; and `JobConstant` (:150-162).  The other classes there
 (`TrainingExceptionLevel`, `PlatformType`, `DistributionStrategy`,
-`TaskType`, `ConfigPath`) come with the modules that read them.
+`ConfigPath`) come with the modules that read them.
 
 The world contract keeps the JAX package's names: a port worker reads
 ``DWT_COORDINATOR_ADDR`` as the ``tcp://`` address of its
@@ -102,6 +103,17 @@ class NetworkFailureReason:
     NO_INIT = "Not initialized"
     NODE_FAILURE = "Node failure"
     WAITING_NODE = "Waiting node"
+
+
+class TaskType:
+    """Dynamic-sharding task types. Parity: reference elastic_training.proto TaskType."""
+
+    NONE = "none"
+    TRAINING = "training"
+    EVALUATION = "evaluation"
+    PREDICTION = "prediction"
+    WAIT = "wait"
+    TRAIN_END_CALLBACK = "train_end_callback"
 
 
 class CheckpointConstant:

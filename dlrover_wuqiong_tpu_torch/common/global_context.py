@@ -6,9 +6,11 @@ timeout (master/job_manager.py), the relaunch policy (`relaunch_always`,
 `max_relaunch_count`: job_manager.py, master/servicer.py), the speed
 monitor's window (`train_speed_record_num`) and the rendezvous join
 timeout (master/master.py), `master_outage_grace_s`
-(agent/master_client.py) and `checkpoint_replica`, the ring fan-out of
+(agent/master_client.py), `checkpoint_replica`, the ring fan-out of
 the agent's replica backup (agent/elastic_agent.py
-`_setup_replication`, 0 = off).  The JAX module's other fields come with the
+`_setup_replication`, 0 = off), `journal_snapshot_every` (the master
+journal's compaction cadence) and `hang_detection_seconds` (the run
+loop's task-hang exit, master/master.py).  The JAX module's other fields come with the
 modules that read them (ROADMAP items 13 and 15).  Values may be
 overridden from env vars prefixed ``DWT_CTX_``, as there.
 """
@@ -35,6 +37,11 @@ class Context:
     # critical verb (retry backoff caps at ~2s between attempts); the
     # fire-and-forget verbs buffer instead of waiting (master_client.py)
     master_outage_grace_s: float = 120.0
+    # events between journal compactions (master/journal.py)
+    journal_snapshot_every: int = 1000
+    # every worker with a shard in flight silent this long: the master's
+    # run loop exits with a hang (master/task_manager.py `task_hanged`)
+    hang_detection_seconds: float = 1800.0
 
     _singleton = None
     _lock = threading.Lock()

@@ -1,17 +1,20 @@
 """Wire messages between agents, workers, clients and the master.
 
 Parity: dlrover_wuqiong_tpu/common/messages.py — `OkResponse` (:25),
-the rendezvous records (:90-126), `NodeMeta` (:155), `HeartBeat` and its
+the dataset-sharding records (:34-90, but `DatasetTaskEnd`, which no
+verb of the port carries), the rendezvous records (:90-126), `NodeMeta` (:155), `HeartBeat` and its
 reply (:166-181), `NodeEventReport` (:184), `NodeFailure` (:194),
 `GlobalStep` (:205), `ModelInfo` and `CustomMetric` (:220-230), the
-goodput ledger's records (:234-268), the ``KVStore*`` records
+goodput ledger's records (:234-268), `JournalStatsQuery` and
+`JournalStats` (:307-344), the ``KVStore*`` records
 (:383-409) and every ``Serve*`` record (:561-686), copied with the same
 names, fields, defaults and order, and registered under the same names
 by ``@message``, so the port's frames are byte-equal to the JAX
 package's (`analysis/schema.lock.json` pins the JAX side;
 tests/test_torch_serving_worker.py and tests/test_torch_elastic.py hold
-the two equal).  The other messages come with the verbs that carry them
-(ROADMAP item 15).
+the two equal; tests/test_torch_master_restart.py the sharding and
+journal records).  The other messages come with the verbs that carry
+them (ROADMAP items 7b, 13 and 15).
 """
 
 from __future__ import annotations
@@ -26,6 +29,58 @@ from .serialize import message
 class OkResponse:
     success: bool = True
     reason: str = ""
+
+
+# ---------------------------------------------------------------- dataset / sharding
+
+
+@message
+class DatasetShardParams:
+    batch_size: int = 0
+    num_epochs: int = 1
+    dataset_size: int = 0
+    shuffle: bool = False
+    num_minibatches_per_shard: int = 2
+    dataset_name: str = ""
+    task_type: str = "training"
+    storage_type: str = ""
+
+
+@message
+class ShardConfig:
+    start: int = 0
+    end: int = 0
+    indices: List[int] = field(default_factory=list)
+
+
+@message
+class TaskRequest:
+    dataset_name: str = ""
+
+
+@message
+class Task:
+    task_id: int = -1
+    task_type: str = "none"
+    shard: ShardConfig = field(default_factory=ShardConfig)
+    dataset_name: str = ""
+
+
+@message
+class TaskResult:
+    dataset_name: str = ""
+    task_id: int = -1
+    err_message: str = ""
+
+
+@message
+class ShardCheckpointRequest:
+    dataset_name: str = ""
+
+
+@message
+class ShardCheckpoint:
+    content: str = ""  # JSON state of the dataset splitter / task queues
 
 
 # ---------------------------------------------------------------- rendezvous
@@ -176,6 +231,50 @@ class GoodputSummary:
     other_s: float = 0.0
     goodput_fraction: float = 0.0
     nodes: int = 0
+
+
+# ---------------------------------------------------------------- journal
+
+
+@message
+class JournalStatsQuery:
+    """Pull the master's journal group-commit gauges (read-only, never
+    journaled — the fleet bench and perf_probe poll it)."""
+
+    pass
+
+
+@message
+class JournalStats:
+    """Group-commit gauges for the master journal (master/journal.py).
+
+    ``enabled`` is False on journal-less masters (standalone/test);
+    ``group_commit`` is False when max_frames=1 (the per-frame-fsync
+    baseline).  batch_mean/batch_max describe frames-per-fsync since
+    the master started — the fleet bench's amortization evidence.
+    """
+
+    enabled: bool = False
+    group_commit: bool = False
+    max_frames: int = 0
+    max_wait_ms: float = 0.0
+    fsync_floor_ms: float = 0.0
+    batches: int = 0
+    frames: int = 0
+    batch_mean: float = 0.0
+    batch_max: int = 0
+    durable_seq: int = 0
+    epoch: int = 0
+    # ADD-ONLY standby/failover gauges: shipped_seq is the
+    # highest seq a standby holds or was served; standby_lag_frames is
+    # durable_seq - shipped_seq (-1 = no standby ever fetched);
+    # lease_epoch is the highest leadership-lease epoch this master has
+    # journaled or observed — a revived primary compares it against its
+    # own loaded epoch to self-fence instead of split-braining.
+    shipped_seq: int = 0
+    standby_lag_frames: int = -1
+    lease_epoch: int = 0
+    is_leader: bool = True
 
 
 # ---------------------------------------------------------------- kv store

@@ -1,2 +1,2 @@
-"""Job master: the serving queue and the RPC verbs it answers (parity:
-dlrover_wuqiong_tpu/master)."""
+"""Job master: the training, sharding and serving managers, the journal
+and the RPC verbs (parity: dlrover_wuqiong_tpu/master)."""

@@ -10,10 +10,13 @@ coordinator address (rank 0's ip:free_port), which a port worker turns
 into its ``torch.distributed`` group (trainer/elastic.py).  Left out,
 each with the ROADMAP item that brings it: `NetworkCheckRendezvousManager`
 (:349-464, item 13, with ``agent/node_check``); the warm-mesh formation
-preference (`set_world_size_policy`, item 13); the hot-swap formation
-hold and `evict_from_world` (item 7b); and the journal hooks
-(`on_world_formed`, `export_state`, `restore_state`; item 15).  (The JAX
-module's own parity: reference
+preference (`set_world_size_policy`, item 13); and the hot-swap
+formation hold and `evict_from_world` (item 7b).  The journal's hooks
+(:255-311) are here: `on_world_formed`, which the master sets after its
+replay so each formed world is journaled as an ``rdzv_world`` frame, and
+`export_state` / `restore_state`, with which a restarted master serves
+the round and world its workers still train in.  (The JAX module's own
+parity: reference
 `dlrover/python/master/elastic_training/rdzv_manager.py`.)
 """
 
@@ -70,6 +73,9 @@ class RendezvousManager(ABC):
         self._start_rdzv_ts = 0.0
         self._alive_nodes: set = set()
         self._node_unit = 1
+        # journal hook (master/master.py): fn(name, state) after every
+        # world formation
+        self.on_world_formed = None
 
     def update_rdzv_params(self, min_nodes: int, max_nodes: int,
                            waiting_timeout: float = 30.0,
@@ -171,6 +177,61 @@ class RendezvousManager(ABC):
                           {"round": self._rdzv_round,
                            "nodes": len(self._latest_rdzv_nodes),
                            "wait_s": wait_s})
+        if self.on_world_formed is not None:
+            try:
+                # _form_world runs under self._lock — use the lock-free view
+                self.on_world_formed(self.name, self._export_locked())
+            except Exception:  # noqa: BLE001 — journaling is best-effort
+                logger.exception("world-formed journal hook failed")
+
+    # ------------------------------------------------------- journal replay
+
+    @staticmethod
+    def _spec_to_list(s: "NodeSpec") -> List:
+        return [s.node_id, s.node_rank, s.local_world_size, s.node_ip,
+                s.free_port, s.slice_id]
+
+    @staticmethod
+    def _spec_from_list(v: List) -> "NodeSpec":
+        return NodeSpec(int(v[0]), int(v[1]), int(v[2]), v[3], int(v[4]),
+                        v[5] if len(v) > 5 else "")
+
+    def _export_locked(self) -> Dict:
+        return {
+            "round": self._rdzv_round,
+            "world": {str(rank): self._spec_to_list(s)
+                      for rank, s in self._rdzv_world.items()},
+            "waiting": [self._spec_to_list(s)
+                        for s in self._waiting_nodes.values()],
+            "alive": sorted(self._alive_nodes),
+            "latest": list(self._latest_rdzv_nodes),
+        }
+
+    def export_state(self) -> Dict:
+        """Snapshot for the master journal (master/journal.py)."""
+        with self._lock:
+            return self._export_locked()
+
+    def restore_state(self, data: Dict):
+        """Install a journaled world: the restarted master serves the SAME
+        round and membership the workers are still training in, so no
+        re-rendezvous (and no world restart) is triggered by a master-only
+        failure."""
+        with self._lock:
+            self._rdzv_round = max(self._rdzv_round,
+                                   int(data.get("round", 0)))
+            world = {int(r): self._spec_from_list(v)
+                     for r, v in data.get("world", {}).items()}
+            if world:
+                self._rdzv_world = world
+            self._latest_rdzv_nodes = list(data.get("latest", []))
+            self._alive_nodes.update(data.get("alive", []))
+            for v in data.get("waiting", []):
+                spec = self._spec_from_list(v)
+                self._waiting_nodes.setdefault(spec.node_id, spec)
+            # members of the restored world are no longer waiting
+            for spec in self._rdzv_world.values():
+                self._waiting_nodes.pop(spec.node_id, None)
 
     @abstractmethod
     def get_comm_world(self, node_id: int) -> Tuple[int, int, Dict[int, NodeSpec]]:

@@ -84,6 +84,15 @@ class ElasticContext:
             except Exception:  # noqa: BLE001
                 logger.debug("step report failed", exc_info=True)
 
+    def sharding_client(self, dataset_name: str, batch_size: int,
+                        dataset_size: int, **kwargs):
+        from ..agent.sharding_client import IndexShardingClient
+
+        if self.mc is None:
+            return None
+        return IndexShardingClient(self.mc, dataset_name, batch_size,
+                                   dataset_size, **kwargs)
+
 
 _context: Optional[ElasticContext] = None
 

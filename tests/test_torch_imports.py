@@ -17,6 +17,10 @@
 - The elastic launcher's process (``run``: the master, the agent and its
   checkpoint saver) never touches ``torch.cuda``, through a worker's
   failure and restart; the `Trainer` defaults to ``cuda``.
+- The journaled master's process (``python -m
+  dlrover_wuqiong_tpu_torch.master``) and the sharding client import no
+  ``torch``, no numpy and nothing of JAX; the master-kill drill defaults
+  to ``cuda``.
 """
 
 import ast
@@ -61,6 +65,13 @@ ELASTIC = ("common.node", "master.error_monitor", "master.job_manager",
            "trainer.elastic", "trainer.trainer", "trainer.drill")
 
 
+#: the journaled master and dataset sharding: the master process and the
+#: worker's sharding client
+MASTER_JOURNAL = ("master.journal", "master.dataset_splitter",
+                  "master.task_manager", "master.__main__",
+                  "agent.sharding_client")
+
+
 def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN_ROOTS
 
@@ -95,7 +106,7 @@ def test_import_loads_no_jax_and_no_cuda():
     for mod in ("serving.engine", "ops.flash_attention", "models.gpt",
                 "models.llama", "models.attention", "models.fp8", "ops.remat",
                 "trainer.train_step", "auto.accelerate") + CONTROL_PLANE \
-            + CHECKPOINT + ELASTIC:
+            + CHECKPOINT + ELASTIC + MASTER_JOURNAL:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in rec["mods"]
 
 
@@ -119,8 +130,28 @@ def test_ast_scan_finds_no_forbidden_import():
             assert not bad, f"{path}:{node.lineno} imports {bad}"
         scanned.append(mod)
     assert "torch" in seen  # the scan did walk the package
-    for mod in CONTROL_PLANE + CHECKPOINT + ELASTIC:
+    for mod in CONTROL_PLANE + CHECKPOINT + ELASTIC + MASTER_JOURNAL:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in scanned
+
+
+@pytest.mark.parametrize("mod", ["master.__main__",
+                                 "agent.sharding_client"])
+def test_master_process_modules_import_no_torch(mod):
+    """A master restart pays the interpreter and the replay, not torch's
+    import: the master's entry point and the sharding client load no
+    ``torch``, no numpy and nothing of JAX."""
+    code = ("import importlib, json, sys\n"
+            f"importlib.import_module('dlrover_wuqiong_tpu_torch.{mod}')\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in mods if _forbidden(m)
+           or m.split(".")[0] in ("torch", "numpy")]
+    assert bad == []
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -153,7 +184,8 @@ def test_serving_worker_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         worker_main.main(["--master", "127.0.0.1:1"])
-    for drill in (chaos.serve_drain, chaos.ckpt_corrupt):
+    for drill in (chaos.serve_drain, chaos.ckpt_corrupt, chaos.master_kill,
+                  chaos.master_kill_reference):
         assert inspect.signature(drill).parameters["device"].default == \
             "cuda"
 

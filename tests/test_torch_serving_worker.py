@@ -96,6 +96,13 @@ ELASTIC_PORTED = (
     "KVStoreSetRequest", "KVStoreGetRequest", "KVStoreMultiGetRequest",
     "KVStoreAddRequest", "KVStoreResponse")
 
+#: the dataset-sharding and journal records (their frames are held
+#: against JAX's in tests/test_torch_master_restart.py)
+SHARDING_PORTED = (
+    "DatasetShardParams", "ShardConfig", "TaskRequest", "Task", "TaskResult",
+    "ShardCheckpointRequest", "ShardCheckpoint", "JournalStatsQuery",
+    "JournalStats")
+
 #: a short grace for every client that may dial a dead master (the
 #: default, 120 s, would park a test for two minutes)
 GRACE_S = 0.5
@@ -195,7 +202,7 @@ def test_fields_equal_schema_lock(name):
 
 def test_registry_holds_only_ported_messages_under_jax_names():
     assert set(tser._MESSAGE_REGISTRY) == \
-        set(PORTED) | set(ELASTIC_PORTED)  # noqa: SLF001
+        set(PORTED) | set(ELASTIC_PORTED) | set(SHARDING_PORTED)  # noqa: SLF001
     for name, cls in tser._MESSAGE_REGISTRY.items():  # noqa: SLF001
         assert cls.__name__ == name
         assert name in jser._MESSAGE_REGISTRY  # noqa: SLF001
@@ -355,8 +362,8 @@ def test_port_master_answers_jax_client(master):
         assert (summ.queue_depth, summ.leased, summ.done_total,
                 summ.workers) == (1, 1, 1, 1)
         assert jc.epoch == 1
-        with pytest.raises(jcomm.RpcError, match="TaskRequest"):
-            jc.get(jmsg.TaskRequest(dataset_name="d"))
+        with pytest.raises(jcomm.RpcError, match="PerfQuery"):
+            jc.get(jmsg.PerfQuery())
     finally:
         jc.close()
 
