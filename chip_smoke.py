@@ -225,15 +225,43 @@ Phases, in order; a failure in any of them exits non-zero:
    the launcher exits 0, the 2048 samples tiled once (fetched ==
    completed), steps inside the outage, heartbeats buffered and drained,
    the epoch at 2 and the node re-registered, the worker's ledger
-   degraded and productive both > 0, goodput_wall >= 0.5 (the ideal step
-   10.1's median), the restarted master on group commit; every one of
-   the 256 losses bitwise 10.1's; and the worker's own counters at 12
-   forward and 12 fused-backward launches a step and no int8 one.  Prints the outage,
-   the restart gap, the frames and seconds of the replay, the journal's
-   gauges, the steps in the outage, the degraded and productive seconds,
-   the goodput, and the host ms p50 / p99 of the journaled ``get_task``
-   and ``report_task_result`` before the kill and after the restart.
-   Its directories and both masters go whether it passes or fails.
+   degraded and productive both > 0, 0.5 <= goodput_wall <= 1 (the ideal
+   step the median of the worker's own steps outside the outage), the
+   restarted master on group commit, and the incident timeline: the
+   restarted master's live answer byte-equal to the offline assembly of
+   the journal and the worker's flight dump, every journal event once in
+   (epoch, seq) order over epochs [1, 2], its degraded seconds within
+   0.05 s of the worker's ledger, and the offline CLI's hash equal to
+   the live bytes; every one of the 256 losses bitwise 10.1's; and the
+   worker's own counters at 12 forward and 12 fused-backward launches a
+   step and no int8 one.  Prints the outage, the restart gap, the frames
+   and seconds of the replay, the journal's gauges, the steps in the
+   outage, the degraded and productive seconds, the goodput, the host
+   ms p50 / p99 of the journaled ``get_task`` and
+   ``report_task_result`` before the kill and after the restart, the
+   timeline's gates and the phase's wall.  Its directories and both
+   masters go whether it passes or fails.
+11. The warm standby master (``chaos.master_failover``, the same model,
+   worker, shards and kill point as phase 10, held to 10.1's run): a
+   primary ``python -m dlrover_wuqiong_tpu_torch.master --lease-ttl=1.0
+   --peer=STANDBY`` and a standby ``--standby-of=PRIMARY`` tailing its
+   journal; the worker dials ``PRIMARY,STANDBY``.  The primary is
+   SIGKILLed; the standby promotes after 1.0 s of lease silence.  Checks,
+   every invariant of the drill: one worker generation, the launcher
+   exits 0, the endpoint list rotated, the 2048 samples tiled once, all
+   256 losses bitwise 10.1's, the buffer drained, the promoted epoch 3
+   (old + 2) seen by the worker and the node re-registered, degraded and
+   productive > 0, the standby fetched before the kill, the promotion
+   gap below this run's restart baseline (the corpse revived, spawn to
+   serving) plus the ttl, the corpse fenced read-only through its
+   ``--peer`` (a read answers, a write bounces with ``NotLeaderError``),
+   the live timeline over both journals byte-equal to the offline one
+   with a ``failover`` incident, 0.5 <= goodput_wall <= 1; and 12 + 12
+   flash launches a step in the worker, no int8 one.  Prints the
+   promotion gap beside phase 10's restart gap and this run's baseline,
+   the ttl, the standby's lag at the kill, the frames shipped and
+   folded, the steps and degraded seconds in the failover, the goodput,
+   the timeline's event count and the phase's wall.
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2638,13 +2666,9 @@ def node_loss_phase(torch, tfa) -> tuple:
 # ------------------------------------------------------------ phase 10
 
 
-def master_kill_phase(torch, tfa) -> tuple:
-    """Phase 10: the uninterrupted run in this process (10.1), then the
-    master-kill drill (`chaos.master_kill`) against it (10.2), with
-    every check of the drill.  Returns (report, the reference, the
-    worker's launches)."""
-    import gc
-
+def master_reference(torch, tfa) -> dict:
+    """Phase 10.1: the uninterrupted run in this process that phases 10
+    and 11 hold their drills to, its launches under "launches"."""
     from dlrover_wuqiong_tpu_torch import chaos
 
     geo = chaos.MASTER_KILL["gpt2"]
@@ -2653,31 +2677,120 @@ def master_kill_phase(torch, tfa) -> tuple:
     tfa.reset_launches()
     ref = chaos.master_kill_reference(model="gpt2", device="cuda")
     torch.cuda.synchronize()
-    ref_launches = dict(tfa.LAUNCHES)
+    ref["launches"] = dict(tfa.LAUNCHES)
     losses = [float.fromhex(h) for h in ref["losses"]]
     check(len(losses) == n, f"master-kill reference: {len(losses)} losses")
     check(all(abs(v) < float("inf") for v in losses),
           "master-kill reference: a loss is not finite")
     check(losses[-1] < losses[0], f"master-kill reference: loss "
           f"{losses[0]} -> {losses[-1]} did not fall")
-    expect_launches(ref_launches, n, 12, 1, "fused",
+    expect_launches(ref["launches"], n, 12, 1, "fused",
                     "master-kill reference")
-    gc.collect()
-    torch.cuda.empty_cache()
-    r = chaos.master_kill(model="gpt2", device="cuda", reference=ref,
-                          timeout=300.0)
-    check(r["ok"], "master-kill drill failed: " + json.dumps(r)[:8000])
+    return ref
+
+
+def master_drill_checks(r: dict, tag: str):
+    """What phases 10 and 11 hold a drill's report to beyond its own
+    `ok`: every step, every loss bitwise, 12 + 12 flash launches a step
+    in the worker and no int8 one."""
+    from dlrover_wuqiong_tpu_torch import chaos
+
+    geo = chaos.MASTER_KILL["gpt2"]
+    n = geo["dataset_size"] // geo["batch"]
+    check(r["ok"], f"{tag} drill failed: " + json.dumps(r)[:8000])
     check(r["steps"] == n and r["losses_bitwise"],
-          f"master-kill: {r['steps']} steps, losses bitwise "
+          f"{tag}: {r['steps']} steps, losses bitwise "
           f"{r['losses_bitwise']}")
+    check(r["goodput_wall"] <= 1.0,
+          f"{tag}: goodput_wall {r['goodput_wall']} above 1")
     launches = {k: v for k, v in r["launches"].items()
                 if k.startswith("flash_")}
-    expect_launches(launches, n, 12, 1, "fused", "master-kill worker")
+    expect_launches(launches, n, 12, 1, "fused", f"{tag} worker")
     check(r["launches"]["quantize_int8_blockwise"] == 0 and
           r["launches"]["dequantize_int8_blockwise"] == 0,
-          f"master-kill worker: int8 launches {r['launches']}")
-    ref["launches"] = ref_launches
+          f"{tag} worker: int8 launches {r['launches']}")
+
+
+def master_kill_phase(torch, tfa, ref: dict = None) -> tuple:
+    """Phase 10: the uninterrupted run in this process (10.1, unless
+    `ref` is given), then the master-kill drill (`chaos.master_kill`)
+    against it (10.2), with every check of the drill.  Returns (report,
+    the reference, the worker's launches)."""
+    import gc
+
+    from dlrover_wuqiong_tpu_torch import chaos
+
+    if ref is None:
+        ref = master_reference(torch, tfa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    r = chaos.master_kill(model="gpt2", device="cuda", reference=ref,
+                          timeout=300.0)
+    r["phase_wall_s"] = time.monotonic() - t0
+    master_drill_checks(r, "master-kill")
     return r, ref, r["launches"]
+
+
+def master_failover_phase(torch, tfa, ref: dict = None,
+                          restart_gap_s: float = None) -> tuple:
+    """Phase 11: the warm-standby drill (`chaos.master_failover`) against
+    phase 10's uninterrupted run (`ref`; run here when not given), with
+    every check of the drill.  `restart_gap_s` is phase 10's, printed
+    beside the promotion gap.  Returns (report, the worker's launches)."""
+    import gc
+
+    from dlrover_wuqiong_tpu_torch import chaos
+
+    if ref is None:
+        ref = master_reference(torch, tfa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    r = chaos.master_failover(model="gpt2", device="cuda", reference=ref,
+                              timeout=300.0)
+    r["phase_wall_s"] = time.monotonic() - t0
+    r["phase10_restart_gap_s"] = restart_gap_s
+    master_drill_checks(r, "master-failover")
+    return r, r["launches"]
+
+
+def print_master_failover(fo: dict):
+    """Phase 11's lines: the report as JSON, then its numbers."""
+    print("master-failover: " + json.dumps(fo))
+    pk, sb, lg = fo["pre_kill"], fo["standby"], fo["ledger"]
+    gap10 = fo.get("phase10_restart_gap_s")
+    print(f"master-failover: GPT-2 124M, {fo['steps']} steps at B = "
+          f"{fo['batch']}, T = {fo['seq']} from {fo['shards_completed']} "
+          f"shards dispatched by a primary (lease ttl {fo['lease_ttl']} s, "
+          f"a lease frame every {fo['lease_ttl'] / 3:.3f} s) and then its "
+          f"warm standby; primary SIGKILLed after fetch 2 and 4 of its "
+          f"steps; promotion gap (SIGKILL to the standby serving as "
+          f"leader at epoch {fo['promoted_epoch']}) "
+          f"{fo['promotion_gap_s']:.3f} s against this run's restart "
+          f"baseline {fo['restart_gap_s']:.3f} s + ttl "
+          f"{fo['lease_ttl']} s = {fo['restart_the_world_s']:.3f} s "
+          f"(phase 10's restart gap "
+          + (f"{gap10:.3f} s" if gap10 is not None else "not run")
+          + f"); standby lag at the kill {pk['standby_lag_frames']} "
+          f"frames (primary durable seq {pk['durable_seq']}, shipped "
+          f"{pk['shipped_seq']}); the standby folded "
+          f"{sb.get('frames_folded')} frames ({sb.get('snapshots')} "
+          f"snapshots), last mirrored seq {sb.get('last_seq')}; steps in "
+          f"the failover {fo['steps_in_outage']}; heartbeats buffered "
+          f"{fo['heartbeats_buffered']}, drained {fo['buffer_drained']}, "
+          f"endpoint rotations {fo['client_failovers']}; ledger degraded "
+          f"{lg['degraded_s']:.3f} s, productive {lg['productive_s']:.3f} "
+          f"s; goodput_wall {fo['goodput_wall']:.4f} (ideal step "
+          f"{fo['ideal_step_s'] * 1e3:.2f} ms, the worker's own median "
+          f"outside the failover; reference "
+          f"{fo['reference_step_s'] * 1e3:.2f} ms); corpse fenced "
+          f"{fo['corpse_fenced']}, reads {fo['corpse_read_ok']}, "
+          f"mutations refused {fo['corpse_mutation_refused']}; timeline "
+          f"{fo['timeline_events']} events, byte-equal "
+          f"{fo['timeline_byte_equal']}, incidents "
+          f"{fo['timeline_incidents']}; all {fo['steps']} losses bitwise "
+          f"the uninterrupted run's; phase wall {fo['phase_wall_s']:.1f} s")
 
 
 
@@ -2686,6 +2799,13 @@ def print_master_kill(mk: dict, mk_ref: dict):
     print("master-kill: " + json.dumps(
         {**mk, "reference": {"step_s": mk_ref["step_s"],
                              "launches": mk_ref["launches"]}}))
+    print(f"master-kill: timeline {mk['timeline_events']} events, "
+          f"byte-equal {mk['timeline_byte_equal']}, causal "
+          f"{mk['timeline_causal']}, epochs {mk['timeline_epochs']}, "
+          f"degraded {mk['timeline_degraded_s']:.3f} s against the "
+          f"ledger's (within 0.05: {mk['timeline_attribution_ok']}), "
+          f"offline CLI hash equal {mk['incident_report_sha_match']}; "
+          f"phase wall {mk['phase_wall_s']:.1f} s")
     js, rp, lg = mk["journal_group_commit"], mk["replay"], mk["ledger"]
     print(f"master-kill: GPT-2 124M, {mk['steps']} steps at B = "
           f"{mk['batch']}, T = {mk['seq']} from {mk['shards_completed']} "
@@ -2702,7 +2822,9 @@ def print_master_kill(mk: dict, mk_ref: dict):
           f"{mk['heartbeats_buffered']}, drained {mk['buffer_drained']}; "
           f"ledger degraded {lg['degraded_s']:.3f} s, productive "
           f"{lg['productive_s']:.3f} s; goodput_wall "
-          f"{mk['goodput_wall']:.4f}; one worker generation, launcher exit "
+          f"{mk['goodput_wall']:.4f} (ideal step "
+          f"{mk['ideal_step_s'] * 1e3:.2f} ms, the worker's own median "
+          f"outside the outage); one worker generation, launcher exit "
           f"{mk['cli_rc']}, {mk['dataset_size']} samples tiled once, all "
           f"{mk['steps']} "
           f"losses bitwise the uninterrupted run's")
@@ -3139,6 +3261,14 @@ def main():
     mk, mk_ref, mk_launches = master_kill_phase(torch, tfa)
     print_master_kill(mk, mk_ref)
 
+    # phase 11 — the warm standby: the primary SIGKILLed, the standby
+    # promotes fenced, held to phase 10's uninterrupted run
+    gc.collect()
+    torch.cuda.empty_cache()
+    fo, fo_launches = master_failover_phase(
+        torch, tfa, ref=mk_ref, restart_gap_s=mk["restart_gap_s"])
+    print_master_failover(fo)
+
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -3163,6 +3293,7 @@ def main():
             "launches_elastic_route": el_launches[name],
             "launches_node_loss_route": nl_launches[name],
             "launches_master_kill_route": mk_launches[name],
+            "launches_master_failover_route": fo_launches[name],
         })
     src = "dlrover_wuqiong_tpu_torch/csrc/flash_attention.cu"
     for name, replaces, counts, run in (
@@ -3194,6 +3325,7 @@ def main():
             "launches_elastic_route": el_launches[name],
             "launches_node_loss_route": nl_launches[name],
             "launches_master_kill_route": mk_launches[name],
+            "launches_master_failover_route": fo_launches[name],
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {

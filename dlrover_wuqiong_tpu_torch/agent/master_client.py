@@ -22,11 +22,12 @@ serving worker, each in its JAX verb class:
   `get_task` (critical + idem), `report_task_result` (critical + idem,
   kept for the epoch-bump re-sync), `get_shard_checkpoint`,
   `report_shard_checkpoint` (critical);
-- the journal's gauges, `get_journal_stats` (polling, :512);
+- the journal's gauges, `get_journal_stats` (polling, :512), and the
+  incident timeline, `get_timeline` (polling, :568-581);
 - serving (:585-648).
 
-The network-check, policy, mesh-transition, perf, timeline, diagnosis
-and config-tuner verbs come with ROADMAP items 7b, 13 and 15.
+The network-check, policy, mesh-transition, perf, diagnosis and
+config-tuner verbs come with ROADMAP items 7b part 3, 13 and 15.
 
 Master fault tolerance, as in the JAX client:
 
@@ -49,8 +50,9 @@ Master fault tolerance, as in the JAX client:
 - **failover dialing**: ``master_addr`` may be a comma-separated ORDERED
   endpoint list ("primary,standby").  An unreachable endpoint or a
   ``NotLeaderError`` answer rotates to the next endpoint; CRITICAL verbs
-  keep rotating inside the outage grace window.  (The port has no
-  standby master yet; the dialing is ported, the standby is not.)
+  keep rotating inside the outage grace window; a standby or a fenced
+  master answers a mutating verb with ``NotLeaderError``
+  (master/servicer.py).
 """
 
 from __future__ import annotations
@@ -483,6 +485,21 @@ class MasterClient:
     def get_journal_stats(self) -> msg.JournalStats:
         """Journal group-commit gauges."""
         return self._call_polling("get", msg.JournalStatsQuery())
+
+    def get_timeline(self, ckpt_dir: str = "",
+                     journal_dirs: Optional[List[str]] = None
+                     ) -> msg.TimelineResponse:
+        """Assembled incident timeline (telemetry/incident_report.py).
+
+        POLLING class: a post-mortem query must fail fast against a dead
+        master — the offline reconstruction from the same disk artifacts
+        is the fallback, and it is byte-equal by contract.
+        ``journal_dirs`` merges further journal dirs after the answering
+        master's own (failover post-mortems span both masters' dirs)."""
+        return self._call_polling(
+            "get", msg.TimelineQuery(node_id=self.node_id,
+                                     ckpt_dir=ckpt_dir,
+                                     journal_dirs=list(journal_dirs or [])))
 
     # ------------------------------------------------------------- kv store
 

@@ -1,6 +1,6 @@
 """Chaos drills against the port.
 
-Parity: three drills of dlrover_wuqiong_tpu/chaos.py, pointed at the port.
+Parity: four drills of dlrover_wuqiong_tpu/chaos.py, pointed at the port.
 
 - `serve_drain` (:2914-3100): its master is the port's `JobMaster`,
   hosted in this process, and its decode workers are
@@ -20,22 +20,28 @@ Parity: three drills of dlrover_wuqiong_tpu/chaos.py, pointed at the port.
   on a journal is SIGKILLed while a worker under the port's launcher
   trains a GPT on ``device`` from the shards the master hands out, and a
   successor replays the journal; every step's loss is held bitwise
-  against an uninterrupted run (`master_kill_reference`).  The JAX
-  drill's incident-timeline gates are left out (ROADMAP items 13 and
-  15).
+  against an uninterrupted run (`master_kill_reference`), and the
+  incident timeline is held live against offline.
+- `master_failover` (:2030-2400): the same worker against a primary
+  with a leadership lease and a warm standby tailing its journal; the
+  primary is SIGKILLed, the standby promotes fenced, the revived corpse
+  fences itself, and the timeline over both journals narrates the
+  takeover.
 
-The other drills (preempt, pod-kill, master-failover, hot-swap, ...)
-come with items 7b and 13.  The elastic trainer's SIGKILL drill under
-the port's launcher is `trainer.drill.elastic_drill`, and its node-loss
-drill through the replica ring `trainer.drill.node_loss_drill`.
+The other drills (preempt, pod-kill, hot-swap, ...) come with items 7b
+part 3 and 13.  The elastic trainer's SIGKILL drill under the port's
+launcher is `trainer.drill.elastic_drill`, and its node-loss drill
+through the replica ring `trainer.drill.node_loss_drill`.
 
     python -m dlrover_wuqiong_tpu_torch.chaos serve-drain [--device cpu]
     python -m dlrover_wuqiong_tpu_torch.chaos ckpt-corrupt [--device cpu]
     python -m dlrover_wuqiong_tpu_torch.chaos master-kill [--device cpu]
+    python -m dlrover_wuqiong_tpu_torch.chaos master-failover [--device cpu]
 
 prints each drill's one-line JSON report and exits 0 when ``ok``
-(``master-kill`` trains GPT nano; `master_kill(model="gpt2")` is
-GPT-2 124M, as chip_smoke.py's phase 10 runs it).
+(``master-kill`` and ``master-failover`` train GPT nano;
+``model="gpt2"`` is GPT-2 124M, as chip_smoke.py's phases 10 and 11 run
+them).
 """
 
 from __future__ import annotations
@@ -749,14 +755,16 @@ def master_kill_reference(model: str = "nano", device: str = "cuda"
 _MASTER_KILL_WORKER = r"""
 import json, os, sys, time
 
-(marker_dir, model, device, dataset_size, batch, minibatches, seq) = (
-    sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4]),
-    int(sys.argv[5]), int(sys.argv[6]), int(sys.argv[7]))
+(marker_dir, ckpt_dir, model, device, dataset_size, batch, minibatches,
+ seq) = (sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4],
+         int(sys.argv[5]), int(sys.argv[6]), int(sys.argv[7]),
+         int(sys.argv[8]))
 from dlrover_wuqiong_tpu_torch import chaos
 from dlrover_wuqiong_tpu_torch.ops import flash_attention as tfa
 from dlrover_wuqiong_tpu_torch.ops import quantization as tq
 from dlrover_wuqiong_tpu_torch.telemetry import spans as tspans
 from dlrover_wuqiong_tpu_torch.telemetry.ledger import get_ledger
+from dlrover_wuqiong_tpu_torch.telemetry.recorder import get_recorder
 from dlrover_wuqiong_tpu_torch.trainer.elastic import init_elastic
 
 ctx = init_elastic()
@@ -807,9 +815,13 @@ rpc = [{"msg": r["attrs"].get("msg"), "t_wall": r["t_wall"],
         "dur_s": r["dur_s"]} for r in tspans.spans_snapshot()
        if r["name"].startswith("rpc:")
        and r["attrs"].get("msg") in ("TaskRequest", "TaskResult")]
+stats = ctx.mc.degraded_stats()
+ledger = led.snapshot()
+# the flight dump carries this worker's ledger and spans into the
+# incident timeline the drill gates on (telemetry/timeline.py)
+get_recorder().flush(ckpt_dir, "drill-end")
 with open(os.path.join(marker_dir, "done.tmp"), "w") as f:
-    json.dump({"steps": step, "stats": ctx.mc.degraded_stats(),
-               "ledger": led.snapshot(),
+    json.dump({"steps": step, "stats": stats, "ledger": ledger,
                "launches": {**tfa.LAUNCHES, **tq.LAUNCHES},
                "rpc": rpc}, f)
 os.replace(os.path.join(marker_dir, "done.tmp"),
@@ -830,6 +842,213 @@ def _replay_line(log_path: str) -> Dict:
                   r"\(last epoch \d+\) in ([0-9.]+) s", text)
     return {"frames": int(m.group(1)), "seconds": float(m.group(2))} \
         if m else {}
+
+
+def worker_goodput(stamps: List[float], n_steps: int,
+                   outage: tuple) -> tuple:
+    """(ideal step s, wall-clock goodput) of the drill worker.
+
+    The ideal step is the median interval between the worker's own
+    consecutive step stamps, leaving out every interval that touches the
+    outage ``(t0, t1)`` (wall clock, as the stamps): the same process,
+    the same card and the same moment as the steps it is held to, where
+    a reference run elsewhere drifts with what ran before it.  The
+    goodput is ``n_steps`` ideal steps over the span of the stamps plus
+    one ideal step."""
+    from .telemetry.serving import _percentile
+
+    t0, t1 = outage
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])
+            if b < t0 or a > t1]
+    if not gaps:
+        return 0.0, 0.0
+    ideal = _percentile(gaps, 0.5)
+    return ideal, n_steps * ideal / (max(stamps) - min(stamps) + ideal)
+
+
+def _shards_log(path: str) -> tuple:
+    """(fetched ranges, completed ranges, step stamps, step losses as
+    ``float.hex()``) from the worker's shards.log."""
+    fetched, completed, stamps, losses = [], [], [], []
+    try:
+        with open(path) as f:
+            for ln in f:
+                parts = ln.split()
+                if parts[0] == "fetch":
+                    fetched.append((int(parts[3]), int(parts[4])))
+                elif parts[0] == "done":
+                    completed.append((int(parts[3]), int(parts[4])))
+                elif parts[0] == "step":
+                    stamps.append(float(parts[1]))
+                    losses.append(parts[3])
+    except OSError:
+        pass
+    return fetched, completed, stamps, losses
+
+
+def _tiled(fetched, completed, dataset_size: int) -> bool:
+    """Completed ranges cover [0, dataset_size) once, as many fetched."""
+    covered = sorted(completed)
+    return bool(covered and covered[0][0] == 0
+                and covered[-1][1] == dataset_size
+                and sum(e - s for s, e in covered) == dataset_size
+                and all(covered[i][1] == covered[i + 1][0]
+                        for i in range(len(covered) - 1))
+                and len(fetched) == len(completed))
+
+
+def _wait_shards(shards_log: str, cli, deadline_s: float) -> bool:
+    """Wait until the worker is mid-shard: after fetch
+    `KILL_AFTER_FETCHES` and `KILL_AFTER_STEPS` of its steps."""
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline and cli.poll() is None:
+        try:
+            with open(shards_log) as f:
+                lines = f.read().splitlines()
+        except OSError:
+            lines = []
+        fetches = [i for i, ln in enumerate(lines)
+                   if ln.startswith("fetch ")]
+        if len(fetches) >= KILL_AFTER_FETCHES and sum(
+                1 for ln in lines[fetches[KILL_AFTER_FETCHES - 1]:]
+                if ln.startswith("step ")) >= KILL_AFTER_STEPS:
+            return True
+        time.sleep(0.005)
+    return False
+
+
+def _wait_up(addr: str, deadline_s: float) -> bool:
+    from .common.comm import addr_connectable
+
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        if addr_connectable(addr, timeout=0.2):
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def _worker_report(report: Dict, marker: str, reference: Dict,
+                   dataset_size: int, outage: tuple) -> Dict:
+    """The worker-side invariants both master drills share; returns the
+    worker's done payload."""
+    report["worker_generations"] = sum(
+        1 for f in os.listdir(marker) if f.startswith("start_r"))
+    done_path = os.path.join(marker, "done")
+    report["completed"] = os.path.exists(done_path)
+    payload: Dict = {}
+    if report["completed"]:
+        with open(done_path) as f:
+            payload = json.load(f)
+    stats = payload.get("stats", {})
+    report["degraded"] = stats
+    led = payload.get("ledger", {})
+    states = led.get("states", {})
+    report["ledger"] = {
+        "degraded_s": float(states.get("degraded", 0.0)),
+        "productive_s": float(states.get("productive", 0.0)),
+        "goodput_fraction": float(led.get("goodput_fraction", 0.0))}
+    report["launches"] = payload.get("launches", {})
+    fetched, completed, stamps, losses = _shards_log(
+        os.path.join(marker, "shards.log"))
+    report["shards_fetched"] = len(fetched)
+    report["shards_completed"] = len(completed)
+    report["no_shard_lost_or_double"] = _tiled(fetched, completed,
+                                               dataset_size)
+    report["steps"] = len(losses)
+    report["steps_in_outage"] = sum(
+        1 for t in stamps if outage[0] <= t <= outage[1])
+    ref = reference["losses"]
+    report["losses_bitwise"] = losses == ref
+    if losses != ref:
+        report["first_loss_mismatch"] = next(
+            (i for i, (a, b) in enumerate(zip(losses, ref)) if a != b),
+            min(len(losses), len(ref)))
+    report["ideal_step_s"], report["goodput_wall"] = worker_goodput(
+        stamps, len(ref), outage)
+    report["reference_step_s"] = reference["step_s"]
+    report["heartbeats_buffered"] = stats.get("buffered_total", 0)
+    report["buffer_drained"] = (stats.get("pending", 1) == 0
+                                and stats.get("dropped_total", 1) == 0)
+    report["reregistered"] = stats.get("reregistrations", 0) >= 1
+    return payload
+
+
+def live_timeline(addr: str, ckpt_dir: str, journal_dirs: List[str]
+                  ) -> tuple:
+    """(live TimelineResponse, the offline report, byte-equal) for the
+    master at `addr` over ``journal_dirs`` (its own first) and the
+    flight dumps under `ckpt_dir`.  A leader with a lease appends a
+    frame every ttl / 3, so the offline assembly runs before and after
+    the query and the two are compared only when no frame landed in
+    between."""
+    from .agent.master_client import MasterClient
+    from .telemetry import timeline as tl
+
+    mc = MasterClient(addr, node_id=-1, outage_grace_s=5.0)
+    try:
+        for _ in range(5):
+            before = tl.assemble_incident(
+                journal_dir=journal_dirs[0], ckpt_dir=ckpt_dir,
+                journal_dirs=journal_dirs[1:])
+            live = mc.get_timeline(ckpt_dir=ckpt_dir,
+                                   journal_dirs=journal_dirs[1:])
+            after = tl.assemble_incident(
+                journal_dir=journal_dirs[0], ckpt_dir=ckpt_dir,
+                journal_dirs=journal_dirs[1:])
+            if tl.incident_json(before) == tl.incident_json(after):
+                break
+    finally:
+        mc.close()
+    return live, after, live.content == tl.incident_json(after)
+
+
+def _causal(offline: Dict, standby_dir: str = "",
+            primary_dir: str = "") -> bool:
+    """Every journal event once, in (epoch, seq) order: JAX's gate.
+
+    After a failover (`standby_dir` and the old `primary_dir` given) one
+    collision is allowed: the old primary's durable but unshipped tail,
+    at the ``failover`` frame's ``from_epoch`` and above its
+    ``last_shipped_seq``, shares an (epoch, seq) with the standby's
+    ``failover`` frame.  Any other shared (epoch, seq), a divergence
+    inside the mirrored prefix among them, fails."""
+    from .telemetry import timeline as tl
+
+    jevents = [e for e in offline["events"]
+               if e["source"] == "journal" and e["kind"] != "flush"]
+    jkeys = [(e["epoch"], e["seq"]) for e in jevents]
+    if jkeys != sorted(jkeys) or \
+            len(jkeys) != offline["counts"]["journal_events"]:
+        return False
+    if len(jkeys) == len(set(jkeys)):
+        return True
+    if not (standby_dir and primary_dir):
+        return False
+    standby = tl.read_journal_events(standby_dir)
+    failovers = [e for e in standby if e["kind"] == "failover"]
+    if len(failovers) != 1:
+        return False
+    fo = failovers[0]
+    fo_key = (fo["epoch"], fo["seq"], "failover")
+    mirror = {(e["epoch"], e["seq"], e["kind"]) for e in standby}
+    corpse = {(e["epoch"], e["seq"], e["kind"])
+              for e in tl.read_journal_events(primary_dir)}
+    groups: Dict[tuple, List[tuple]] = {}
+    for e in jevents:
+        groups.setdefault((e["epoch"], e["seq"]), []).append(
+            (e["epoch"], e["seq"], e["kind"]))
+    for (epoch, seq), keys in groups.items():
+        if len(keys) == 1:
+            continue
+        if len(keys) != 2 or fo_key not in keys \
+                or epoch != int(fo["data"]["from_epoch"]) \
+                or seq <= int(fo["data"]["last_shipped_seq"]):
+            return False
+        (tail,) = [k for k in keys if k != fo_key]
+        if tail not in corpse or tail in mirror:
+            return False
+    return True
 
 
 def master_kill(model: str = "nano", device: str = "cuda",
@@ -860,15 +1079,18 @@ def master_kill(model: str = "nano", device: str = "cuda",
       the fencing epoch reach 2 and re-registered;
     - the worker's goodput ledger shows `degraded` > 0 and `productive`
       > 0;
-    - the wall-clock goodput (the reference's median step over the span
-      of steps) is at least `target`;
-    - the restarted master runs the group-commit journal.
-
-    The JAX drill's incident-timeline gates (``timeline_*``,
-    ``incident_report_*``) need ``telemetry/timeline.py``, the master's
-    timeline verb and ``tools/incident_report.py``, which the port does
-    not have (ROADMAP items 13 and 15): the report says
-    ``timeline_gates: "not checked"``.
+    - the wall-clock goodput is at least `target` and at most 1, its
+      ideal step the worker's own (`worker_goodput`);
+    - the restarted master runs the group-commit journal;
+    - the incident timeline: the live `TimelineQuery` answer of the
+      restarted master is byte-equal to the offline assembly over its
+      journal and the worker's flight dump (``timeline_byte_equal``),
+      every journal event appears once in (epoch, seq) order
+      (``timeline_causal``) across epochs [1, 2], the narrative's
+      degraded seconds agree with the worker's ledger within 0.05 s
+      (``timeline_attribution_ok``), and the offline CLI
+      (``python -m dlrover_wuqiong_tpu_torch.telemetry.incident_report``)
+      hashes to the live bytes (``incident_report_sha_match``).
 
     The report also carries the measured outage, the restart gap (spawn,
     imports and replay until the new master answers), the frames and
@@ -880,7 +1102,8 @@ def master_kill(model: str = "nano", device: str = "cuda",
     drill passes or fails.
     """
     from .agent.master_client import MasterClient
-    from .common.comm import addr_connectable, find_free_port
+    from .common.comm import find_free_port
+    from .telemetry import timeline as tl
     from .telemetry.serving import _percentile
 
     geo = MASTER_KILL[model]
@@ -890,6 +1113,7 @@ def master_kill(model: str = "nano", device: str = "cuda",
         reference = master_kill_reference(model, device)
     work = tempfile.mkdtemp(prefix="dwt-torch-masterkill-")
     marker = os.path.join(work, "markers")
+    ckpt_dir = os.path.join(work, "ckpt")
     journal_dir = os.path.join(work, "journal")
     os.makedirs(marker)
     script = os.path.join(work, "worker.py")
@@ -918,56 +1142,31 @@ def master_kill(model: str = "nano", device: str = "cuda",
             log.close()
         return masters[-1]
 
-    def wait_up(deadline_s: float) -> bool:
-        deadline = time.monotonic() + deadline_s
-        while time.monotonic() < deadline:
-            if addr_connectable(addr, timeout=0.2):
-                return True
-            time.sleep(0.02)
-        return False
-
     report: Dict = {"scenario": "master-kill", "model": model,
                     "device": device, "dataset_size": dataset_size,
                     "batch": batch, "minibatches": minibatches, "seq": seq,
-                    "outage_s": outage_s, "ok": False,
-                    "timeline_gates": "not checked"}
+                    "outage_s": outage_s, "ok": False}
     cli = None
     cli_log = os.path.join(work, "launcher.log")
-    shards_log = os.path.join(marker, "shards.log")
     try:
         spawn_master()
-        if not wait_up(30.0):
+        if not _wait_up(addr, 30.0):
             report["error"] = "master never came up"
             return report
         with open(cli_log, "w") as log:
             cli = subprocess.Popen(
                 [sys.executable, "-m", "dlrover_wuqiong_tpu_torch.run",
                  "--nnodes=1", "--nproc_per_node=1", "--max_restarts=2",
-                 script, marker, model, device, str(dataset_size),
-                 str(batch), str(minibatches), str(seq)],
+                 script, marker, ckpt_dir, model, device,
+                 str(dataset_size), str(batch), str(minibatches), str(seq)],
                 env=dict(env, DWT_MASTER_ADDR=addr), cwd=work, stdout=log,
                 stderr=subprocess.STDOUT)
 
         # kill the master inside a mid-run shard: after its fetch and
         # some of its steps, so the worker is provably mid-shard through
         # the outage window
-        deadline = time.monotonic() + timeout / 2
-        reached = False
-        while time.monotonic() < deadline and cli.poll() is None:
-            try:
-                with open(shards_log) as f:
-                    lines = f.read().splitlines()
-            except OSError:
-                lines = []
-            fetches = [i for i, ln in enumerate(lines)
-                       if ln.startswith("fetch ")]
-            if len(fetches) >= KILL_AFTER_FETCHES and sum(
-                    1 for ln in lines[fetches[KILL_AFTER_FETCHES - 1]:]
-                    if ln.startswith("step ")) >= KILL_AFTER_STEPS:
-                reached = True
-                break
-            time.sleep(0.005)
-        if not reached:
+        if not _wait_shards(os.path.join(marker, "shards.log"), cli,
+                            timeout / 2):
             report.update(error="worker never reached the kill point",
                           cli_rc=cli.poll())
             return report
@@ -978,7 +1177,7 @@ def master_kill(model: str = "nano", device: str = "cuda",
         kill_t = time.time()
         time.sleep(outage_s)
         spawn_master()
-        if not wait_up(60.0):
+        if not _wait_up(addr, 60.0):
             report["error"] = "the restarted master never came up"
             return report
         restart_t = time.time()
@@ -993,69 +1192,10 @@ def master_kill(model: str = "nano", device: str = "cuda",
 
         # ------------------------------------------------------ invariants
         report["cli_rc"] = cli.returncode
-        report["worker_generations"] = sum(
-            1 for f in os.listdir(marker) if f.startswith("start_r"))
-        done_path = os.path.join(marker, "done")
-        report["completed"] = os.path.exists(done_path)
-        payload: Dict = {}
-        if report["completed"]:
-            with open(done_path) as f:
-                payload = json.load(f)
-        stats = payload.get("stats", {})
-        report["degraded"] = stats
-        led = payload.get("ledger", {})
-        states = led.get("states", {})
-        report["ledger"] = {
-            "degraded_s": float(states.get("degraded", 0.0)),
-            "productive_s": float(states.get("productive", 0.0)),
-            "goodput_fraction": float(led.get("goodput_fraction", 0.0))}
-        report["launches"] = payload.get("launches", {})
-        fetched, completed, stamps, losses = [], [], [], []
-        try:
-            with open(shards_log) as f:
-                for ln in f:
-                    parts = ln.split()
-                    if parts[0] == "fetch":
-                        fetched.append((int(parts[3]), int(parts[4])))
-                    elif parts[0] == "done":
-                        completed.append((int(parts[3]), int(parts[4])))
-                    elif parts[0] == "step":
-                        stamps.append(float(parts[1]))
-                        losses.append(parts[3])
-        except OSError:
-            pass
-        # exact tiling: completed ranges cover [0, dataset_size) once
-        covered = sorted(completed)
-        tiles_ok = (sum(e - s for s, e in covered) == dataset_size
-                    and all(covered[i][1] == covered[i + 1][0]
-                            for i in range(len(covered) - 1))
-                    and bool(covered) and covered[0][0] == 0
-                    and covered[-1][1] == dataset_size)
-        report["shards_fetched"] = len(fetched)
-        report["shards_completed"] = len(completed)
-        report["no_shard_lost_or_double"] = bool(
-            tiles_ok and len(fetched) == len(completed))
-        report["steps"] = len(losses)
-        report["steps_in_outage"] = sum(
-            1 for t in stamps if kill_t <= t <= restart_t)
-        ref = reference["losses"]
-        report["losses_bitwise"] = losses == ref
-        if losses != ref:
-            report["first_loss_mismatch"] = next(
-                (i for i, (a, b) in enumerate(zip(losses, ref)) if a != b),
-                min(len(losses), len(ref)))
-        ideal = reference["step_s"]
-        report["ideal_step_s"] = ideal
-        if stamps:
-            span = max(stamps) - min(stamps) + ideal
-            report["goodput_wall"] = len(ref) * ideal / span
-        else:
-            report["goodput_wall"] = 0.0
-        report["heartbeats_buffered"] = stats.get("buffered_total", 0)
-        report["buffer_drained"] = (stats.get("pending", 1) == 0
-                                    and stats.get("dropped_total", 1) == 0)
-        report["epoch_bumped"] = 2 in stats.get("epochs_seen", [])
-        report["reregistered"] = stats.get("reregistrations", 0) >= 1
+        payload = _worker_report(report, marker, reference, dataset_size,
+                                 (kill_t, restart_t))
+        report["epoch_bumped"] = 2 in report["degraded"].get(
+            "epochs_seen", [])
         # the journaled task verbs' host time, before the kill and after
         # the restart (a call the outage held is in neither)
         rpc: Dict = {}
@@ -1085,6 +1225,33 @@ def master_kill(model: str = "nano", device: str = "cuda",
         finally:
             mc.close()
 
+        # -------------------------------------------- incident timeline
+        live, offline, equal = live_timeline(addr, ckpt_dir, [journal_dir])
+        report["timeline_events"] = live.events
+        report["timeline_byte_equal"] = equal
+        report["timeline_causal"] = _causal(offline)
+        report["timeline_epochs"] = offline["counts"]["epochs"]
+        deg_lost = sum(float(i.get("lost_s", 0.0))
+                       for i in offline["narrative"]["incidents"]
+                       if i.get("attributed_state") == "degraded")
+        report["timeline_degraded_s"] = deg_lost
+        report["timeline_attribution_ok"] = abs(
+            deg_lost - report["ledger"]["degraded_s"]) <= 0.05
+        # the offline CLI on the same artifacts must hash to the live bytes
+        p = subprocess.run(
+            [sys.executable, "-m",
+             "dlrover_wuqiong_tpu_torch.telemetry.incident_report",
+             "--journal", journal_dir, "--flight", ckpt_dir],
+            capture_output=True, text=True, env=env, cwd=work, timeout=120)
+        try:
+            cli_line = json.loads(p.stdout)
+        except ValueError:
+            cli_line = {}
+        report["incident_report_rc"] = p.returncode
+        report["incident_report_sha_match"] = bool(
+            p.returncode == 0 and cli_line.get("timeline_sha256")
+            == tl.incident_sha256(live.content))
+
         report["ok"] = bool(
             report["completed"] and cli.returncode == 0
             and report["worker_generations"] == 1
@@ -1096,34 +1263,329 @@ def master_kill(model: str = "nano", device: str = "cuda",
             and report["epoch_bumped"] and report["reregistered"]
             and report["ledger"]["degraded_s"] > 0
             and report["ledger"]["productive_s"] > 0
-            and report["goodput_wall"] >= target
+            and target <= report["goodput_wall"] <= 1.0
             and report["journal_group_commit"]["enabled"]
-            and report["journal_group_commit"]["group_commit"])
+            and report["journal_group_commit"]["group_commit"]
+            and report["timeline_byte_equal"]
+            and report["timeline_causal"]
+            and report["timeline_epochs"] == [1, 2]
+            and report["timeline_attribution_ok"]
+            and report["incident_report_sha_match"])
         return report
     finally:
-        for proc in masters + ([cli] if cli is not None else []):
-            if proc.poll() is None:
-                proc.kill()
-            proc.wait(timeout=10)
-        if not report.get("ok"):
-            for name in ("master1.log", "master2.log", "launcher.log"):
-                try:
-                    with open(os.path.join(work, name)) as f:
-                        report[f"{name[:-4]}_tail"] = f.read()[-2000:]
-                except OSError:
-                    pass
-        for seg in os.listdir("/dev/shm") if os.path.isdir("/dev/shm") \
-                else []:
-            if seg.startswith(f"{job}_"):
-                try:
-                    os.unlink(os.path.join("/dev/shm", seg))
-                except OSError:
-                    pass
-        shutil.rmtree(work, ignore_errors=True)
+        _teardown(report, work, job,
+                  masters + ([cli] if cli is not None else []),
+                  ("master1.log", "master2.log", "launcher.log"))
+
+
+def _teardown(report: Dict, work: str, job: str, procs: List,
+              logs: tuple):
+    """Kill what is left of a drill's processes, keep the logs' tails in
+    a failed report, unlink the job's segments, remove the work dir."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=10)
+    if not report.get("ok"):
+        for name in logs:
+            try:
+                with open(os.path.join(work, name)) as f:
+                    report[f"{name[:-4]}_tail"] = f.read()[-2000:]
+            except OSError:
+                pass
+    for seg in os.listdir("/dev/shm") if os.path.isdir("/dev/shm") else []:
+        if seg.startswith(f"{job}_"):
+            try:
+                os.unlink(os.path.join("/dev/shm", seg))
+            except OSError:
+                pass
+    shutil.rmtree(work, ignore_errors=True)
+
+
+#: the failover drill's lease ttl: the primary heartbeats a lease frame
+#: every ttl / 3 and the standby promotes after ttl of silence.  One
+#: lease append is one fsync (1-3.5 ms host time on the chip host's disk,
+#: PERF.md), so a 1.0 s ttl leaves ~100 fsyncs of slack per beat and
+#: cannot expire spuriously, while detection stays under the ~1.5 s the
+#: master-kill drill's outage costs
+FAILOVER_LEASE_TTL = 1.0
+
+
+def _folded_line(log_path: str) -> Dict:
+    """What the standby logged at its promotion: {"frames_folded",
+    "snapshots", "last_seq", "epoch"}."""
+    import re
+
+    try:
+        with open(log_path) as f:
+            text = f.read()
+    except OSError:
+        return {}
+    out: Dict = {}
+    m = re.search(r"standby folded (\d+) frames \((\d+) snapshots\)", text)
+    if m:
+        out.update(frames_folded=int(m.group(1)),
+                   snapshots=int(m.group(2)))
+    m = re.search(r"PROMOTED to leader: epoch (\d+) .* last mirrored seq "
+                  r"(\d+)", text)
+    if m:
+        out.update(epoch=int(m.group(1)), last_seq=int(m.group(2)))
+    return out
+
+
+def master_failover(model: str = "nano", device: str = "cuda",
+                    lease_ttl: float = FAILOVER_LEASE_TTL,
+                    target: float = 0.5, timeout: float = 240.0,
+                    reference: Dict = None) -> Dict:
+    """SIGKILL the PRIMARY master; a warm standby takes over, fenced.
+
+    Parity: dlrover_wuqiong_tpu/chaos.py `master_failover` (:2030-2400),
+    on the port, with `master_kill`'s worker: the primary
+    (``python -m dlrover_wuqiong_tpu_torch.master --lease-ttl --peer``)
+    heartbeats a lease into its journal, a standby (``--standby-of``)
+    tails that journal over the fetch verb, and the worker, under the
+    port's launcher with the endpoint list ``"primary,standby"``, trains
+    the drill's GPT on `device` from the shards the masters hand out.
+    After fetch `KILL_AFTER_FETCHES` and `KILL_AFTER_STEPS` of its steps
+    the primary is SIGKILLed; after ``lease_ttl`` of lease silence the
+    standby journals a ``failover`` frame and promotes at epoch old + 2.
+    Invariants, the JAX drill's:
+
+    - the worker never restarts (one generation), the launcher exits 0,
+      and the worker's endpoint list rotated at least once;
+    - dataset ranges tile exactly across the takeover, and every one of
+      the losses is bitwise `reference`'s (only the same ranges in the
+      same order give that; idem-keyed retries apply once under the new
+      epoch);
+    - the buffer drains (pending 0, dropped 0), the worker saw the
+      promoted epoch (old + 2) and re-registered; its ledger shows
+      degraded and productive seconds;
+    - the standby fetched before the kill (lag >= 0);
+    - the promotion gap (SIGKILL to the standby answering as leader) is
+      below the restart baseline measured in THIS run — the corpse
+      revived on its own journal, spawn to serving — plus the same
+      lease-ttl detection floor (no supervisor restarts a master it has
+      not yet declared dead).  No fixed number;
+    - the revived corpse fences itself through ``--peer``: it answers
+      read verbs, and a mutating verb bounces with ``NotLeaderError``;
+    - the live timeline of the promoted master over both journal dirs
+      is byte-equal to the offline assembly, every journal event
+      appears once in (epoch, seq) order, and the takeover narrates as
+      a ``failover`` incident;
+    - the wall-clock goodput lies in [`target`, 1], its ideal step the
+      worker's own (`worker_goodput`).
+
+    The report also carries the primary's shipping gauges just before
+    the kill, what the standby folded before it promoted (from its
+    log), the steps inside the failover and the worker's launches.
+    """
+    from .common import messages as msg
+    from .common.comm import RpcClient, RpcError, find_free_port
+
+    geo = MASTER_KILL[model]
+    dataset_size, batch, minibatches, seq = (
+        geo[k] for k in ("dataset_size", "batch", "minibatches", "seq"))
+    if reference is None:
+        reference = master_kill_reference(model, device)
+    work = tempfile.mkdtemp(prefix="dwt-torch-failover-")
+    marker = os.path.join(work, "markers")
+    ckpt_dir = os.path.join(work, "ckpt")
+    jd_primary = os.path.join(work, "journal-primary")
+    jd_standby = os.path.join(work, "journal-standby")
+    os.makedirs(marker)
+    script = os.path.join(work, "worker.py")
+    with open(script, "w") as f:
+        f.write(_MASTER_KILL_WORKER)
+    job = _drill_job("failover")
+    port_p, port_sb = find_free_port(), find_free_port()
+    addr_p, addr_sb = f"127.0.0.1:{port_p}", f"127.0.0.1:{port_sb}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, DWT_JOB_NAME=job,
+               DWT_SOCKET_DIR=os.path.join(work, "sockets"),
+               PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("DWT_MASTER_ADDR", None)
+    procs: List = []
+
+    def spawn(log_name: str, port: int, jd: str, *flags):
+        with open(os.path.join(work, log_name), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "dlrover_wuqiong_tpu_torch.master",
+                 f"--port={port}", "--min_nodes=1", "--max_nodes=1",
+                 f"--journal-dir={jd}", "--poll-interval=0.5",
+                 f"--lease-ttl={lease_ttl}", *flags],
+                env=env, cwd=work, stdout=log, stderr=subprocess.STDOUT))
+        return procs[-1]
+
+    def probe(addr: str, timeout_s: float = 2.0):
+        """One JournalStatsQuery, None on any failure."""
+        client = RpcClient(addr, node_id=-4, node_type="probe",
+                           timeout=timeout_s, retries=1,
+                           base_delay_s=0.02, max_delay_s=0.05)
+        try:
+            return client.get(msg.JournalStatsQuery())
+        except RpcError:
+            return None
+        finally:
+            client.close()
+
+    report: Dict = {"scenario": "master-failover", "model": model,
+                    "device": device, "dataset_size": dataset_size,
+                    "batch": batch, "minibatches": minibatches, "seq": seq,
+                    "lease_ttl": lease_ttl, "ok": False}
+    cli = None
+    try:
+        primary = spawn("primary.log", port_p, jd_primary,
+                        f"--peer={addr_sb}")
+        if not _wait_up(addr_p, 30.0):
+            report["error"] = "primary never came up"
+            return report
+        spawn("standby.log", port_sb, jd_standby, f"--standby-of={addr_p}")
+        if not _wait_up(addr_sb, 30.0):
+            report["error"] = "standby never came up"
+            return report
+        # gate the start on the mirror flowing: the primary's shipping
+        # gauges go live on the standby's first fetch
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            s = probe(addr_p)
+            if s is not None and s.standby_lag_frames >= 0:
+                break
+            time.sleep(0.05)
+        else:
+            report["error"] = "standby never fetched"
+            return report
+        with open(os.path.join(work, "launcher.log"), "w") as log:
+            cli = subprocess.Popen(
+                [sys.executable, "-m", "dlrover_wuqiong_tpu_torch.run",
+                 "--nnodes=1", "--nproc_per_node=1", "--max_restarts=2",
+                 script, marker, ckpt_dir, model, device,
+                 str(dataset_size), str(batch), str(minibatches), str(seq)],
+                env=dict(env, DWT_MASTER_ADDR=f"{addr_p},{addr_sb}"),
+                cwd=work, stdout=log, stderr=subprocess.STDOUT)
+        procs.append(cli)
+        if not _wait_shards(os.path.join(marker, "shards.log"), cli,
+                            timeout / 2):
+            report.update(error="worker never reached the kill point",
+                          cli_rc=cli.poll())
+            return report
+        pre = probe(addr_p)
+        report["pre_kill"] = {
+            "durable_seq": getattr(pre, "durable_seq", -1),
+            "shipped_seq": getattr(pre, "shipped_seq", -1),
+            "standby_lag_frames": getattr(pre, "standby_lag_frames", -2),
+            "epoch": getattr(pre, "epoch", -1)}
+        primary.kill()  # SIGKILL — no snapshot, no goodbye
+        primary.wait(timeout=10)
+        # wall clock: it brackets the step stamps the worker logs
+        kill_t = time.time()
+        promoted_t = -1.0
+        deadline = time.monotonic() + lease_ttl * 10 + 60.0
+        while time.monotonic() < deadline:
+            s = probe(addr_sb, timeout_s=1.0)
+            if s is not None and s.is_leader:
+                promoted_t = time.time()
+                report["promoted_epoch"] = s.epoch
+                break
+            time.sleep(0.01)
+        if promoted_t < 0:
+            report["error"] = "standby never promoted"
+            return report
+        report["promotion_gap_s"] = promoted_t - kill_t
+        try:
+            cli.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            cli.kill()
+            cli.wait()
+
+        # ------------------------------------------------------ invariants
+        report["cli_rc"] = cli.returncode
+        _worker_report(report, marker, reference, dataset_size,
+                       (kill_t, promoted_t))
+        stats = report["degraded"]
+        report["client_failovers"] = stats.get("failovers", 0)
+        report["epoch_fenced"] = (
+            report["promoted_epoch"] == report["pre_kill"]["epoch"] + 2
+            and report["promoted_epoch"] in stats.get("epochs_seen", []))
+        report["standby"] = _folded_line(os.path.join(work, "standby.log"))
+
+        # ------------------------------------ restart-the-world baseline
+        # revive the corpse on its own journal: spawn to serving is the
+        # restart gap master_kill measures, in the SAME run; the whole
+        # restart-the-world cost adds the same detection floor the
+        # standby waited out, so the measured mechanics (promote in place
+        # against spawn + import + replay) decide
+        spawn_t = time.monotonic()
+        spawn("corpse.log", port_p, jd_primary, f"--peer={addr_sb}")
+        if not _wait_up(addr_p, 60.0):
+            report["error"] = "corpse never came back"
+            return report
+        report["restart_gap_s"] = time.monotonic() - spawn_t
+        report["restart_the_world_s"] = report["restart_gap_s"] + lease_ttl
+        report["promotion_beats_restart"] = (
+            report["promotion_gap_s"] < report["restart_the_world_s"])
+
+        # ------------------------------------------------ split-brain gate
+        cs = probe(addr_p)
+        report["corpse_fenced"] = bool(
+            cs is not None and not cs.is_leader
+            and cs.epoch < report["promoted_epoch"])
+        corpse = RpcClient(addr_p, node_id=-4, node_type="probe",
+                           timeout=2.0, retries=1)
+        try:
+            report["corpse_read_ok"] = not corpse.get(
+                msg.KVStoreGetRequest(key="chaos-fo")).found
+            try:
+                corpse.report(msg.KVStoreSetRequest(key="chaos-fo",
+                                                    value=b"split"))
+                report["corpse_mutation_refused"] = False
+            except RpcError as e:
+                report["corpse_mutation_refused"] = \
+                    "NotLeaderError" in str(e)
+        finally:
+            corpse.close()
+
+        # ---------------------------------------- incident timeline gate
+        live, offline, equal = live_timeline(addr_sb, ckpt_dir,
+                                             [jd_standby, jd_primary])
+        report["timeline_events"] = live.events
+        report["timeline_byte_equal"] = equal
+        report["timeline_causal"] = _causal(offline, jd_standby,
+                                            jd_primary)
+        report["timeline_incidents"] = [
+            i["kind"] for i in offline["narrative"]["incidents"]]
+        report["timeline_failover_incident"] = \
+            "failover" in report["timeline_incidents"]
+
+        report["ok"] = bool(
+            report["completed"] and cli.returncode == 0
+            and report["worker_generations"] == 1
+            and report["no_shard_lost_or_double"]
+            and report["losses_bitwise"]
+            and report["heartbeats_buffered"] > 0
+            and report["buffer_drained"]
+            and report["client_failovers"] >= 1
+            and report["epoch_fenced"] and report["reregistered"]
+            and report["ledger"]["degraded_s"] > 0
+            and report["ledger"]["productive_s"] > 0
+            and target <= report["goodput_wall"] <= 1.0
+            and report["pre_kill"]["standby_lag_frames"] >= 0
+            and report["promotion_beats_restart"]
+            and report["corpse_fenced"]
+            and report["corpse_read_ok"]
+            and report["corpse_mutation_refused"]
+            and report["timeline_byte_equal"]
+            and report["timeline_causal"]
+            and report["timeline_failover_incident"])
+        return report
+    finally:
+        _teardown(report, work, job, procs,
+                  ("primary.log", "standby.log", "corpse.log",
+                   "launcher.log"))
 
 
 SCENARIOS = {"serve-drain": serve_drain, "ckpt-corrupt": ckpt_corrupt,
-             "master-kill": master_kill}
+             "master-kill": master_kill, "master-failover": master_failover}
 
 
 def main(argv=None) -> int:
@@ -1141,7 +1603,7 @@ def main(argv=None) -> int:
             raise ValueError(
                 f"scenario {name!r} is not ported: the port has "
                 f"{list(SCENARIOS)}; the other drills come with ROADMAP "
-                f"items 7b and 13")
+                f"items 7b part 3 and 13")
         report = fn(device=device)
         print(json.dumps(report))
         ok = ok and report.get("ok", False)

@@ -6,8 +6,10 @@ bytes go on the wire, so a JAX client talks to the port's master and the
 port's client to a JAX master (tests/test_torch_serving_worker.py).  The
 transport is a length-prefixed JSON protocol over TCP — dependency-free,
 testable in-process, and the payloads are the typed messages from
-`messages.py`.  The port's master keeps no journal yet (ROADMAP item 15),
-so it serves epoch 1 for its whole life and replays idem keys from memory.
+`messages.py`.  A port master on a journal bumps its epoch at each
+restart, and a promoted standby serves the epoch above (master/journal.py,
+master/standby.py); a master without one serves epoch 1 for its whole
+life and replays idem keys from memory.
 
 Master fault tolerance rides in the envelope:
 

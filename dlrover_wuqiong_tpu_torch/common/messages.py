@@ -6,15 +6,19 @@ verb of the port carries), the rendezvous records (:90-126), `NodeMeta` (:155), 
 reply (:166-181), `NodeEventReport` (:184), `NodeFailure` (:194),
 `GlobalStep` (:205), `ModelInfo` and `CustomMetric` (:220-230), the
 goodput ledger's records (:234-268), `JournalStatsQuery` and
-`JournalStats` (:307-344), the ``KVStore*`` records
-(:383-409) and every ``Serve*`` record (:561-686), copied with the same
+`JournalStats` (:307-344), `FetchJournalRequest` and
+`FetchJournalResponse` (:347-375), the ``KVStore*`` records
+(:383-409), every ``Serve*`` record (:561-686) and `TimelineQuery` /
+`TimelineResponse` (:692-715), copied with the same
 names, fields, defaults and order, and registered under the same names
 by ``@message``, so the port's frames are byte-equal to the JAX
 package's (`analysis/schema.lock.json` pins the JAX side;
 tests/test_torch_serving_worker.py and tests/test_torch_elastic.py hold
 the two equal; tests/test_torch_master_restart.py the sharding and
-journal records).  The other messages come with the verbs that carry
-them (ROADMAP items 7b, 13 and 15).
+journal records; tests/test_torch_standby.py and
+tests/test_torch_timeline.py the shipping and timeline records).  The
+other messages come with the verbs that carry them (ROADMAP items 7b
+part 3, 13 and 15).
 """
 
 from __future__ import annotations
@@ -277,6 +281,38 @@ class JournalStats:
     is_leader: bool = True
 
 
+@message
+class FetchJournalRequest:
+    """Standby → primary: pull journal frames after ``from_seq``
+    (POLLING class, read-only — NEVER journaled: shipping must not
+    write to the log it ships).  The standby's own durable seq is the
+    cursor, so a dropped response or torn batch tail is re-fetched
+    idempotently — frames are immutable once durable."""
+
+    node_id: int = -1
+    from_seq: int = 0
+    max_frames: int = 256
+
+
+@message
+class FetchJournalResponse:
+    """One shipped batch, frames VERBATIM (raw encoded journal lines).
+
+    ``snapshot`` is non-empty only when compaction truncated the
+    requested range: the standby applies its state first, then the tail
+    (which resumes at the compaction epoch marker).  ``durable_seq`` is
+    the primary's watermark at serve time — the standby's lag signal;
+    ``lease_epoch`` carries the primary's current leadership epoch so a
+    tailing standby tracks it even between lease frames."""
+
+    snapshot: bytes = b""
+    snapshot_seq: int = 0
+    frames: List[bytes] = field(default_factory=list)
+    durable_seq: int = 0
+    epoch: int = 0
+    lease_epoch: int = 0
+
+
 # ---------------------------------------------------------------- kv store
 
 
@@ -438,3 +474,34 @@ class ServeSummary:
     ttft_p50_ms: float = 0.0
     ttft_p99_ms: float = 0.0
     rps: float = 0.0
+
+
+# ------------------------------------------------------------ incident timeline
+
+
+@message
+class TimelineQuery:
+    """Client → master: assemble the incident timeline (POLLING class,
+    read-only — never journaled).  The master answers from its own disk
+    artifacts (journal dir + the optional ``ckpt_dir`` flight-dump root),
+    so the offline reconstruction from the same artifacts
+    (telemetry/incident_report.py) is byte-equal to
+    ``TimelineResponse.content``."""
+
+    node_id: int = -1
+    ckpt_dir: str = ""
+    # extra journal dirs to merge in (epoch, seq) order — after a
+    # failover the incident spans BOTH masters' journals; the answering
+    # master puts its own dir first, then these, and the offline CLI
+    # passing the same ordered list reproduces the bytes exactly
+    journal_dirs: List[str] = field(default_factory=list)
+
+
+@message
+class TimelineResponse:
+    """``content`` is the canonical incident JSON
+    (telemetry/timeline.py incident_json: events + narrative + counts);
+    ``events`` is the merged stream length for a cheap sanity check."""
+
+    content: str = ""
+    events: int = 0

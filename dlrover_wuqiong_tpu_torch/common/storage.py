@@ -4,7 +4,7 @@ Parity: a copy of dlrover_wuqiong_tpu/common/storage.py (stdlib only)
 without `ObjectStoreStorage`, which needs ``etils``: `CheckpointStorage`,
 `PosixDiskStorage`, `register_storage` and `get_checkpoint_storage`.  An
 object-store path (``gs://``, ``s3://``, ``az://``) raises
-`NotImplementedError` until ROADMAP item 6b brings that backend.
+`NotImplementedError` until ROADMAP item 6c brings that backend.
 """
 
 from __future__ import annotations
@@ -128,7 +128,7 @@ def get_checkpoint_storage(meta: Optional[Dict] = None,
         if path_hint.startswith(_OBJECT_SCHEMES):
             raise NotImplementedError(
                 f"{path_hint!r}: object-store checkpoint storage is not "
-                "ported yet (ROADMAP queue 1 item 6b); use a POSIX path")
+                "ported yet (ROADMAP queue 1 item 6c); use a POSIX path")
         return PosixDiskStorage()
     cls = _STORAGE_REGISTRY.get(meta.get("class_name", "PosixDiskStorage"),
                                 PosixDiskStorage)

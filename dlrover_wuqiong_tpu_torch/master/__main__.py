@@ -8,10 +8,15 @@ replays the state, bumps the fencing epoch, and the workers ride through
 (the package's ``__init__`` defers it), so a restart pays the
 interpreter and the journal's replay, not torch's import.
 
-Left out, each raising with the ROADMAP item that brings it:
-``--policy`` and ``--policy-prior`` (the adaptive policy engine, item
-15), ``--standby-of``, ``--peer`` and ``--lease-ttl`` (warm standby and
-fenced failover, item 7b).
+Warm standby (master/standby.py): ``--standby-of HOST:PORT`` starts the
+process as a journal-tailing mirror of a running primary that promotes
+itself with a fenced epoch bump when the leadership lease expires;
+``--lease-ttl`` arms the lease on both sides, and ``--peer`` lets a
+revived primary find that it was failed over and stay fenced read-only
+(`chaos.master_failover` is the drill).
+
+Left out, raising with the ROADMAP item that brings them: ``--policy``
+and ``--policy-prior`` (the adaptive policy engine, item 15).
 """
 
 from __future__ import annotations
@@ -23,8 +28,7 @@ from typing import List, Optional
 from .master import run_master_forever
 
 #: the JAX master's flags this one does not take, with their items
-UNPORTED_FLAGS = {"policy": "15", "policy_prior": "15", "standby_of": "7b",
-                  "peer": "7b", "lease_ttl": "7b"}
+UNPORTED_FLAGS = {"policy": "15", "policy_prior": "15"}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -55,10 +59,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--policy-prior", default="",
                    help="not ported (ROADMAP item 15)")
     p.add_argument("--standby-of", default="",
-                   help="not ported (ROADMAP item 7b)")
-    p.add_argument("--peer", default="", help="not ported (ROADMAP item 7b)")
+                   help="run as a warm standby tailing this primary "
+                        "(HOST:PORT); requires --journal-dir for the "
+                        "mirror, promotes on lease expiry")
+    p.add_argument("--peer", default="",
+                   help="the OTHER master's HOST:PORT: a restarting "
+                        "primary probes it and self-fences read-only if "
+                        "a standby was promoted meanwhile")
     p.add_argument("--lease-ttl", type=float, default=0.0,
-                   help="not ported (ROADMAP item 7b)")
+                   help="leadership lease ttl seconds (0 disables HA: "
+                        "no lease frames, a standby never promotes)")
     args = p.parse_args(argv)
     given = [name for name in UNPORTED_FLAGS if getattr(args, name)]
     if given:
@@ -71,7 +81,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         journal_dir=args.journal_dir or None,
         poll_interval=args.poll_interval, max_seconds=args.max_seconds,
         group_commit_max_frames=args.group_commit_max_frames,
-        group_commit_max_wait_ms=args.group_commit_max_wait_ms)
+        group_commit_max_wait_ms=args.group_commit_max_wait_ms,
+        standby_of=args.standby_of, peer=args.peer,
+        lease_ttl_s=args.lease_ttl)
 
 
 if __name__ == "__main__":

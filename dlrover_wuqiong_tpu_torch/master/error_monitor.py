@@ -69,7 +69,8 @@ TRANSIENT_CLASSES = {"unknown", "preempted", "network"}
 # can be disambiguated by the policy engine's preemption-rate estimate —
 # during a kill storm the prior says preemption, and misclassifying it
 # host_oom lets the repeated-class cutoff stop a rank that elasticity
-# should keep relaunching (ROADMAP item 2).
+# should keep relaunching (the estimate comes with the policy engine,
+# ROADMAP item 15).
 _EXIT_137 = re.compile(r"exit_code=137", re.I)
 _EXPLICIT_OOM = re.compile(
     r"MemoryError|oom[-_ ]?kill|Cannot allocate memory|out of memory",

@@ -3,7 +3,7 @@
 Parity: dlrover_wuqiong_tpu/master/journal.py — `MasterJournal` (:141-657)
 and `IdemCache` (:660-709), copied (stdlib only) with the same frame
 format, file names and knobs, so either package's master replays the
-other's journal:
+other's journal, and either package's standby tails the other's:
 
 - one frame per line of ``journal.frames`` (`serialize.dumps`, compact
   JSON with no raw newline): ``{"seq", "kind", "ts", "data"}``, ``seq``
@@ -32,12 +32,19 @@ other's journal:
   (0: a lone writer pays no linger) and the benchmark-only
   ``DWT_JOURNAL_FSYNC_FLOOR_MS`` (0).
 
-Left out: the shipping half (`fetch_batch`, `_note_shipped`,
-`ingest_snapshot`, `ingest_frames` and the ship ring, :384-561), which
-serves a warm-standby master tailing this log; it comes with standby
-masters (ROADMAP item 7b).  `group_commit_stats` reports the shipping
-gauges at their no-standby values (``shipped_seq`` 0,
-``standby_lag_frames`` -1).
+- shipping to a warm standby (master/standby.py, :384-561): each
+  committed batch is mirrored into an in-memory ring
+  (``DWT_JOURNAL_SHIP_RING`` frames, 4096); `fetch_batch` serves the
+  durable frames after a standby's seq VERBATIM from the ring, or from
+  the log file and the snapshot once compaction or the ring outran it;
+  `ingest_frames` appends shipped frames verbatim (whole frames only,
+  contiguous seqs), so a standby's log is a byte prefix of its
+  primary's; `ingest_snapshot` adopts the primary's snapshot frame
+  after a compaction; `group_commit_stats` reports ``shipped_seq`` and
+  ``standby_lag_frames`` (-1 until a standby fetched).  Every decode
+  here is lenient too: a port standby mirrors a JAX primary's
+  ``paral`` / ``policy`` frames byte for byte instead of stopping at
+  them.
 
 Layout under ``dir``:
   journal.frames   append-only event log (truncated at each compaction)
@@ -50,8 +57,8 @@ import json
 import os
 import threading
 import time
-from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Tuple
+from collections import OrderedDict, deque
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 from ..common import serialize
 from ..common.log import get_logger
@@ -100,6 +107,14 @@ def _default_fsync_floor_ms() -> float:
     return max(0.0, float(_env_int("DWT_JOURNAL_FSYNC_FLOOR_MS", 0)))
 
 
+def _default_ship_ring_frames() -> int:
+    """Ship-ring capacity (frames).  The ring only has to cover the
+    standby's poll interval worth of traffic; a fetch that outruns it
+    falls back to the log file (and the snapshot after compaction), so
+    a small ring is a perf knob, never a correctness one."""
+    return max(16, _env_int("DWT_JOURNAL_SHIP_RING", 4096))
+
+
 class MasterJournal:
     """Event log + snapshot/compaction for one master's control plane."""
 
@@ -133,6 +148,14 @@ class MasterJournal:
         self._batches = 0
         self._frames_committed = 0
         self._batch_max = 0
+        # journal shipping: committed frames mirrored for standby pulls
+        # (fetch_batch).  _shipped_seq tracks the highest seq a standby
+        # has confirmed holding (its from_seq) or been served;
+        # _ship_fetches==0 means no standby ever attached (lag gauge -1).
+        self._ship_ring: Deque[Tuple[int, bytes]] = deque(
+            maxlen=_default_ship_ring_frames())
+        self._shipped_seq = 0
+        self._ship_fetches = 0
         self._fh = None
         self._seq = 0
         self.epoch = 0
@@ -302,6 +325,10 @@ class MasterJournal:
                 self._batches += 1
                 self._frames_committed += len(batch)
                 self._batch_max = max(self._batch_max, len(batch))
+                # mirror the now-durable frames for standby pulls: a
+                # deque extend of already-encoded bytes — shipping never
+                # adds I/O or waiting to the commit path
+                self._ship_ring.extend(batch)
                 self._cond.notify_all()
 
     def group_commit_stats(self) -> Dict[str, Any]:
@@ -319,11 +346,190 @@ class MasterJournal:
                 "batch_mean": (frames / batches) if batches else 0.0,
                 "batch_max": self._batch_max,
                 "durable_seq": self._durable_seq,
-                # the shipping gauges at their no-standby values (the
-                # shipping half comes with standby masters, item 7b)
-                "shipped_seq": 0,
-                "standby_lag_frames": -1,
+                # shipped_seq is the highest seq a standby holds or was
+                # served; lag is the frame gap a failover right now
+                # would lose from THIS journal's view (-1 = no standby
+                # ever fetched)
+                "shipped_seq": self._shipped_seq,
+                "standby_lag_frames": (
+                    self._durable_seq - self._shipped_seq
+                    if self._ship_fetches else -1),
             }
+
+    # ------------------------------------------------------------- shipping
+
+    def fetch_batch(self, from_seq: int, max_frames: int = 256
+                    ) -> Tuple[bytes, int, List[bytes], int]:
+        """Serve one standby pull: frames AFTER ``from_seq``, verbatim.
+
+        Returns ``(snapshot_raw, snapshot_seq, frames, durable_seq)``.
+        ``snapshot_raw`` is non-empty only when compaction already
+        truncated the requested range — the standby must apply the
+        snapshot state first, then the tail frames (which resume at the
+        compaction epoch marker).  Only durable frames are ever shipped:
+        the standby must never be AHEAD of what the primary acked.
+
+        Fast path is the in-memory ring (no I/O, one lock hop); the
+        disk fallback reads outside the lock and tolerates a torn tail
+        and a concurrent compaction swap (worst case: a gap the standby
+        detects and re-fetches — the next pull sees the new snapshot).
+        """
+        max_frames = max(1, min(int(max_frames), 4096))
+        with self._cond:
+            durable = self._durable_seq
+            self._ship_fetches += 1
+            self._shipped_seq = max(self._shipped_seq, from_seq)
+            if from_seq >= durable:
+                return b"", 0, [], durable
+            ring = list(self._ship_ring)
+        frames: List[bytes] = []
+        if ring and ring[0][0] <= from_seq + 1:
+            for seq, raw in ring:
+                if seq <= from_seq or seq > durable:
+                    continue
+                frames.append(raw)
+                if len(frames) >= max_frames:
+                    break
+            self._note_shipped(frames)
+            return b"", 0, frames, durable
+        # ring outrun: disk fallback (snapshot + tail after compaction)
+        snap_raw, snap_seq = b"", 0
+        try:
+            with open(self._snap_path, "rb") as f:
+                snap_raw = f.read()
+            snap_seq = int(serialize.loads(snap_raw, strict=False)
+                           .get("seq", 0))
+        except (OSError, ValueError, json.JSONDecodeError):
+            snap_raw, snap_seq = b"", 0
+        if snap_seq <= from_seq:
+            snap_raw, snap_seq = b"", 0  # the standby already covers it
+        floor = max(from_seq, snap_seq)
+        try:
+            with open(self._path, "rb") as f:
+                lines = f.read().split(b"\n")
+        except OSError:
+            lines = []
+        for line in lines:
+            if not line.strip():
+                continue
+            try:
+                seq = int(serialize.loads(line, strict=False).get("seq", 0))
+            except (ValueError, json.JSONDecodeError):
+                break  # torn tail: whole frames only, never a partial
+            if seq <= floor or seq > durable:
+                continue
+            frames.append(line)
+            if len(frames) >= max_frames:
+                break
+        self._note_shipped(frames, extra=snap_seq)
+        return snap_raw, snap_seq, frames, durable
+
+    def _note_shipped(self, frames: List[bytes], extra: int = 0):
+        """Advance the shipped watermark past what this pull served."""
+        last = extra
+        if frames:
+            try:
+                last = max(last, int(serialize.loads(
+                    frames[-1], strict=False).get("seq", 0)))
+            except (ValueError, json.JSONDecodeError):
+                pass
+        if last:
+            with self._cond:
+                self._shipped_seq = max(self._shipped_seq, last)
+
+    def ingest_snapshot(self, raw: bytes) -> Tuple[Optional[Dict], int, int]:
+        """Standby bootstrap: adopt the primary's snapshot frame VERBATIM.
+
+        Publishes atomically (tmp + os.replace — a torn snapshot would
+        poison every later standby restart), resets the local log to
+        empty (the shipped tail resumes at the compaction marker), and
+        primes seq/epoch from the frame.  Returns ``(state, seq, epoch)``
+        for the caller to fold through ``_restore_snapshot``.
+        """
+        frame = serialize.loads(raw, strict=False)
+        seq = int(frame.get("seq", 0))
+        epoch = int(frame.get("epoch", 0))
+        self._acquire_fence()
+        try:
+            self._drain_fenced()
+            with self._lock:
+                tmp = f"{self._snap_path}.tmp.{os.getpid()}"
+                with open(tmp, "wb") as f:
+                    f.write(raw)
+                    f.flush()
+                    os.fsync(f.fileno())  # graftlint: disable=blocking-under-lock -- standby bootstrap critical section: the fence already excludes appends, and the snapshot must be durable before it replaces the old one
+                os.replace(tmp, self._snap_path)
+                if self._fh is not None:
+                    self._fh.close()
+                    self._fh = None
+                jtmp = self._path + ".tmp"
+                with open(jtmp, "wb") as f:
+                    f.flush()
+                    os.fsync(f.fileno())  # graftlint: disable=blocking-under-lock -- same bootstrap critical section: the emptied log must be durable before the swap
+                os.replace(jtmp, self._path)
+                self._seq = max(self._seq, seq)
+                self._durable_seq = self._seq
+                self.epoch = max(self.epoch, epoch)
+                self.entries_since_snapshot = 0
+        finally:
+            self._release_fence()
+        return frame.get("state"), seq, epoch
+
+    def ingest_frames(self, frames: List[bytes]) -> List[Dict]:
+        """Standby tail-fold: append shipped frames VERBATIM, durably.
+
+        Contiguity discipline: duplicates (seq already held) are
+        skipped, the first gap or torn frame STOPS the ingest — whole
+        frames only, and the tailer re-fetches from its durable seq, so
+        a torn batch tail shipped mid-batch can never corrupt the local
+        log.  Returns the parsed frames actually adopted, in order, for
+        the caller to fold through ``_apply_entry``.
+        """
+        accepted: List[Dict] = []
+        raws: List[bytes] = []
+        with self._cond:
+            while self._writer_active or self._fenced:
+                self._cond.wait(0.05)
+            for raw in frames:
+                try:
+                    frame = serialize.loads(raw, strict=False)
+                except (ValueError, json.JSONDecodeError):
+                    break  # torn frame shipped mid-batch: drop the rest
+                seq = int(frame.get("seq", 0))
+                if seq <= self._seq:
+                    continue  # re-fetch overlap: already durable here
+                if seq != self._seq + 1:
+                    break  # gap (compaction raced the pull): re-fetch
+                raws.append(raw)
+                accepted.append(frame)
+                self._seq = seq
+                if frame.get("kind") == "epoch":
+                    self.epoch = max(self.epoch,
+                                     int(frame.get("data", {})
+                                         .get("epoch", 0)))
+                else:
+                    self.entries_since_snapshot += 1
+            if not raws:
+                return accepted
+            self._writer_active = True
+        payload = b"".join(r + b"\n" for r in raws)
+        try:
+            try:
+                if self._fh is None:
+                    self._fh = open(self._path, "ab")
+                self._fh.write(payload)
+                self._fh.flush()
+                if self._fsync:
+                    os.fsync(self._fh.fileno())
+            except OSError:
+                logger.exception("standby ingest write failed (%d frames)",
+                                 len(raws))
+        finally:
+            with self._cond:
+                self._durable_seq = max(self._durable_seq, self._seq)
+                self._writer_active = False
+                self._cond.notify_all()
+        return accepted
 
     # ----------------------------------------------------------- fencing
 
@@ -398,6 +604,10 @@ class MasterJournal:
                         f.flush()
                         os.fsync(f.fileno())  # graftlint: disable=blocking-under-lock -- same compaction critical section: the fresh journal must be durable before the swap
                     os.replace(jtmp, self._path)
+                    # the marker bypasses _commit_batch: mirror it by
+                    # hand or the ship ring would carry a seq gap and a
+                    # tailing standby would spin on it forever
+                    self._ship_ring.append((self._seq, marker))
                 except OSError:
                     logger.exception("journal compaction failed")
                     return

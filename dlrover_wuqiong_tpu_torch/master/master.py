@@ -14,13 +14,29 @@ Parity: dlrover_wuqiong_tpu/master/master.py (`JobMaster`), with:
   `_apply_entry`), bumps the fencing epoch (`open_epoch`) and journals
   each world the rendezvous forms from then on; a clean `stop` compacts
   the journal into one snapshot frame; `journal_stats` answers the
-  group-commit gauges.  Replay folds the kinds ``dataset``,
-  ``dispatch``, ``task_result``, ``recover``, ``kv_set``, ``kv_add``,
-  ``rdzv_join``, ``rdzv_world``, ``node``, ``shard_ckpt`` and the three
-  ``serve_*`` kinds; a frame of a kind the port does not replay yet
-  (``paral`` and ``policy``: item 15; ``mesh_transition``, ``lease`` and
-  ``failover``: item 7b) logs a warning naming its item and replay goes
-  on, as JAX's does for an unknown kind (:377-378);
+  group-commit and shipping gauges.  Replay folds the kinds
+  ``dataset``, ``dispatch``, ``task_result``, ``recover``, ``kv_set``,
+  ``kv_add``, ``rdzv_join``, ``rdzv_world``, ``node``, ``shard_ckpt``,
+  the three ``serve_*`` kinds, ``lease`` and ``failover`` (:363-376);
+  a frame of a kind the port does not replay yet (``paral`` and
+  ``policy``: item 15; ``mesh_transition``: item 7b part 3) logs a
+  warning naming its item and replay goes on, as JAX's does for an
+  unknown kind (:377-378);
+- leadership (:56-66, :158-189, :406-550): a master started with
+  ``standby=True`` mirrors a primary's journal (master/standby.py folds
+  each shipped frame through `_apply_entry`) and is not the leader
+  until `promote_to_leader`, which journals a ``failover`` frame and
+  opens the epoch at observed + 2; a leader with ``lease_ttl_s``
+  heartbeats ``lease`` frames every ttl / 3 (`start_lease_heartbeat`);
+  with ``peer`` a master booting on a journal probes the peer's epoch
+  first and, when the peer is ahead, stays fenced read-only (the
+  servicer's `NotLeaderError` gate), and the lease thread fences the
+  same way mid-run; `fetch_journal` serves a standby's pull;
+  ``is_leader`` is written under one lock by the boot path, the lease
+  thread and the promotion;
+- `timeline_report` (:753-773): the incident timeline
+  (telemetry/timeline.py) over this master's journal dir and the
+  caller's, a pure function of the disk artifacts;
 - the telemetry the verbs carry: custom metrics (``dwt_*`` names observed
   into the registry, :561-576), node events (:578-591), the goodput
   ledger's latest-SENT-wins per node and its job summary (:593-637)
@@ -29,14 +45,13 @@ Parity: dlrover_wuqiong_tpu/master/master.py (`JobMaster`), with:
   `collect_serve_stats` (:701-720);
 - `start` (the JAX master's `prepare`), `stop`, `port`, `addr`, and
   `run`, the main loop's compaction cadence, dead-node sweep, exit
-  check and task-hang exit (:934-992); and `run_master_forever`
-  (:1029-1079) without the standby branch, behind
+  check and task-hang exit (:934-992), `run_fenced` (:994-1007); and
+  `run_master_forever` (:1029-1079) with its standby branch, behind
   ``python -m dlrover_wuqiong_tpu_torch.master`` (master/__main__.py).
 
-Not here yet, each with its ROADMAP item: standby masters, the
-leadership lease, failover and the fence on a peer, the hot-swap mesh
-transition (item 7b); the adaptive policy, the paral config and
-diagnosis (item 15); the network-check rendezvous (item 13).
+Not here yet, each with its ROADMAP item: the hot-swap mesh transition
+(item 7b part 3); the adaptive policy, the paral config and diagnosis
+(item 15); the network-check rendezvous (item 13).
 """
 
 from __future__ import annotations
@@ -44,7 +59,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from ..common import messages as msg
 from ..common.constants import (
@@ -70,8 +85,8 @@ logger = get_logger("master")
 
 #: journal frame kinds the port's master does not replay yet, with the
 #: ROADMAP item that brings each
-UNPORTED_KINDS = {"paral": "15", "policy": "15", "mesh_transition": "7b",
-                  "lease": "7b", "failover": "7b"}
+UNPORTED_KINDS = {"paral": "15", "policy": "15",
+                  "mesh_transition": "7b part 3"}
 
 
 class JobMaster:
@@ -83,7 +98,10 @@ class JobMaster:
                  host: str = "0.0.0.0",
                  journal_dir: Optional[str] = None,
                  group_commit_max_frames: Optional[int] = None,
-                 group_commit_max_wait_ms: Optional[float] = None):
+                 group_commit_max_wait_ms: Optional[float] = None,
+                 standby: bool = False,
+                 peer: str = "",
+                 lease_ttl_s: float = 0.0):
         ctx = get_context()
         self.speed_monitor = SpeedMonitor(ctx.train_speed_record_num)
         self.job_manager = job_manager or LocalJobManager()
@@ -128,6 +146,23 @@ class JobMaster:
         # it is epoch 1 forever (in-process and test masters)
         self.idem_cache = IdemCache()
         self.epoch = 1
+        # leadership (master/standby.py): a standby mirrors the primary's
+        # journal and is NOT the leader until promoted; a revived primary
+        # that finds a higher epoch at its peer self-fences read-only.
+        # The servicer's NotLeaderError gate rejects every mutating verb
+        # while is_leader is False.
+        self.standby = bool(standby)
+        self.peer = peer
+        self.lease_ttl_s = float(lease_ttl_s)
+        # is_leader flips from the lease thread (mid-run peer fence), the
+        # boot path (corpse fence) and promote_to_leader — one lock
+        # covers every write so a fence can never be lost to a racing
+        # promotion's read-modify-write
+        self._leader_lock = threading.Lock()
+        self.is_leader = not standby
+        self._lease_epoch_seen = 0
+        self._lease_thread: Optional[threading.Thread] = None
+        self._stopped = threading.Event()
         jd = journal_dir or os.getenv("DWT_MASTER_JOURNAL_DIR", "")
         self.journal = MasterJournal(
             jd, snapshot_every=ctx.journal_snapshot_every,
@@ -136,14 +171,21 @@ class JobMaster:
         ) if jd else None
         if self.journal is not None:
             self._replay_journal()
-            self.epoch = self.journal.open_epoch()
-            for rdzv in self.rdzv_managers.values():
-                rdzv.on_world_formed = self._journal_world
+            if self.peer and not self.standby:
+                self._maybe_fence_on_peer()
+            if self.is_leader:
+                self.epoch = self.journal.open_epoch()
+                for rdzv in self.rdzv_managers.values():
+                    rdzv.on_world_formed = self._journal_world
+            else:
+                # a mirror or a fenced corpse: fold the history but never
+                # bump the fencing epoch — promote_to_leader does that,
+                # exactly once
+                self.epoch = max(1, self.journal.epoch)
         self.metric_collector = JobMetricCollector()
         self._server = create_master_service(self, host=host, port=port)
         self._exit_code = 0
         self._exit_reason = ""
-        self._stopped = threading.Event()
 
     # --------------------------------------------------------------- service
 
@@ -165,8 +207,11 @@ class JobMaster:
         if self.journal is not None:
             # clean shutdown: compact so the next incarnation boots from
             # one snapshot frame (crash paths never reach here — replay
-            # covers them)
-            self.snapshot_journal()
+            # covers them).  LEADER ONLY: a standby or fenced mirror must
+            # stay a verbatim prefix of the primary's log, which the
+            # merged incident timeline's (epoch, seq) dedup relies on
+            if self.is_leader:
+                self.snapshot_journal()
             self.journal.close()
 
     # ------------------------------------------------------- fault tolerance
@@ -220,7 +265,8 @@ class JobMaster:
             ["mesh"] if mesh.get("active") or mesh.get("history") else [])
         if skipped:
             logger.warning("journal replay: snapshot parts %s are not "
-                           "ported (ROADMAP items 15 and 7b) — skipped",
+                           "ported (ROADMAP items 15 and 7b part 3) — "
+                           "skipped",
                            skipped)
 
     def _apply_entry(self, kind: str, data: Dict):
@@ -281,6 +327,20 @@ class JobMaster:
                                          data["request_ids"])
         elif kind == "serve_result":
             self.serve_queue.complete(data["results"])
+        elif kind == "lease":
+            # leadership lease heartbeat: replay restores the fencing
+            # baseline a revived master compares against its peer
+            with self._leader_lock:
+                self._lease_epoch_seen = max(
+                    self._lease_epoch_seen,
+                    int(data.get("lease_epoch", 0)))
+        elif kind == "failover":
+            # standby takeover record: new_epoch is the fence every later
+            # incarnation must clear (also the timeline's `failover`
+            # incident anchor)
+            with self._leader_lock:
+                self._lease_epoch_seen = max(
+                    self._lease_epoch_seen, int(data.get("new_epoch", 0)))
         elif kind in UNPORTED_KINDS:
             logger.warning("journal replay: %r frames are not replayed by "
                            "the port yet (ROADMAP item %s) — skipped", kind,
@@ -312,12 +372,184 @@ class JobMaster:
                 logger.exception("journal snapshot failed")
 
     def journal_stats(self) -> msg.JournalStats:
-        """Group-commit gauges (read-only poll, never journaled); the
-        lease and leader fields keep their no-standby values."""
+        """Group-commit and shipping gauges (read-only poll, never
+        journaled).  lease_epoch/is_leader are what a peer's fence probe
+        compares against — they must reflect the journal, not wishes."""
         if self.journal is None:
-            return msg.JournalStats(enabled=False, epoch=self.epoch)
+            return msg.JournalStats(enabled=False, epoch=self.epoch,
+                                    lease_epoch=self._lease_epoch_seen,
+                                    is_leader=self.is_leader)
         return msg.JournalStats(enabled=True, epoch=self.epoch,
+                                lease_epoch=self._lease_epoch_seen,
+                                is_leader=self.is_leader,
                                 **self.journal.group_commit_stats())
+
+    # --------------------------------------------------- leadership + lease
+
+    def _peer_journal_stats(self, timeout_s: float = 2.0):
+        """Best-effort epoch probe of the peer master (read-only verb).
+
+        Returns the peer's JournalStats or None when it is unreachable
+        or errored — callers treat None as "no evidence", never as
+        permission to fence or to lead."""
+        if not self.peer:
+            return None
+        from ..common.comm import RpcClient, RpcError
+
+        client = RpcClient(self.peer, node_id=-2, node_type="master",
+                           timeout=timeout_s, retries=2,
+                           base_delay_s=0.05, max_delay_s=0.2)
+        try:
+            return client.get(msg.JournalStatsQuery())
+        except RpcError:  # MasterUnreachableError subclasses RpcError
+            return None
+        finally:
+            client.close()
+
+    def _maybe_fence_on_peer(self):
+        """Revived-corpse check, BEFORE this master opens its own epoch.
+
+        A promoted standby serves an epoch strictly above anything the
+        old primary ever issued, so a peer answering with a higher epoch
+        than everything in OUR journal means we are the corpse: stay
+        read-only and never open_epoch (a corpse that bumped would
+        collide with or overtake the real leader).  An unreachable peer
+        is NOT evidence — the common case is the primary booting first
+        while the standby is still down.  The higher epoch counts only
+        from a peer that leads or has seen a lease or failover above
+        ours: a restarted promoted standby replays its ``failover`` frame
+        and fences us, while an empty mirror (lease epoch 0) answering
+        epoch 1 against a fresh journal's 0 does not.  (The JAX master
+        fences on that last answer too, so its fresh primary started
+        after its standby never leads.)"""
+        stats = self._peer_journal_stats()
+        if stats is None:
+            return
+        peer_epoch = max(int(stats.epoch), int(stats.lease_epoch))
+        mine = max(self.journal.epoch, self._lease_epoch_seen)
+        if peer_epoch > mine and (stats.is_leader
+                                  or int(stats.lease_epoch) > mine):
+            with self._leader_lock:
+                self.is_leader = False
+            logger.warning(
+                "FENCED read-only: peer %s serves epoch %d > local %d — "
+                "a standby was promoted while this master was down",
+                self.peer, peer_epoch, mine)
+
+    def start_lease_heartbeat(self):
+        """Leader half of the lease protocol: journal a ``lease`` frame
+        every ttl/3 so the shipped log itself carries liveness — the
+        standby promotes after ttl of lease silence, no side channel.
+        With a ``peer``, each beat first probes the peer's epoch and
+        self-fences if a promotion happened behind our back (the
+        wedged-but-alive primary)."""
+        if self.lease_ttl_s <= 0 or self.journal is None \
+                or not self.is_leader:
+            return
+        if self._lease_thread is not None and self._lease_thread.is_alive():
+            return
+        self._lease_thread = threading.Thread(
+            target=self._lease_loop, name="dwt-lease", daemon=True)
+        self._lease_thread.start()
+
+    def _lease_loop(self):
+        interval = max(0.05, self.lease_ttl_s / 3.0)
+        while not self._stopped.wait(interval):
+            if not self.is_leader:
+                return
+            if self.peer:
+                stats = self._peer_journal_stats(
+                    timeout_s=max(0.5, interval))
+                if stats is not None and \
+                        max(int(stats.epoch), int(stats.lease_epoch)) > \
+                        max(self.epoch, self._lease_epoch_seen):
+                    # fence FIRST, before another lease frame could claim
+                    # a leadership we already lost
+                    with self._leader_lock:
+                        self.is_leader = False
+                    logger.warning(
+                        "FENCED read-only mid-run: peer %s overtook "
+                        "epoch %d", self.peer, self.epoch)
+                    return
+            try:
+                self.journal.append("lease", {
+                    "holder": str(os.getpid()),
+                    "lease_epoch": self.epoch,
+                    "ttl_s": self.lease_ttl_s})
+                with self._leader_lock:
+                    self._lease_epoch_seen = max(self._lease_epoch_seen,
+                                                 self.epoch)
+            except Exception:  # noqa: BLE001 — a failed beat must not
+                # kill the thread; ttl of silence hands over leadership
+                logger.exception("lease heartbeat append failed")
+
+    def promote_to_leader(self, observed_epoch: int = 0) -> int:
+        """Fenced standby takeover: journal-first, then serve.
+
+        The ``failover`` frame is durably appended (a crash mid-promotion
+        replays as a plain mirror, never a half-leader) BEFORE the new
+        epoch becomes visible.  The new epoch lands strictly ABOVE
+        anything the old primary could have issued: a naive corpse
+        restart on epoch E re-opens at E+1, so promotion re-opens at
+        observed+2."""
+        if self.is_leader or self.journal is None:
+            return self.epoch
+        observed = max(int(observed_epoch), self.journal.epoch,
+                       self._lease_epoch_seen, self.epoch)
+        last_seq = self.journal.group_commit_stats()["durable_seq"]
+        self.journal.append("failover", {
+            "from_epoch": self.journal.epoch,
+            "new_epoch": observed + 2,
+            "last_shipped_seq": last_seq,
+            "holder": str(os.getpid())})
+        self.journal.epoch = observed + 1
+        self.epoch = self.journal.open_epoch()
+        with self._leader_lock:
+            self._lease_epoch_seen = max(self._lease_epoch_seen,
+                                         self.epoch)
+            self.is_leader = True
+        for rdzv in self.rdzv_managers.values():
+            rdzv.on_world_formed = self._journal_world
+        self.start_lease_heartbeat()
+        logger.warning("PROMOTED to leader: epoch %d (fenced above %d), "
+                       "last mirrored seq %d", self.epoch, observed,
+                       last_seq)
+        return self.epoch
+
+    def fetch_journal(self, from_seq: int,
+                      max_frames: int = 256) -> msg.FetchJournalResponse:
+        """Serve one standby pull (POLLING verb — read-only, never
+        journaled): durable frames after ``from_seq`` verbatim, plus the
+        snapshot handoff when compaction truncated the range."""
+        if self.journal is None:
+            return msg.FetchJournalResponse(epoch=self.epoch)
+        snap, snap_seq, frames, durable = self.journal.fetch_batch(
+            from_seq, max_frames)
+        return msg.FetchJournalResponse(
+            snapshot=snap, snapshot_seq=snap_seq, frames=frames,
+            durable_seq=durable, epoch=self.epoch,
+            lease_epoch=self._lease_epoch_seen)
+
+    def timeline_report(self, ckpt_dir: str = "",
+                        journal_dirs: Optional[List[str]] = None
+                        ) -> msg.TimelineResponse:
+        """Assembled incident timeline (telemetry/timeline.py) over this
+        master's journal dir + the caller's flight-dump root.
+
+        Deliberately a pure function of the DISK artifacts, not the
+        in-memory managers: the offline assembly
+        (telemetry/incident_report.py ``--journal/--flight``) on the same
+        paths reconstructs byte-equal canonical JSON.  ``journal_dirs``
+        adds further journals (a failover's OTHER master), merged in
+        (epoch, seq) order with byte-exact dedup."""
+        from ..telemetry import timeline as tl
+
+        journal_dir = self.journal.dir if self.journal is not None else ""
+        report = tl.assemble_incident(journal_dir=journal_dir,
+                                      ckpt_dir=ckpt_dir,
+                                      journal_dirs=list(journal_dirs or []))
+        return msg.TimelineResponse(content=tl.incident_json(report),
+                                    events=len(report["events"]))
 
     def rdzv_manager(self, name: str):
         """The rendezvous manager `name`; the network check's comes with
@@ -453,6 +685,21 @@ class JobMaster:
                     self._exit_code)
         return self._exit_code
 
+    def run_fenced(self, poll_interval: float = 5.0,
+                   max_seconds: Optional[float] = None) -> int:
+        """Read-only corpse loop: keep serving polls (timeline, stats,
+        kv reads) while the servicer's NotLeaderError gate bounces every
+        mutating verb to the real leader.  Exits only on stop/timeout —
+        a fenced master never reclaims leadership on its own."""
+        start = time.monotonic()
+        logger.warning("running FENCED read-only at epoch %d (leader is "
+                       "elsewhere)", self.epoch)
+        while not self._stopped.wait(poll_interval):
+            if max_seconds and time.monotonic() - start > max_seconds:
+                break
+        logger.info("fenced master exiting (epoch %d)", self.epoch)
+        return 0
+
     @property
     def exit_reason(self) -> str:
         return self._exit_reason
@@ -464,17 +711,40 @@ def run_master_forever(port: int, min_nodes: int, max_nodes: int,
                        poll_interval: float = 5.0,
                        max_seconds: Optional[float] = None,
                        group_commit_max_frames: Optional[int] = None,
-                       group_commit_max_wait_ms: Optional[float] = None
-                       ) -> int:
+                       group_commit_max_wait_ms: Optional[float] = None,
+                       standby_of: str = "",
+                       peer: str = "",
+                       lease_ttl_s: float = 0.0) -> int:
     """Entry for a standalone master process (parity
-    dlrover_wuqiong_tpu/master/master.py:1029-1079, without the standby
-    branch, the policy engine and the lease: items 7b and 15)."""
+    dlrover_wuqiong_tpu/master/master.py:1029-1079, without the policy
+    engine: item 15).
+
+    ``standby_of`` starts in warm-standby mode (master/standby.py):
+    mirror the primary's journal, promote on lease expiry, then fall
+    into the normal run loop.  ``peer`` + ``lease_ttl_s`` arm the
+    leader side: lease heartbeats into the journal and the
+    revived-corpse fence check against the peer."""
+    if standby_of:
+        from .standby import run_standby
+
+        return run_standby(
+            primary_addr=standby_of, port=port, min_nodes=min_nodes,
+            max_nodes=max_nodes, node_unit=node_unit,
+            journal_dir=journal_dir, poll_interval=poll_interval,
+            max_seconds=max_seconds, lease_ttl_s=lease_ttl_s,
+            group_commit_max_frames=group_commit_max_frames,
+            group_commit_max_wait_ms=group_commit_max_wait_ms)
     master = JobMaster(port=port, min_nodes=min_nodes, max_nodes=max_nodes,
                        node_unit=node_unit, journal_dir=journal_dir,
                        group_commit_max_frames=group_commit_max_frames,
-                       group_commit_max_wait_ms=group_commit_max_wait_ms)
+                       group_commit_max_wait_ms=group_commit_max_wait_ms,
+                       peer=peer, lease_ttl_s=lease_ttl_s)
     master.start()
     try:
+        if not master.is_leader:
+            return master.run_fenced(poll_interval=poll_interval,
+                                     max_seconds=max_seconds)
+        master.start_lease_heartbeat()
         return master.run(poll_interval=poll_interval,
                           max_seconds=max_seconds)
     finally:

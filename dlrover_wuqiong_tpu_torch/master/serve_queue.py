@@ -17,10 +17,11 @@ is *attributed*, mirroring how `TaskManager.recover_tasks` re-queues
 dispatched shards.  Submission is idempotent per ``request_id`` (replay
 + client retries both hit the dedupe).
 
-The port's master keeps no journal yet (ROADMAP item 15): `lease_exact`,
-`export_state` and `restore_state` are here, for the journal to come and
-for tests/test_torch_serving_worker.py, which holds this copy's queue
-state equal to the JAX package's.
+`lease_exact`, `export_state` and `restore_state` are the journal's:
+the master replays ``serve_lease`` frames through `lease_exact` and
+snapshots the queue with `export_state` (master/master.py), and
+tests/test_torch_serving_worker.py holds this copy's queue state equal
+to the JAX package's.
 
 Worker serving-ledger snapshots aggregate latest-SENT-wins per node,
 exactly like the master's goodput collection (master.py

@@ -1,14 +1,16 @@
 """RPC dispatch: single get/report envelope over the master's services.
 
-Parity: dlrover_wuqiong_tpu/master/servicer.py — `MasterServicer.handle`
-(:61-82) with its idem replay and the journaled ack `_journal`
-(:84-100), over the verbs of the elastic trainer, of dataset sharding
-and of the serving worker:
+Parity: dlrover_wuqiong_tpu/master/servicer.py — `NotLeaderError` and
+`READ_ONLY_VERBS` (:30-51), `MasterServicer.handle` (:61-82) with its
+not-leader gate and idem replay and the journaled ack `_journal`
+(:84-100), over the verbs of the elastic trainer, of dataset sharding,
+of the warm standby and of the serving worker:
 
-- get (:100-232): task requests (a dispatch is journaled), comm world,
+- get (:100-252): task requests (a dispatch is journaled), comm world,
   waiting-node count, kv get, multi-get and add, the shard checkpoint,
-  the goodput summary, the journal's gauges, the serve lease, result
-  and stats queries;
+  the goodput summary, the journal's gauges, a standby's journal fetch
+  (:204), the serve lease, result and stats queries, and the incident
+  timeline (:246);
 - report (:257-475): rendezvous join (which registers the node and
   counts as its first heartbeat), task results, dataset shard params,
   heartbeat, `NodeMeta`, global step, `NodeFailure` (classified by the
@@ -29,12 +31,23 @@ retried task request or lease gets the SAME shard or requests back, and
 a retried join, kv add, task result, submit or result report is applied
 once, even when the retry lands on a freshly replayed master.
 
+A master that is not the leader (a standby, or a corpse fenced by its
+peer) answers only `READ_ONLY_VERBS` and raises `NotLeaderError` for
+every other verb BEFORE the idem cache: a fenced corpse's replayed
+cache can be stale against the promoted standby's, so a mutation is
+answered by the leader alone.  The client reads the error's name as
+"dial the next endpoint" (agent/master_client.py).  `READ_ONLY_VERBS`
+is the JAX list less the verbs the port has no message for yet:
+``NetworkReadyRequest`` and ``StragglerExistRequest`` (item 13),
+``ParallelConfigRequest``, ``PerfQuery``, ``PolicyStateRequest`` and
+``PolicyHistoryRequest`` (item 15), ``MeshTransitionQuery`` (item 7b
+part 3).
+
 `create_master_service` is :503-508.  Left out, with what brings them:
-the not-leader gate and the journal fetch (standby masters) and the
-mesh-transition verbs (item 7b), the network-check verbs (item 13), and
-the policy, paral-config, perf, timeline and diagnosis verbs (item 15).
-A message this servicer does not know raises ValueError, as the JAX
-servicer's do (:254, :500).
+the mesh-transition verbs (item 7b part 3), the network-check verbs
+(item 13), and the policy, paral-config, perf and diagnosis verbs (item
+15).  A message this servicer does not know raises ValueError, as the
+JAX servicer's do (:254, :500).
 """
 
 from __future__ import annotations
@@ -51,9 +64,29 @@ from ..common.node import Node, NodeEvent
 logger = get_logger("servicer")
 
 _NOT_PORTED = ("the port's master answers the elastic-training, "
-               "dataset-sharding, journal and serving verbs; the standby "
-               "and mesh-transition verbs come with item 7b, the others "
-               "with ROADMAP items 13 and 15")
+               "dataset-sharding, journal, standby, timeline and serving "
+               "verbs; the others come with ROADMAP items 13 and 15, the "
+               "mesh-transition verbs with item 7b part 3")
+
+
+class NotLeaderError(RuntimeError):
+    """Mutating verb hit a standby or fenced master.
+
+    Surfaces client-side as an RpcError whose text carries this class
+    name — MasterClient treats it as "advance to the next endpoint",
+    the ONE sanctioned re-dial of an answered RPC (the verb was never
+    applied here, so re-sending it to the real leader is safe, and the
+    original idem key keeps it exactly-once)."""
+
+
+#: verbs a non-leader still answers: pure reads with no queue or state
+#: movement.  Everything else gets NotLeaderError BEFORE the idem cache.
+READ_ONLY_VERBS = (
+    "CommWorldRequest", "WaitingNodeNumRequest", "KVStoreGetRequest",
+    "KVStoreMultiGetRequest", "ShardCheckpointRequest", "GoodputQuery",
+    "JournalStatsQuery", "FetchJournalRequest", "ServeResultQuery",
+    "ServeStatsQuery", "TimelineQuery",
+)
 
 
 class MasterServicer:
@@ -64,6 +97,11 @@ class MasterServicer:
 
     def handle(self, verb: str, node_id: int, node_type: str,
                payload: Any, idem: Optional[str] = None) -> Any:
+        if not getattr(self.m, "is_leader", True) and \
+                type(payload).__name__ not in READ_ONLY_VERBS:
+            raise NotLeaderError(
+                f"not the leader (epoch {getattr(self.m, 'epoch', 0)}) — "
+                f"{type(payload).__name__} must go to the active primary")
         cache = getattr(self.m, "idem_cache", None)
         if idem and cache is not None:
             hit = cache.get(idem)
@@ -184,6 +222,13 @@ class MasterServicer:
             # sizes + durable watermark
             return m.journal_stats()
 
+        if isinstance(payload, msg.FetchJournalRequest):
+            # standby pull (POLLING class, read-only, NEVER journaled —
+            # journaling a fetch would make shipping feed itself):
+            # durable frames after from_seq verbatim, snapshot handoff
+            # when compaction already truncated the range
+            return m.fetch_journal(payload.from_seq, payload.max_frames)
+
         if isinstance(payload, msg.ServeLeaseRequest):
             leased = m.serve_queue.lease(payload.node_id,
                                          payload.max_requests)
@@ -207,6 +252,13 @@ class MasterServicer:
 
         if isinstance(payload, msg.ServeStatsQuery):
             return m.serve_summary()
+
+        if isinstance(payload, msg.TimelineQuery):
+            # read-only incident assembly from disk artifacts (never
+            # journaled): the answer must stay byte-equal to the offline
+            # reconstruction, so no in-memory state contributes
+            return m.timeline_report(
+                payload.ckpt_dir, journal_dirs=list(payload.journal_dirs))
 
         raise ValueError(f"unknown get message: {type(payload).__name__} "
                          f"({_NOT_PORTED})")

@@ -1,13 +1,13 @@
 """Cross-process trace spans riding the typed JSON control-plane frames.
 
-Parity: dlrover_wuqiong_tpu/telemetry/spans.py up to `clear_spans`, kept
-in the port because the port imports nothing of the JAX package: the
-same record schema, `current_trace` / `inject` / `extract` for the frame
-envelope (common/comm.py), `env_context` for a spawned child, the role
-from ``DWT_PROC_ROLE``, and every span also recorded into the flight
-recorder (recorder.py), so a worker's dump carries its request trees.
-`dump_chrome_trace` (the Chrome trace-event export) comes with ROADMAP
-item 13.
+Parity: dlrover_wuqiong_tpu/telemetry/spans.py, kept in the port because
+the port imports nothing of the JAX package: the same record schema,
+`current_trace` / `inject` / `extract` for the frame envelope
+(common/comm.py), `env_context` for a spawned child, the role from
+``DWT_PROC_ROLE``, every span also recorded into the flight recorder
+(recorder.py), so a worker's dump carries its request trees, and
+`dump_chrome_trace`, the Chrome trace-event export the incident
+timeline's Perfetto view writes through (telemetry/timeline.py).
 
 Clocks: span *durations* are ``time.monotonic`` intervals; span *start
 timestamps* are ``time.time`` so spans from different processes align on
@@ -165,3 +165,58 @@ def spans_snapshot() -> List[Dict]:
 def clear_spans():
     with _BUFFER_LOCK:
         _BUFFER.clear()
+
+
+def dump_chrome_trace(path: str, extra_spans: Optional[List[Dict]] = None,
+                      instant_events: Optional[List[Dict]] = None,
+                      process_names: Optional[Dict[int, str]] = None,
+                      include_buffer: bool = True):
+    """Write the buffer (plus `extra_spans`, e.g. merged flight dumps) as
+    Chrome trace-event JSON — load in chrome://tracing or Perfetto.
+
+    Multi-process (add-only, telemetry/timeline.py export_perfetto):
+    `process_names` emits one process_name metadata row per pid so each
+    process gets a labelled track; `instant_events`
+    (``{"name", "t_wall", "pid", "args"}``) become instant marks (journal
+    frames, flight flushes); `include_buffer=False` exports ONLY the
+    supplied events — a whole-incident export must not mix in whatever
+    the exporting process's own span buffer happens to hold."""
+    import json
+
+    events = []
+    for pid, pname in sorted((process_names or {}).items()):
+        events.append({"name": "process_name", "ph": "M", "pid": pid,
+                       "tid": pid, "args": {"name": str(pname)}})
+    for inst in instant_events or []:
+        events.append({
+            "name": inst.get("name", ""),
+            "cat": "instant",
+            "ph": "i", "s": "p",
+            "ts": float(inst.get("t_wall", 0.0)) * 1e6,
+            "pid": inst.get("pid", 0),
+            "tid": inst.get("pid", 0),
+            "args": dict(inst.get("args") or {}),
+        })
+    buffered = spans_snapshot() if include_buffer else []
+    for rec in (extra_spans or []) + buffered:
+        events.append({
+            "name": rec["name"],
+            "cat": rec.get("role", "proc"),
+            "ph": "X",
+            "ts": rec["t_wall"] * 1e6,
+            "dur": max(rec.get("dur_s", 0.0), 0.0) * 1e6,
+            "pid": rec.get("pid", 0),
+            "tid": rec.get("pid", 0),
+            "args": {
+                "trace_id": rec.get("trace_id", ""),
+                "span_id": rec.get("span_id", ""),
+                "parent_span": rec.get("parent_span", ""),
+                "status": rec.get("status", "ok"),
+                **rec.get("attrs", {}),
+            },
+        })
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({"traceEvents": events}, f)
+    os.replace(tmp, path)
+    return len(events)

@@ -14,8 +14,8 @@ CPU — and, as JAX does, only when the world has more than one process.
 Not here, each with its ROADMAP item: the persistent compile cache
 (:189) and `enable_warm_restarts` (:114-171), item 13 (the port's
 counterpart is a pre-built CUDA-graph artifact); `report_loss` and
-`report_op_profile`, which feed the master's diagnosis (:80-103), and
-`sharding_client` (:105-112), item 15.
+`report_op_profile`, which feed the master's diagnosis (:80-103), item
+15.  `ElasticContext.sharding_client` (:105-112) is here.
 """
 
 from __future__ import annotations

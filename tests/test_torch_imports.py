@@ -18,9 +18,10 @@
   checkpoint saver) never touches ``torch.cuda``, through a worker's
   failure and restart; the `Trainer` defaults to ``cuda``.
 - The journaled master's process (``python -m
-  dlrover_wuqiong_tpu_torch.master``) and the sharding client import no
-  ``torch``, no numpy and nothing of JAX; the master-kill drill defaults
-  to ``cuda``.
+  dlrover_wuqiong_tpu_torch.master``, a ``--standby-of`` standby too),
+  the sharding client, the standby tailer and the incident timeline
+  import no ``torch``, no numpy and nothing of JAX; the master-kill and
+  master-failover drills default to ``cuda``.
 """
 
 import ast
@@ -71,6 +72,10 @@ MASTER_JOURNAL = ("master.journal", "master.dataset_splitter",
                   "master.task_manager", "master.__main__",
                   "agent.sharding_client")
 
+#: the warm standby and the incident timeline
+STANDBY = ("master.standby", "telemetry.timeline",
+           "telemetry.incident_report")
+
 
 def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN_ROOTS
@@ -106,7 +111,7 @@ def test_import_loads_no_jax_and_no_cuda():
     for mod in ("serving.engine", "ops.flash_attention", "models.gpt",
                 "models.llama", "models.attention", "models.fp8", "ops.remat",
                 "trainer.train_step", "auto.accelerate") + CONTROL_PLANE \
-            + CHECKPOINT + ELASTIC + MASTER_JOURNAL:
+            + CHECKPOINT + ELASTIC + MASTER_JOURNAL + STANDBY:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in rec["mods"]
 
 
@@ -130,12 +135,15 @@ def test_ast_scan_finds_no_forbidden_import():
             assert not bad, f"{path}:{node.lineno} imports {bad}"
         scanned.append(mod)
     assert "torch" in seen  # the scan did walk the package
-    for mod in CONTROL_PLANE + CHECKPOINT + ELASTIC + MASTER_JOURNAL:
+    for mod in CONTROL_PLANE + CHECKPOINT + ELASTIC + MASTER_JOURNAL \
+            + STANDBY:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in scanned
 
 
 @pytest.mark.parametrize("mod", ["master.__main__",
-                                 "agent.sharding_client"])
+                                 "agent.sharding_client",
+                                 "master.standby", "telemetry.timeline",
+                                 "telemetry.incident_report"])
 def test_master_process_modules_import_no_torch(mod):
     """A master restart pays the interpreter and the replay, not torch's
     import: the master's entry point and the sharding client load no
@@ -149,6 +157,29 @@ def test_master_process_modules_import_no_torch(mod):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in mods if _forbidden(m)
+           or m.split(".")[0] in ("torch", "numpy")]
+    assert bad == []
+
+
+def test_standby_process_imports_no_torch(tmp_path):
+    """``python -m dlrover_wuqiong_tpu_torch.master --standby-of ...``
+    tails (an absent primary here), gives up after its budget, and has
+    loaded no ``torch``, no numpy and nothing of JAX on the way."""
+    code = ("import json, sys\n"
+            "from dlrover_wuqiong_tpu_torch.master.__main__ import main\n"
+            "rc = main(['--port=0', '--standby-of=127.0.0.1:1',\n"
+            f"           '--journal-dir={tmp_path / 'mirror'}',\n"
+            "           '--lease-ttl=0.3', '--max-seconds=0.5'])\n"
+            "print(json.dumps([rc, sorted(sys.modules)]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    rc, mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rc == 0
+    assert "dlrover_wuqiong_tpu_torch.master.standby" in mods
     bad = [m for m in mods if _forbidden(m)
            or m.split(".")[0] in ("torch", "numpy")]
     assert bad == []
@@ -185,7 +216,7 @@ def test_serving_worker_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         worker_main.main(["--master", "127.0.0.1:1"])
     for drill in (chaos.serve_drain, chaos.ckpt_corrupt, chaos.master_kill,
-                  chaos.master_kill_reference):
+                  chaos.master_kill_reference, chaos.master_failover):
         assert inspect.signature(drill).parameters["device"].default == \
             "cuda"
 

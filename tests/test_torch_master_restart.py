@@ -20,16 +20,19 @@ Held against the JAX package on the CPU:
   streaming splitters;
 - a journal holding kinds the port does not replay (``paral``,
   ``policy``, ``mesh_transition``; a JAX snapshot's policy and mesh)
-  replays the rest, and warns;
+  replays the rest, and warns; its ``lease`` frame replays into the
+  fencing baseline;
 - the wire: the sharding and journal records' frames are byte-equal to
   JAX's and their fields equal ``schema.lock.json``;
 - ``python -m dlrover_wuqiong_tpu_torch.master`` SIGKILLed mid-stream: a
   successor on the same journal serves the replayed state at epoch 2,
   the client rides through, and no task is handed out twice; the flags
-  the port does not take raise;
+  the port does not take raise, and the standby flags reach the master;
 - the sharding clients hand out JAX's sample indices;
 - `chaos.master_kill` on the CPU with GPT nano: ``ok``, every loss
-  bitwise an uninterrupted run's.
+  bitwise an uninterrupted run's, the timeline gates held, and the
+  goodput's ideal step the worker's own (a slower reference no longer
+  lifts it above 1).
 
 Every master binds port 0 (the subprocess one a free port), every client
 has a short `outage_grace_s` but the ones that must ride a restart, and
@@ -795,12 +798,14 @@ def test_unported_kinds_replay_the_rest_and_warn(tmp_path,
     try:
         assert (m.kv_store.get("a"), m.kv_store.get("n")) == (b"1", b"4")
         assert m.epoch == 2
+        assert m.journal_stats().lease_epoch == 1  # the lease replayed
     finally:
         m.stop()
     for kind, item in (("paral", "15"), ("policy", "15"),
-                       ("mesh_transition", "7b"), ("lease", "7b")):
+                       ("mesh_transition", "7b part 3")):
         assert any(repr(kind) in w and f"item {item}" in w
                    for w in master_warnings), (kind, master_warnings)
+    assert not any("'lease'" in w for w in master_warnings)
 
 
 def test_jax_snapshot_with_policy_and_mesh_replays(tmp_path,
@@ -890,13 +895,25 @@ def test_sigkill_master_restart_on_same_journal(tmp_path):
         log.close()
 
 
-@pytest.mark.parametrize("flag", ["--policy", "--policy-prior=p.json",
-                                  "--standby-of=127.0.0.1:1",
-                                  "--peer=127.0.0.1:1", "--lease-ttl=1"])
+@pytest.mark.parametrize("flag", ["--policy", "--policy-prior=p.json"])
 def test_unported_master_flags_raise(flag):
-    item = "15" if flag.startswith("--policy") else "7b"
-    with pytest.raises(ValueError, match=f"item {item}"):
+    with pytest.raises(ValueError, match="item 15"):
         master_main([flag])
+
+
+@pytest.mark.parametrize("flag,kw", [
+    ("--standby-of=127.0.0.1:1", {"standby_of": "127.0.0.1:1"}),
+    ("--peer=127.0.0.1:1", {"peer": "127.0.0.1:1"}),
+    ("--lease-ttl=1", {"lease_ttl_s": 1.0})])
+def test_standby_flags_reach_the_master(flag, kw, monkeypatch):
+    from dlrover_wuqiong_tpu_torch.master import __main__ as entry
+
+    seen = {}
+    monkeypatch.setattr(entry, "run_master_forever",
+                        lambda *a, **k: seen.update(k) or 0)
+    assert master_main([flag]) == 0
+    want = {"standby_of": "", "peer": "", "lease_ttl_s": 0.0, **kw}
+    assert {k: seen[k] for k in want} == want
 
 
 def test_master_process_imports_no_torch():
@@ -986,14 +1003,67 @@ def test_sharding_client_from_the_elastic_context(monkeypatch):
 # ------------------------------------------------------------ the drill
 
 
-def test_master_kill_drill_at_nano_on_cpu():
+#: torch threads of a drill's processes on the CPU.  Under a parallel
+#: test run (several xdist workers on a few cores) a drill's trainer at
+#: torch's default (one OpenMP thread a core, spinning while it waits)
+#: in the test process and in its worker subprocess oversubscribes the
+#: cores so far that a nano drill of ~25 s ran for minutes.  The
+#: reference and the worker both take this count, so their losses stay
+#: bitwise equal.
+DRILL_THREADS = 2
+
+
+@pytest.fixture
+def few_threads(monkeypatch):
+    """`DRILL_THREADS` torch threads here and in every subprocess the
+    test starts; OpenMP threads that sleep rather than spin."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(DRILL_THREADS)
+    monkeypatch.setenv("OMP_NUM_THREADS", str(DRILL_THREADS))
+    monkeypatch.setenv("OMP_WAIT_POLICY", "PASSIVE")
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def test_master_kill_drill_at_nano_on_cpu(few_threads):
     from dlrover_wuqiong_tpu_torch import chaos
 
-    r = chaos.master_kill(model="nano", device="cpu")
+    # a reference whose median step is 10x the worker's: the old rule
+    # (n x the reference's step over the worker's span) read far above 1
+    ref = chaos.master_kill_reference("nano", "cpu")
+    slow = dict(ref, step_s=10 * ref["step_s"])
+    r = chaos.master_kill(model="nano", device="cpu", reference=slow)
     assert r["ok"], {k: v for k, v in r.items() if k != "degraded"}
     assert r["losses_bitwise"] and r["steps"] == 144
     assert r["worker_generations"] == 1 and r["cli_rc"] == 0
     assert r["steps_in_outage"] > 0 and r["epoch_bumped"]
     assert r["replay"]["frames"] > 0
-    assert r["timeline_gates"] == "not checked"
+    assert 0.5 <= r["goodput_wall"] <= 1.0
+    assert r["ideal_step_s"] < r["reference_step_s"]
+    assert r["timeline_byte_equal"] and r["timeline_causal"]
+    assert r["timeline_epochs"] == [1, 2]
+    assert r["timeline_attribution_ok"] and r["incident_report_sha_match"]
     assert sum(r["launches"].values()) == 0  # the CPU runs plain versions
+
+
+def test_worker_goodput_takes_the_ideal_step_from_the_worker():
+    """256 steps of 50 ms with a 0.3 s stall between steps 100 and 101:
+    the ideal step is the worker's own 50 ms, whatever a reference read,
+    and the goodput stays at most 1 (the old rule, n x a 68 ms reference
+    step over the span, read 1.33, as run 15B's 68.11 ms one read
+    1.0628)."""
+    from dlrover_wuqiong_tpu_torch import chaos
+
+    stamps = [100.0 + 0.05 * i for i in range(100)]
+    stamps += [stamps[-1] + 0.3 + 0.05 * i for i in range(1, 157)]
+    outage = (stamps[99] + 0.1, stamps[100] - 0.1)
+    ideal, goodput = chaos.worker_goodput(stamps, 256, outage)
+    assert ideal == pytest.approx(0.05)
+    span = max(stamps) - min(stamps)
+    assert goodput == pytest.approx(256 * 0.05 / (span + 0.05))
+    assert goodput <= 1.0 < 256 * 0.068 / (span + 0.068)
+    assert chaos.worker_goodput([], 256, outage) == (0.0, 0.0)

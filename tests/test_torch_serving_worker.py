@@ -103,6 +103,11 @@ SHARDING_PORTED = (
     "ShardCheckpointRequest", "ShardCheckpoint", "JournalStatsQuery",
     "JournalStats")
 
+#: the journal-shipping and timeline records (their frames are held
+#: against JAX's in tests/test_torch_standby.py)
+STANDBY_PORTED = ("FetchJournalRequest", "FetchJournalResponse",
+                  "TimelineQuery", "TimelineResponse")
+
 #: a short grace for every client that may dial a dead master (the
 #: default, 120 s, would park a test for two minutes)
 GRACE_S = 0.5
@@ -202,7 +207,8 @@ def test_fields_equal_schema_lock(name):
 
 def test_registry_holds_only_ported_messages_under_jax_names():
     assert set(tser._MESSAGE_REGISTRY) == \
-        set(PORTED) | set(ELASTIC_PORTED) | set(SHARDING_PORTED)  # noqa: SLF001
+        set(PORTED) | set(ELASTIC_PORTED) | set(SHARDING_PORTED) \
+        | set(STANDBY_PORTED)  # noqa: SLF001
     for name, cls in tser._MESSAGE_REGISTRY.items():  # noqa: SLF001
         assert cls.__name__ == name
         assert name in jser._MESSAGE_REGISTRY  # noqa: SLF001
