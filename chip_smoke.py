@@ -262,6 +262,33 @@ Phases, in order; a failure in any of them exits non-zero:
    the ttl, the standby's lag at the kill, the frames shipped and
    folded, the steps and degraded seconds in the failover, the goodput,
    the timeline's event count and the phase's wall.
+12. The model knobs (``chip_smoke.model_knobs_phase``, runnable alone),
+   each through ``auto_accelerate``'s one-device strategies.  12.1: at
+   GPT-2's c_fc shapes, (24576, 768) @ (768, 3072) in bf16,
+   ``fp8_quantize``'s q and scale on the card bitwise the CPU's (e4m3 and
+   e5m2), ``fp8_dot`` through ``torch._scaled_mm`` and ``fp8_matmul``'s
+   e5m2 backward pair each within ``FP8_OP_RTOL`` of the float32
+   products of the same fp8 operands, a (100, 768) operand raising, and
+   their times beside the bf16 products.  12.2: GPT-2 124M (remat off,
+   B = 24, T = 1024) with ``("amp", {"fp8": True})`` and phase 4b's bf16
+   build in turns on one batch (2 warm-up and 10 timed steps each):
+   losses finite and falling, each fp8 step within ``FP8_LOSS_RTOL`` of
+   the bf16 step, 12 + 12 flash launches a step, 48 fp8 products a step
+   (profiler), ms a step, tokens/s, peak memory and device ms by kind.
+   12.3: the same for Llama-3 8B at phase 4c's cut (4 layers, B = 1,
+   T = 4096, remat "full": 8 forward, 4 dq and 4 dk/dv launches a step,
+   56 fp8 products), 5 steps each.  12.4: GPT-2 124M under remat off,
+   "full", "dots", "offload_dots", "save_names" and "offload_names" from
+   one seed and batch (2 warm-up + 5 steps each): step 1's loss bitwise
+   across the six, later ones within ``REMAT_LOSS_RTOL`` of "full"'s, the
+   offload policies below their on-device twins in peak memory and
+   "full" below remat off; ms a step, peak and bytes to and from the
+   host.  12.5: GPT-2 124M with 8 experts (top-2, capacity factor 1.25,
+   remat "full", B = 8, T = 1024, 10 steps): losses finite and falling,
+   the aux loss apart, 24 + 12 flash launches a step; then one ``MoEMLP``
+   (768, 3072, 8 experts, 8192 tokens, top-2): ``torch._grouped_mm``
+   against its per-group loop and the grouped impl against the capacity
+   impl with room for every token, within ``MOE_RTOL``.  No int8 launch.
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2840,6 +2867,510 @@ def print_master_kill(mk: dict, mk_ref: dict):
         print(f"master-kill: journaled {label}, host ms: " + "; ".join(parts))
 
 
+# ------------------------------------------------------------ phase 12
+
+#: the fp8 runs: 2 warm-up steps each, then turns of timed steps
+#: (fp8, bf16, bf16, fp8)
+FP8_TURNS = {"gpt2": (5, 5, 5, 5), "llama": (2, 2, 3, 3)}
+#: an fp8 step's loss against the bf16 step's on the same batch, relative
+#: (tests/test_fp8_strategy.py:60's bound)
+FP8_LOSS_RTOL = 0.05
+#: the fp8 forward and its plain form, relative to the largest value:
+#: the same fp8 operands on both sides, summed in float32 in another
+#: order, the forward's output rounded to bf16 (2^-8)
+FP8_OP_RTOL = 1e-2
+#: the remat runs: GPT-2 124M at phase 4b's batch, 2 warm-up + 5 steps
+REMAT_POLICIES = (None, "full", "dots", "offload_dots", "save_names",
+                  "offload_names")
+REMAT_WARMUP, REMAT_STEPS = 2, 5
+#: a later step's loss under any policy against "full"'s, relative
+REMAT_LOSS_RTOL = 1e-3
+#: GPT-2 124M with 8 experts, top-2, capacity factor 1.25, remat "full"
+MOE_B, MOE_STEPS = 8, 10
+#: one MoEMLP on the card: the grouped product against its per-group loop
+#: and the grouped impl against the capacity impl with room for every
+#: token, relative to the largest value (bf16 products summed in other
+#: orders and the capacity impl's dense dispatch products)
+MOE_RTOL = 2e-2
+
+
+def _rel_err(torch, got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def fp8_ops_check(torch, tq) -> dict:
+    """12.1: the fp8 quantize, the `_scaled_mm` forward and the e5m2
+    backward pair on the card at GPT-2's c_fc shapes, against the CPU's q
+    and scale and the float32 products of the same fp8 operands."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    M, K, N = TRAIN_B * TRAIN_T, 768, 3072
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((K, N), generator=gen, device="cuda") * 0.03).bfloat16()
+    g = torch.randn((M, N), generator=gen, device="cuda").bfloat16()
+    out = {}
+    for fmt in (tq.E4M3, tq.E5M2):
+        for t, name in ((x, "x"), (w, "kernel")):
+            q, s = tq.fp8_quantize(t, fmt)
+            qc, sc = tq.fp8_quantize(t.cpu(), fmt)
+            check(torch.equal(q.view(torch.uint8).cpu(),
+                              qc.view(torch.uint8)) and s.item() == sc.item(),
+                  f"fp8_quantize {fmt} of {name} on the card differs from "
+                  f"the CPU's")
+    qa, sa = tq.fp8_quantize(x)
+    qb, sb = tq.fp8_quantize(w)
+    y = tq.fp8_dot(x, w)
+    ref = (qa.float() @ qb.float()) / (sa * sb)
+    out["fwd_rel_err"] = _rel_err(torch, y, ref)
+    check(y.dtype == torch.bfloat16 and out["fwd_rel_err"] <= FP8_OP_RTOL,
+          f"fp8_dot through _scaled_mm: {out['fwd_rel_err']} relative "
+          f"against the float32 product (tolerance {FP8_OP_RTOL})")
+    xa = x.clone().requires_grad_()
+    wb = w.clone().requires_grad_()
+    tq.fp8_matmul(xa, wb).backward(g)
+    qg, sg = tq.fp8_quantize(g, tq.E5M2)
+    qb5, sb5 = tq.fp8_quantize(w, tq.E5M2)
+    qa5, sa5 = tq.fp8_quantize(x, tq.E5M2)
+    ga = (qg.float() @ qb5.float().t()) / (sg * sb5)
+    gb = (qa5.float().t() @ qg.float()) / (sa5 * sg)
+    out["ga_rel_err"] = _rel_err(torch, xa.grad, ga)
+    out["gb_rel_err"] = _rel_err(torch, wb.grad, gb)
+    check(max(out["ga_rel_err"], out["gb_rel_err"]) <= FP8_OP_RTOL,
+          f"fp8_matmul's e5m2 backward: {out['ga_rel_err']}, "
+          f"{out['gb_rel_err']} relative (tolerance {FP8_OP_RTOL})")
+    try:
+        tq.fp8_dot(x[:100], w)
+    except ValueError:
+        out["unaligned_raises"] = True
+    else:
+        fail("fp8_dot of a (100, 768) operand did not raise")
+    # times at the c_fc shape: the fp8 forward (two quantize passes and
+    # the product), the product alone, the bf16 product, and the
+    # backward's two upcast products
+    out["fp8_dot_ms"] = cuda_ms(torch, lambda: tq.fp8_dot(x, w), 20)
+    out["scaled_mm_ms"] = cuda_ms(
+        torch, lambda: tq._scaled_mm(qa, qb, sa, sb, torch.bfloat16), 20)
+    out["bf16_mm_ms"] = cuda_ms(torch, lambda: x @ w, 20)
+    out["e5m2_backward_products_ms"] = cuda_ms(
+        torch, lambda: (tq._upcast_mm(qg, qb5.t()),
+                        tq._upcast_mm(qa5.t(), qg)), 20)
+    out["bf16_backward_products_ms"] = cuda_ms(
+        torch, lambda: (g @ w.t(), x.t() @ g), 20)
+    flop = 2 * M * K * N
+    out["scaled_mm_tflop_per_s"] = flop / out["scaled_mm_ms"] / 1e9
+    out["bf16_mm_tflop_per_s"] = flop / out["bf16_mm_ms"] / 1e9
+    return out
+
+
+def knob_profile(torch, tq, res, batch, n: int) -> dict:
+    """Device ms a step by kind over n profiled steps: fp8 products
+    (``aten::_scaled_mm``), bf16 products (``aten::mm``/``addmm``/``bmm``,
+    the backward's upcast products among them), the fp8 quantize passes
+    (the kernels under an annotation around `fp8_quantize`, put there for
+    this window only), flash, optimizer and the rest; and fp8 products a
+    step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    quantize = tq.fp8_quantize
+
+    def annotated(*a, **kw):
+        with record_function("fp8_quantize"):
+            return quantize(*a, **kw)
+
+    tq.fp8_quantize = annotated
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                res.state, _ = res.train_step(res.state, batch)
+            torch.cuda.synchronize()
+    finally:
+        tq.fp8_quantize = quantize
+    kern = device_events(torch, prof)
+    if not kern:
+        return {"device_ms_per_step_by_kind": "not measured"}
+    busy = sum(e.time_range.elapsed_us() for e in kern)
+    flash = sum(e.time_range.elapsed_us() for e in kern
+                if "fa_fwd" in e.name or "fa_bwd" in e.name)
+    opt = sum(e.time_range.elapsed_us() for e in kern
+              if "multi_tensor" in e.name.lower())
+    avg = {a.key: a for a in prof.key_averages()}
+
+    def self_us(*keys):
+        return sum(avg[k].self_device_time_total for k in keys if k in avg)
+
+    cpu = torch.autograd.DeviceType.CPU
+    quant = sum(e.device_time_total for e in prof.events()
+                if e.name == "fp8_quantize" and e.device_type == cpu)
+    fp8 = self_us("aten::_scaled_mm")
+    bf16 = self_us("aten::mm", "aten::addmm", "aten::bmm")
+    kinds = {"fp8_product": fp8, "bf16_product": bf16, "fp8_quantize": quant,
+             "flash_attention": flash, "optimizer": opt}
+    kinds["other"] = busy - sum(kinds.values())
+    scaled = avg.get("aten::_scaled_mm")
+    return {"device_busy_ms_per_step": busy / n / 1e3,
+            "fp8_products_per_step": (scaled.count / n) if scaled else 0,
+            "device_ms_per_step_by_kind": {k: v / n / 1e3
+                                           for k, v in kinds.items()}}
+
+
+def fp8_turns(torch, tfa, tq, builds: dict, batch, turns, layers,
+              fwd_per_layer, route, tag) -> dict:
+    """Warm-up then timed steps of the fp8 and bf16 builds in turns on one
+    batch: every loss finite, each fp8 step's loss within FP8_LOSS_RTOL of
+    the bf16 step's, the flash launches as prescribed in every turn.
+    Returns both builds' losses, ms a step and peak memory, and the flash
+    launches of all the timed turns."""
+    runs = {k: {"losses": [], "ms": [], "peak_bytes": 0} for k in builds}
+    total = {}
+    for name, res in builds.items():
+        losses, _, _, _ = run_steps(torch, tfa, res, batch, 2)
+        runs[name]["losses"] += losses
+    for name, n in zip(("fp8", "bf16", "bf16", "fp8"), turns):
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, ms, launches = run_steps(torch, tfa, builds[name],
+                                                batch, n)
+        run = runs[name]
+        run["peak_bytes"] = max(run["peak_bytes"],
+                                torch.cuda.max_memory_allocated())
+        run["losses"] += losses
+        run["ms"] += [ms] * n
+        check(all(map(lambda v: v == v and abs(v) < float("inf"),
+                      losses + norms)), f"{tag} {name}: non-finite loss or "
+              f"grad norm: {losses} {norms}")
+        expect_launches(launches, n, layers, fwd_per_layer, route,
+                        f"{tag} {name}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    l8, l16 = runs["fp8"]["losses"], runs["bf16"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(l8, l16)]
+    check(max(rel) <= FP8_LOSS_RTOL, f"{tag}: fp8 losses {l8} against bf16 "
+          f"{l16}: {max(rel)} relative (bound {FP8_LOSS_RTOL})")
+    for name, run in runs.items():
+        ms = run.pop("ms")
+        run["ms_per_step"] = sum(ms) / len(ms)
+    runs["max_relative_loss_difference"] = max(rel)
+    return runs, total
+
+
+def gpt2_fp8(torch, tfa, tq) -> tuple:
+    """12.2: GPT-2 124M, ("amp", {"fp8": True}) against phase 4b's bf16
+    build, in turns on one batch."""
+    import dataclasses
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    cfg = dataclasses.replace(GPTConfig.gpt2(), remat=False)
+    builds = {
+        "fp8": auto_accelerate(GPT(cfg), optimizer=adamw(3e-4), seed=0,
+                               strategy=[("amp", {"fp8": True})]),
+        "bf16": auto_accelerate(GPT(cfg), optimizer=adamw(3e-4), seed=0)}
+    check(builds["fp8"].model.config.fp8 and not builds["bf16"].model.config
+          .fp8, "the amp fp8 strategy did not rebuild GPT-2 with fp8")
+    batch = train_batch(torch, 50257)
+    out, launches = fp8_turns(torch, tfa, tq, builds, batch,
+                              FP8_TURNS["gpt2"], 12, 1, "fused", "GPT-2 fp8")
+    for name in ("fp8", "bf16"):
+        first, last = out[name]["losses"][0], out[name]["losses"][-1]
+        check(last < first, f"GPT-2 {name}: loss did not fall: "
+              f"{out[name]['losses']}")
+        out[name]["tokens_per_s"] = (TRAIN_B * TRAIN_T
+                                     / out[name]["ms_per_step"] * 1e3)
+        out[name]["profile"] = knob_profile(torch, tq, builds[name], batch,
+                                            2)
+    # 4 projections a layer (remat off); None where the profiler saw no
+    # device activity
+    n8 = out["fp8"]["profile"].get("fp8_products_per_step")
+    check(n8 in (48, None), f"GPT-2 fp8: {n8} fp8 products a step")
+    check(out["bf16"]["profile"].get("fp8_products_per_step") in (0, None),
+          "GPT-2 bf16 ran fp8 products")
+    del builds
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def llama_fp8(torch, tfa, tq) -> tuple:
+    """12.3: Llama-3 8B at phase 4c's cut (4 layers, full width, B = 1,
+    T = 4096, remat "full": two forward launches a layer), fp8 against
+    bf16, in turns."""
+    import dataclasses
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.llama import Llama, LlamaConfig
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_layers=LLAMA_LAYERS)
+    builds = {
+        "fp8": auto_accelerate(Llama(cfg), optimizer=adamw(3e-4), seed=0,
+                               strategy=[("amp", {"fp8": True})]),
+        "bf16": auto_accelerate(Llama(cfg), optimizer=adamw(3e-4), seed=0)}
+    batch = train_batch(torch, cfg.vocab_size, b=LLAMA_B, t=LLAMA_T)
+    out, launches = fp8_turns(torch, tfa, tq, builds, batch,
+                              FP8_TURNS["llama"], LLAMA_LAYERS, 2, "split",
+                              "Llama-3 8B fp8")
+    for name in ("fp8", "bf16"):
+        ls = out[name]["losses"]
+        # the mean of the last two steps against the first two (phase 4c:
+        # adamw(3e-4) swings this width's loss from one step to the next)
+        check(sum(ls[-2:]) < sum(ls[:2]), f"Llama {name}: the loss did not "
+              f"fall: {ls}")
+        out[name]["tokens_per_s"] = (LLAMA_B * LLAMA_T
+                                     / out[name]["ms_per_step"] * 1e3)
+    out["fp8"]["profile"] = knob_profile(torch, tq, builds["fp8"], batch, 1)
+    n8 = out["fp8"]["profile"].get("fp8_products_per_step")
+    # 7 projections a layer, each forward run twice under remat "full"
+    # (the recompute stops after a layer's last fp8 forward has run:
+    # its autograd.Function keeps its inputs after computing)
+    check(n8 in (2 * 7 * LLAMA_LAYERS, None),
+          f"Llama fp8: {n8} fp8 products a step")
+    del builds
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def remat_policies(torch, tfa) -> tuple:
+    """12.4: GPT-2 124M at B = 24, T = 1024 under each policy from the
+    same seed and batch: step 1's loss bitwise across all six, later
+    losses within REMAT_LOSS_RTOL of "full"'s, the offload policies below
+    their on-device twins in peak memory and "full" below remat off."""
+    import dataclasses
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.ops import remat as tremat
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    batch = train_batch(torch, 50257)
+    out, launches = {}, {}
+    for policy in REMAT_POLICIES:
+        cfg = dataclasses.replace(GPTConfig.gpt2(), remat=policy is not None,
+                                  remat_policy=policy or "full")
+        res = auto_accelerate(GPT(cfg), optimizer=adamw(3e-4), seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warm, _, _, _ = run_steps(torch, tfa, res, batch, REMAT_WARMUP)
+        tremat.reset_offload_bytes()
+        losses, _, ms, l = run_steps(torch, tfa, res, batch, REMAT_STEPS)
+        name = policy or "off"
+        expect_launches(l, REMAT_STEPS, 12, 1 if policy is None else 2,
+                        "fused", f"remat {name}")
+        launches[name] = l
+        out[name] = {
+            "ms_per_step": ms, "losses": warm + losses,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "d2h_bytes_per_step": tremat.OFFLOAD_BYTES["d2h"] / REMAT_STEPS,
+            "h2d_bytes_per_step": tremat.OFFLOAD_BYTES["h2d"] / REMAT_STEPS}
+        del res
+        torch.cuda.empty_cache()
+    first = {k: v["losses"][0] for k, v in out.items()}
+    check(len(set(first.values())) == 1,
+          f"remat: step 1's losses differ across policies: {first}")
+    full = out["full"]["losses"]
+    for name, v in out.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(v["losses"], full))
+        v["max_relative_loss_difference_vs_full"] = rel
+        check(rel <= REMAT_LOSS_RTOL, f"remat {name}: losses {v['losses']} "
+              f"against full's {full}: {rel} relative")
+    peak = {k: v["max_memory_allocated_bytes"] for k, v in out.items()}
+    for low, high in (("offload_dots", "dots"),
+                      ("offload_names", "save_names"), ("full", "off")):
+        check(peak[low] < peak[high], f"remat: peak memory of {low} "
+              f"{peak[low]} is not below {high}'s {peak[high]}")
+    for name in ("offload_dots", "offload_names"):
+        check(out[name]["d2h_bytes_per_step"] > 0,
+              f"remat {name}: nothing went to the host")
+    return out, launches
+
+
+def moe_gpt2(torch, tfa) -> tuple:
+    """12.5: GPT-2 124M with 8 experts, top-2, capacity factor 1.25, remat
+    "full", B = 8, T = 1024; then one MoEMLP at its width, the grouped
+    impl against its per-group loop and against the capacity impl."""
+    import dataclasses
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models import moe as tmoe
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    cfg = dataclasses.replace(GPTConfig.gpt2(), moe_experts=8, moe_top_k=2,
+                              moe_capacity_factor=1.25)
+    check(cfg.remat and cfg.remat_policy == "full", f"GPT-2 preset: {cfg}")
+    t0 = time.monotonic()
+    res = auto_accelerate(GPT(cfg), optimizer=adamw(3e-4), seed=0)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in res.model.parameters())
+    batch = train_batch(torch, 50257, b=MOE_B)
+    tfa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    auxes, metrics = [], []
+    t0 = time.monotonic()
+    for _ in range(MOE_STEPS):
+        res.state, m = res.train_step(res.state, batch)
+        metrics.append(m["loss"])
+        auxes.append(tmoe.collect_moe_aux_loss(res.model.intermediates)
+                     .detach())
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) / MOE_STEPS * 1e3
+    launches = dict(tfa.LAUNCHES)
+    losses = torch.stack(metrics).cpu().tolist()
+    aux = torch.stack(auxes).cpu().tolist()
+    check(all(v == v and abs(v) < float("inf") for v in losses + aux),
+          f"MoE GPT-2: non-finite loss {losses} or aux {aux}")
+    check(losses[-1] < losses[0], f"MoE GPT-2: loss did not fall: {losses}")
+    expect_launches(launches, MOE_STEPS, 12, 2, "fused", "MoE GPT-2")
+    capacity = int(cfg.moe_capacity_factor * MOE_B * TRAIN_T * 2 / 8)
+    out = {"params": n_params, "capacity": capacity, "init_s": init_s,
+           "batch": MOE_B, "seq": TRAIN_T, "steps": MOE_STEPS,
+           "ms_per_step": ms, "tokens_per_s": MOE_B * TRAIN_T / ms * 1e3,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses, "aux_losses": aux, "launches": launches}
+    out["profile"] = profile_steps(torch, res, batch, 2, ms,
+                                   "chip_smoke_moe_profile.txt")
+    del res
+    torch.cuda.empty_cache()
+
+    # one MoEMLP: grouped (torch._grouped_mm) against its per-group loop
+    # on the card, and against the capacity impl with C = T (cf = E / k)
+    d, f, E, n_tok = 768, 3072, 8, MOE_B * TRAIN_T
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mcfg = tmoe.MoEConfig(num_experts=E, top_k=2, capacity_factor=4.0)
+    mlp = tmoe.MoEMLP(d, f, mcfg, device="cuda")
+    with torch.no_grad():
+        mlp.router.kernel.copy_(torch.randn((d, E), generator=gen,
+                                            device="cuda") * d ** -0.5)
+        for p in (mlp.experts_w_in, mlp.experts_w_gate, mlp.experts_w_down):
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+    x = torch.randn((MOE_B, TRAIN_T, d), generator=gen,
+                    device="cuda").bfloat16()
+    with torch.no_grad():
+        probs = torch.softmax(mlp.router(x.reshape(-1, d).float()), -1)
+        _, experts = tmoe._top_k(probs, 2)
+        flat = experts.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        sizes = torch.bincount(flat, minlength=E)
+        xs = x.reshape(-1, d)[order // 2]
+        w = mlp.experts_w_gate.bfloat16()
+        grouped = tmoe._ragged_dot(xs, w, sizes)
+        loop, start = [], 0
+        for g, n in enumerate(sizes.tolist()):
+            loop.append(xs[start:start + n] @ w[g])
+            start += n
+        loop = torch.cat(loop)
+        cap, _ = mlp(x)
+        mlp.moe = dataclasses.replace(mcfg, impl="grouped")
+        grp, _ = mlp(x)
+        out["mlp"] = {
+            "tokens": n_tok, "group_sizes": sizes.tolist(),
+            "grouped_mm_vs_loop_rel_err": _rel_err(torch, grouped, loop),
+            "grouped_vs_capacity_rel_err": _rel_err(torch, grp, cap),
+            "grouped_ms": cuda_ms(torch, lambda: mlp(x), 10)}
+        mlp.moe = mcfg
+        out["mlp"]["capacity_cf4_ms"] = cuda_ms(torch, lambda: mlp(x), 5)
+        mlp.moe = dataclasses.replace(mcfg, capacity_factor=1.25)
+        out["mlp"]["capacity_cf1.25_ms"] = cuda_ms(torch, lambda: mlp(x), 5)
+    for key in ("grouped_mm_vs_loop_rel_err", "grouped_vs_capacity_rel_err"):
+        check(out["mlp"][key] <= MOE_RTOL, f"MoEMLP: {key} "
+              f"{out['mlp'][key]} (tolerance {MOE_RTOL})")
+    del mlp
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def model_knobs_phase(torch, tfa) -> tuple:
+    """Phase 12, runnable alone: the fp8 ops (12.1), GPT-2 124M (12.2)
+    and Llama-3 8B at 4 layers (12.3) with fp8 against bf16, the remat
+    policies (12.4) and GPT-2 124M with experts (12.5), each through
+    `auto_accelerate`.  Returns (report, flash launches per run)."""
+    import gc
+
+    from dlrover_wuqiong_tpu_torch.ops import quantization as tq
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    tq.reset_launches()
+    out, launches = {"fp8_ops": fp8_ops_check(torch, tq)}, {}
+    for key, fn in (("gpt2_fp8", lambda: gpt2_fp8(torch, tfa, tq)),
+                    ("llama_fp8", lambda: llama_fp8(torch, tfa, tq)),
+                    ("remat", lambda: remat_policies(torch, tfa)),
+                    ("moe", lambda: moe_gpt2(torch, tfa))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.monotonic()
+        out[key], launches[key] = fn()
+        out[key + "_wall_s"] = time.monotonic() - t1
+    out["int8_launches"] = dict(tq.LAUNCHES)
+    check(sum(out["int8_launches"].values()) == 0,
+          f"model knobs: int8 launches {out['int8_launches']}")
+    out["phase_wall_s"] = time.monotonic() - t0
+    return out, launches
+
+
+def print_model_knobs(mk: dict):
+    """Phase 12's lines: the report as JSON, then its numbers."""
+    print("model-knobs: " + json.dumps(mk))
+    op = mk["fp8_ops"]
+    print(f"model-knobs: fp8 ops at ({TRAIN_B * TRAIN_T}, 768) @ (768, "
+          f"3072): q and scale bitwise the CPU's; fp8_dot "
+          f"{op['fp8_dot_ms']:.4f} ms (the _scaled_mm alone "
+          f"{op['scaled_mm_ms']:.4f} ms, {op['scaled_mm_tflop_per_s']:.1f} "
+          f"TFLOP/s) against the bf16 product {op['bf16_mm_ms']:.4f} ms "
+          f"({op['bf16_mm_tflop_per_s']:.1f} TFLOP/s); the e5m2 backward's "
+          f"two upcast products {op['e5m2_backward_products_ms']:.4f} ms "
+          f"against bf16's {op['bf16_backward_products_ms']:.4f} ms; "
+          f"relative errors fwd {op['fwd_rel_err']:.2e}, dgrad "
+          f"{op['ga_rel_err']:.2e}, wgrad {op['gb_rel_err']:.2e}; a "
+          f"(100, 768) operand raises")
+    for key, tag in (("gpt2_fp8", "GPT-2 124M, B = 24, T = 1024"),
+                     ("llama_fp8", f"Llama-3 8B ({LLAMA_LAYERS} layers), "
+                                   f"B = 1, T = 4096")):
+        r = mk[key]
+        prof = r["fp8"]["profile"]
+        print(f"model-knobs: {tag}, in turns: fp8 "
+              f"{r['fp8']['ms_per_step']:.2f} ms a step "
+              f"({r['fp8']['tokens_per_s']:.0f} tokens/s, peak "
+              f"{r['fp8']['peak_bytes'] / 1e9:.2f} GB) against bf16 "
+              f"{r['bf16']['ms_per_step']:.2f} ms "
+              f"({r['bf16']['tokens_per_s']:.0f} tokens/s, peak "
+              f"{r['bf16']['peak_bytes'] / 1e9:.2f} GB); losses within "
+              f"{r['max_relative_loss_difference']:.2e} relative; "
+              f"{prof.get('fp8_products_per_step')} fp8 products a step; "
+              f"device ms a step by kind "
+              + json.dumps(prof.get("device_ms_per_step_by_kind")))
+    for name, v in mk["remat"].items():
+        print(f"model-knobs: remat {name}: {v['ms_per_step']:.2f} ms a "
+              f"step, peak {v['max_memory_allocated_bytes'] / 1e9:.3f} GB, "
+              f"to the host {v['d2h_bytes_per_step'] / 1e9:.3f} GB and "
+              f"back {v['h2d_bytes_per_step'] / 1e9:.3f} GB a step")
+    m = mk["moe"]
+    print(f"model-knobs: GPT-2 124M with 8 experts (top-2, capacity "
+          f"{m['capacity']} an expert, {m['params']} parameters), B = "
+          f"{m['batch']}, T = {m['seq']}, remat full: "
+          f"{m['ms_per_step']:.2f} ms a step ({m['tokens_per_s']:.0f} "
+          f"tokens/s), peak {m['max_memory_allocated_bytes'] / 1e9:.2f} "
+          f"GB; losses {m['losses'][0]:.4f} -> {m['losses'][-1]:.4f}, aux "
+          f"{m['aux_losses'][0]:.5f} -> {m['aux_losses'][-1]:.5f}; device "
+          f"ms a step by kind " + json.dumps(
+              m["profile"].get("device_ms_per_step_by_kind")))
+    ml = m["mlp"]
+    print(f"model-knobs: MoEMLP (768, 3072, 8 experts, {ml['tokens']} "
+          f"tokens, top-2): _grouped_mm against its per-group loop "
+          f"{ml['grouped_mm_vs_loop_rel_err']:.2e}, grouped against "
+          f"capacity (cf 4) {ml['grouped_vs_capacity_rel_err']:.2e} "
+          f"(tolerance {MOE_RTOL}); forward ms: grouped "
+          f"{ml['grouped_ms']:.3f}, capacity cf 4 "
+          f"{ml['capacity_cf4_ms']:.3f}, capacity cf 1.25 "
+          f"{ml['capacity_cf1.25_ms']:.3f}")
+    print(f"model-knobs: phase wall {mk['phase_wall_s']:.1f} s (12.2 "
+          f"{mk['gpt2_fp8_wall_s']:.1f}, 12.3 {mk['llama_fp8_wall_s']:.1f}, "
+          f"12.4 {mk['remat_wall_s']:.1f}, 12.5 {mk['moe_wall_s']:.1f})")
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3269,6 +3800,12 @@ def main():
         torch, tfa, ref=mk_ref, restart_gap_s=mk["restart_gap_s"])
     print_master_failover(fo)
 
+    # phase 12 — the model knobs: fp8, the remat policies, experts
+    gc.collect()
+    torch.cuda.empty_cache()
+    knobs, knob_launches = model_knobs_phase(torch, tfa)
+    print_model_knobs(knobs)
+
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -3294,6 +3831,7 @@ def main():
             "launches_node_loss_route": nl_launches[name],
             "launches_master_kill_route": mk_launches[name],
             "launches_master_failover_route": fo_launches[name],
+            "launches_model_knobs": knobs["int8_launches"][name],
         })
     src = "dlrover_wuqiong_tpu_torch/csrc/flash_attention.cu"
     for name, replaces, counts, run in (
@@ -3326,6 +3864,10 @@ def main():
             "launches_node_loss_route": nl_launches[name],
             "launches_master_kill_route": mk_launches[name],
             "launches_master_failover_route": fo_launches[name],
+            "launches_model_knobs": {
+                run: (sum(l[name] for l in counts.values())
+                      if run == "remat" else counts[name])
+                for run, counts in knob_launches.items()},
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {

@@ -25,14 +25,24 @@ behind a master, the serving worker and its control plane:
 
 and the one-device training path:
 
-  auto.accelerate.auto_accelerate       model + optimizer -> train step
+  auto.accelerate.auto_accelerate       model + optimizer -> train step;
+                                        the one-device strategies (amp
+                                        with fp8, checkpoint,
+                                        module_replace, grad_accum)
   trainer.train_step                    TrainState, make_train_step
                                         (accumulation, fused K steps), adamw
-  models.gpt.GPT / cross_entropy_loss   GPT-2 as nn.Modules, flax names
+  models.gpt.GPT / cross_entropy_loss   GPT-2 as nn.Modules, flax names,
+                                        dropout, experts
   models.llama.Llama                    Llama-3 (RMSNorm, RoPE, SwiGLU,
                                         GQA), flax names, same loss
-  models.attention / models.fp8         the flash route, flax's Dense
-  ops.remat                             remat "full" per block
+  models.attention                      the flash route
+  models.fp8                            flax's Dense and Fp8Dense
+  models.moe                            MoEMLP: router, capacity or
+                                        grouped dispatch, aux loss
+  ops.quantization (fp8)                fp8_matmul: e4m3 forward on
+                                        _scaled_mm, e5m2 gradients
+  ops.remat                             the five remat policies per block
+                                        (on the host for offload_*)
   ops.flash_attention                   forward + fused / split backward
                                         (CUDA kernels in
                                         csrc/flash_attention.cu)

@@ -1,9 +1,11 @@
 """`auto_accelerate` on one device: model + optimizer -> a ready train step.
 
-Parity: dlrover_wuqiong_tpu/auto/accelerate.py — `auto_accelerate` (:446)
-and `AccelerateResult` (:289), the one-device slice: no strategy, no mesh,
-no compile cache.  It materializes the model's parameters on the device
-(seeded flax-layout init), builds the optimizer over them (default
+Parity: dlrover_wuqiong_tpu/auto/accelerate.py — `auto_accelerate` (:446),
+`AccelerateResult` (:289), and the strategy registry (`register_strategy`
+:56, `StrategyContext` :63, `resolve_strategy` :258), the one-device
+slice: no mesh, no compile cache.  It materializes the model's
+parameters on the device (seeded flax-layout init), builds the
+optimizer over them (default
 ``adamw(3e-4)``, the JAX default ``optax.adamw(3e-4)``), and returns the
 train step of `trainer.train_step.make_train_step`::
 
@@ -14,8 +16,22 @@ train step of `trainer.train_step.make_train_step`::
 The model is any port model with ``init_params(seed, device)`` that maps
 (B, T) token ids to logits: ``models.gpt.GPT`` or ``models.llama.Llama``.
 
-Sharding strategies and more than one device raise: they come with the
-port of ``parallel/`` (ROADMAP queue 1 item 8).
+The one-device strategies rebuild the model with
+``dataclasses.replace(cfg, **overrides)`` before its init (JAX's
+`model_overrides`, the config fields the model has):
+
+    ("amp" | "amp_native" | "half", {"enabled", "fp8", "filter"})
+        bf16 compute (float32 with enabled=False); fp8 projections
+    ("checkpoint", {"enabled", "policy", "names"})
+        remat, its policy (checked at once) and the *_names anchors
+    ("module_replace", {"enabled"})   the flash route on or off
+    ("grad_accum", {"steps"})         microbatches a step
+
+The JAX package's other strategy names raise with the ROADMAP item that
+ports them: the mesh strategies (item 8a; "sequence_parallel" 8b;
+"pipeline_parallel", "local_sgd" and "hsdp" 8c) and the optimizer ones
+("stable_bf16", "bf16_optimizer", "optimizer_offload": item 9).  So does
+more than one device (item 8a).
 """
 
 from __future__ import annotations
@@ -35,14 +51,137 @@ from ..trainer.train_step import (
     make_train_step,
 )
 
+# strategy registry: name -> handler(ctx, cfg)
+_STRATEGY_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_strategy(name: str):
+    def deco(fn):
+        _STRATEGY_REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+@dataclasses.dataclass
+class StrategyContext:
+    accum_steps: int = 1
+    # tri-state: None = keep the model's own config; True/False = override
+    amp: Optional[bool] = None  # bf16 compute
+    remat: Optional[bool] = None
+    flash_attention: Optional[bool] = None
+    extra: Dict = dataclasses.field(default_factory=dict)
+
+    def model_overrides(self, model) -> Dict[str, Any]:
+        """The flags as the model config's field values (only fields the
+        config has, and only those that change)."""
+        cfg = getattr(model, "config", None)
+        if cfg is None or not dataclasses.is_dataclass(cfg):
+            return {}
+        fields = {f.name for f in dataclasses.fields(cfg)}
+        out: Dict[str, Any] = {}
+        if self.amp is not None and "dtype" in fields:
+            out["dtype"] = torch.bfloat16 if self.amp else torch.float32
+        if self.remat is not None and "remat" in fields:
+            out["remat"] = self.remat
+        if self.extra.get("remat_policy") and "remat_policy" in fields:
+            out["remat_policy"] = self.extra["remat_policy"]
+        if self.extra.get("remat_names") and "remat_names" in fields:
+            out["remat_names"] = self.extra["remat_names"]
+        if self.flash_attention is not None and \
+                "use_flash_attention" in fields:
+            out["use_flash_attention"] = self.flash_attention
+        if self.extra.get("fp8") and "fp8" in fields:
+            out["fp8"] = True
+            if self.extra.get("fp8_filter") and "fp8_filter" in fields:
+                out["fp8_filter"] = self.extra["fp8_filter"]
+        return {k: v for k, v in out.items() if getattr(cfg, k) != v}
+
+
+#: JAX strategy names whose port is still to come -> the ROADMAP item
+_NOT_PORTED = {
+    **dict.fromkeys(("fsdp", "zero2", "zero3", "data_parallel", "ddp",
+                     "tensor_parallel", "expert_parallel", "multi_slice"),
+                    "8a"),
+    "sequence_parallel": "8b",
+    **dict.fromkeys(("pipeline_parallel", "local_sgd", "hsdp"), "8c"),
+    **dict.fromkeys(("stable_bf16", "bf16_optimizer", "optimizer_offload"),
+                    "9"),
+}
+
+
+def _not_ported(name: str, item: str) -> Callable:
+    def handler(ctx: StrategyContext, cfg: Dict):
+        raise ValueError(f"strategy {name!r} is not ported yet (ROADMAP "
+                         f"queue 1 item {item}); the port trains on one "
+                         "device with amp, checkpoint, module_replace and "
+                         "grad_accum")
+    return handler
+
+
+for _name, _item in _NOT_PORTED.items():
+    register_strategy(_name)(_not_ported(_name, _item))
+
+
+@register_strategy("amp")
+@register_strategy("amp_native")
+@register_strategy("half")
+def _s_amp(ctx: StrategyContext, cfg: Dict):
+    """bf16 compute; with {"fp8": True} the name-filtered projections
+    also become `Fp8Dense` (`filter` replaces the config's filter)."""
+    ctx.amp = cfg.get("enabled", True)
+    if cfg.get("fp8"):
+        ctx.extra["fp8"] = True
+        if cfg.get("filter"):
+            ctx.extra["fp8_filter"] = tuple(cfg["filter"])
+
+
+@register_strategy("checkpoint")
+def _s_ckpt(ctx: StrategyContext, cfg: Dict):
+    """cfg: enabled, policy (`ops.remat.POLICIES`; an unknown one raises
+    here), names (the *_names policies' anchors)."""
+    ctx.remat = cfg.get("enabled", True)
+    if cfg.get("policy") is not None:
+        from ..ops.remat import resolve_remat_policy
+
+        resolve_remat_policy(cfg["policy"])
+        ctx.extra["remat_policy"] = cfg["policy"]
+    if cfg.get("names"):
+        ctx.extra["remat_names"] = tuple(cfg["names"])
+
+
+@register_strategy("module_replace")
+def _s_module_replace(ctx: StrategyContext, cfg: Dict):
+    ctx.flash_attention = cfg.get("enabled", True)
+
+
+@register_strategy("grad_accum")
+def _s_accum(ctx: StrategyContext, cfg: Dict):
+    ctx.accum_steps = cfg.get("steps", 1)
+
+
+def resolve_strategy(strategy: Optional[Sequence]) -> StrategyContext:
+    """Each (name, cfg) item (or a bare name) through its handler, in
+    order; no strategy leaves every flag at None."""
+    ctx = StrategyContext()
+    for item in strategy or ():
+        name, cfg = item if isinstance(item, (tuple, list)) else (item, {})
+        handler = _STRATEGY_REGISTRY.get(name)
+        if handler is None:
+            raise ValueError(f"unknown optimization strategy: {name!r}; "
+                             f"known: {sorted(_STRATEGY_REGISTRY)}")
+        handler(ctx, cfg or {})
+    return ctx
+
 
 @dataclasses.dataclass
 class AccelerateResult:
     train_step: Callable
     state: TrainState
     loss_fn: Callable
-    model: Any
+    model: Any  # the (strategy-rebuilt) model, trained in place
     device: torch.device
+    strategy: StrategyContext = dataclasses.field(
+        default_factory=StrategyContext)
     accum_steps: int = 1
     fused_steps: int = 1
     _fused_cache: Dict[int, Callable] = dataclasses.field(
@@ -82,30 +221,32 @@ def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
                     device=None, seed: int = 0,
                     strategy: Optional[Sequence] = None,
                     devices: Optional[Sequence] = None) -> AccelerateResult:
-    """Initialize `model` on `device` (default ``cuda``) from `seed`, build
-    the optimizer and the train step.
+    """Resolve `strategy`, rebuild `model` with its overrides, initialize
+    it on `device` (default ``cuda``) from `seed`, and build the
+    optimizer and the train step.
 
     `optimizer` is a factory ``params -> torch.optim.Optimizer`` (None:
     ``adamw(3e-4)``); `loss_fn(params, batch)` defaults to the LM loss
-    over {input_ids, labels}.  ``fused_steps=K > 1`` makes `train_step`
-    the fused K-step driver; any K is also available through
-    `AccelerateResult.fused_train_step`.
+    over {input_ids, labels}.  `accum_steps` replaces the strategy's.
+    ``fused_steps=K > 1`` makes `train_step` the fused K-step driver; any
+    K is also available through `AccelerateResult.fused_train_step`.
     """
-    if strategy:
-        raise ValueError(
-            f"strategy {list(strategy)!r}: sharding strategies are not "
-            "ported yet (ROADMAP queue 1 item 8); the port trains on one "
-            "device")
     if devices is not None and len(devices) > 1:
         raise ValueError(
             f"{len(devices)} devices: multi-device training is not ported "
-            "yet (ROADMAP queue 1 item 8)")
+            "yet (ROADMAP queue 1 item 8a)")
+    ctx = resolve_strategy(strategy)
+    if accum_steps:
+        ctx.accum_steps = accum_steps
+    overrides = ctx.model_overrides(model)
+    if overrides:
+        model = type(model)(dataclasses.replace(model.config, **overrides))
     device = resolve_device(device)
     model.init_params(seed, device)
     loss = loss_fn or make_lm_loss()
-    accum = accum_steps or 1
     state = TrainState.create(model, optimizer or adamw(3e-4))
-    step = make_train_step(loss, accum, fused_steps)
+    step = make_train_step(loss, ctx.accum_steps, fused_steps)
     return AccelerateResult(train_step=step, state=state, loss_fn=loss,
-                            model=model, device=device, accum_steps=accum,
+                            model=model, device=device, strategy=ctx,
+                            accum_steps=ctx.accum_steps,
                             fused_steps=max(fused_steps, 1))

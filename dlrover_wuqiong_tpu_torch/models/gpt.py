@@ -25,9 +25,25 @@ masks with ``finfo.min``.  One difference of rounding, not of value: the
 token embedding gathers float32 rows and casts them, so its gradient
 accumulates in float32 where flax's scatter-adds in ``cfg.dtype``.
 
-Not ported, raising at build: ``dropout > 0``, ``moe_experts > 0``,
-``fp8`` and remat policies other than "full" (ROADMAP).  Without a mesh,
-"ring" and "ulysses" run the flash route, as in the JAX package.
+The model knobs of the JAX config: ``fp8`` with ``fp8_filter`` (the
+name-filtered projections as `models.fp8.Fp8Dense`), the five remat
+policies with ``remat_names`` (`ops.remat`; each block anchors
+``attn_out`` and ``mlp_out`` as JAX's `Block` does), ``dropout`` after
+each ``c_proj`` (active only with ``deterministic=False``, which no train
+path passes, as in the JAX package), and ``moe_experts`` with
+``moe_top_k`` and ``moe_capacity_factor`` (the block's MLP becomes
+`models.moe.MoEMLP`, named ``moe_mlp``; its aux loss lands in
+`GPT.intermediates`, where `trainer.train_step.make_lm_loss` adds it).
+Without a mesh, "ring" and "ulysses" run the flash route, as in the JAX
+package.
+
+Dropout keeps flax's semantics (keep with probability ``1 - rate``, kept
+values scaled by ``1 / (1 - rate)``, zeros at rate 1), but its masks come
+from torch's generator, not JAX's bits.  `GPT.forward` draws one seed a
+block from the caller's `generator` outside any checkpoint, and the block
+draws its masks from a generator seeded with it, so a remat recompute
+draws the same masks (``torch.utils.checkpoint`` restores the global RNG
+states, not a caller's generator).
 """
 
 from __future__ import annotations
@@ -35,7 +51,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -56,11 +72,21 @@ class GPTConfig:
     # bfloat16 whatever it says (models/attention.py, the dtype contract)
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
+    # ops/remat.py: "full" | "dots" | "offload_dots" | "save_names" |
+    # "offload_names"
     remat_policy: str = "full"
+    # checkpoint_name anchors for the *_names policies; () = the models'
+    # ("attn_out", "mlp_out")
+    remat_names: tuple = ()
     use_flash_attention: bool = True
     attn_impl: str = "flash"  # "flash" | "ring" | "ulysses"
+    # fp8 products on the name-filtered projections (models/fp8.py)
     fp8: bool = False
+    fp8_filter: tuple = ("c_attn", "c_proj", "c_fc")
+    # MoE: 0 experts = dense MLP (models/moe.py)
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
 
     @classmethod
     def nano(cls):  # tiny config for tests
@@ -116,6 +142,19 @@ def _layer_norm(n: int, device) -> Dict[str, torch.Tensor]:
             "bias": torch.zeros(n, device=device)}
 
 
+def _moe(cfg: GPTConfig, gen, device) -> Dict[str, torch.Tensor]:
+    """`models.moe.MoEMLP`'s leaves: a lecun-normal (d, E) router kernel
+    and normal(0.02) expert stacks."""
+    C, E = cfg.n_embd, cfg.moe_experts
+    out = {"router": _dense(C, E, gen, device, use_bias=False)}
+    for name, shape in (("experts_w_in", (E, C, 4 * C)),
+                        ("experts_w_gate", (E, C, 4 * C)),
+                        ("experts_w_down", (E, 4 * C, C))):
+        w = torch.randn(shape, generator=gen, device=device)
+        out[name] = w.mul_(0.02)
+    return out
+
+
 def _embed(num: int, features: int, gen, device) -> Dict[str, torch.Tensor]:
     # flax Embed default: variance_scaling(1, "fan_in", "normal",
     # out_axis=0), whose fan_in for a (num, features) table is `features`
@@ -127,7 +166,8 @@ def _embed(num: int, features: int, gen, device) -> Dict[str, torch.Tensor]:
 def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> Dict:
     """Seeded float32 parameters in the flax tree layout, made on `device`
     (default ``cuda``) with flax's initializers: lecun-normal Dense kernels,
-    zero biases, LayerNorm scale 1 and bias 0, flax Embed's normal."""
+    zero biases, LayerNorm scale 1 and bias 0, flax Embed's normal, and
+    with ``moe_experts`` the MoE leaves at flax's paths (`_moe`)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -142,9 +182,13 @@ def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> Dict:
             "attn": {"c_attn": _dense(C, 3 * C, gen, device),
                      "c_proj": _dense(C, C, gen, device)},
             "ln_2": _layer_norm(C, device),
-            "mlp": {"c_fc": _dense(C, 4 * C, gen, device),
-                    "c_proj": _dense(4 * C, C, gen, device)},
         }
+        if cfg.moe_experts:
+            params[f"h_{i}"]["moe_mlp"] = _moe(cfg, gen, device)
+        else:
+            params[f"h_{i}"]["mlp"] = {
+                "c_fc": _dense(C, 4 * C, gen, device),
+                "c_proj": _dense(4 * C, C, gen, device)}
     params["ln_f"] = _layer_norm(C, device)
     return params
 
@@ -192,7 +236,8 @@ class CausalSelfAttention(nn.Module):
         self.c_attn = dense(cfg, C, 3 * C, "c_attn", device=device)
         self.c_proj = dense(cfg, C, C, "c_proj", device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         B, T, C = x.shape
         H, D = cfg.n_head, cfg.head_dim
@@ -213,7 +258,7 @@ class CausalSelfAttention(nn.Module):
             att = att.masked_fill(~mask, torch.finfo(att.dtype).min)
             att = torch.softmax(att.float(), dim=-1).to(q.dtype)
             y = torch.einsum("bhqk,bkhd->bqhd", att, v)
-        return self.c_proj(y.reshape(B, T, C))
+        return dropout(self.c_proj(y.reshape(B, T, C)), cfg.dropout, gen)
 
 
 class MLP(nn.Module):
@@ -221,51 +266,80 @@ class MLP(nn.Module):
         from .fp8 import dense
 
         super().__init__()
+        self.rate = cfg.dropout
         C = cfg.n_embd
         self.c_fc = dense(cfg, C, 4 * C, "c_fc", device=device)
         self.c_proj = dense(cfg, 4 * C, C, "c_proj", device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+        return dropout(h, self.rate, gen)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)``; `gen` None is the deterministic path
+    (identity)."""
+    if gen is None or rate == 0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class Block(nn.Module):
+    """``forward(x, seed)`` returns the block's output and its MoE aux
+    loss (None for a dense MLP).  `seed` (an int, or None for the
+    deterministic path) seeds the block's dropout masks."""
+
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.ln_1 = LayerNorm(cfg.n_embd, cfg.dtype, device)
         self.attn = CausalSelfAttention(cfg, device)
         self.ln_2 = LayerNorm(cfg.n_embd, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.moe_experts:
+            from .moe import MoEConfig, MoEMLP
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+            self.moe_mlp = MoEMLP(cfg.n_embd, 4 * cfg.n_embd, MoEConfig(
+                num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype),
+                device)
+        else:
+            self.mlp = MLP(cfg, device)
 
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None):
+        from ..ops.remat import checkpoint_name
 
-def _check_ported(cfg: GPTConfig) -> None:
-    if cfg.dropout > 0:
-        raise NotImplementedError("dropout > 0 is not ported yet (ROADMAP "
-                                  "queue 1 item 3)")
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE blocks (moe_experts > 0) are not "
-                                  "ported yet (ROADMAP queue 1 item 10)")
-    if cfg.fp8:
-        raise NotImplementedError("fp8 projections are not ported yet "
-                                  "(ROADMAP queue 1 item 3)")
-    if cfg.remat:
-        from ..ops.remat import resolve_remat_policy
-
-        resolve_remat_policy(cfg.remat_policy)
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(seed)
+        attn = self.attn(self.ln_1(x), gen)
+        x = x + checkpoint_name(attn, "attn_out")
+        aux = None
+        if hasattr(self, "moe_mlp"):
+            h, aux = self.moe_mlp(self.ln_2(x))
+        else:
+            h = self.mlp(self.ln_2(x), gen)
+        return x + checkpoint_name(h, "mlp_out"), aux
 
 
 class GPT(nn.Module):
     """GPT-2 with a tied lm head.  ``forward(idx)`` takes (B, T) token ids
-    and returns (B, T, vocab) logits in ``cfg.dtype``."""
+    and returns (B, T, vocab) logits in ``cfg.dtype``; `intermediates`
+    then holds each MoE block's aux loss at flax's path
+    (``h_<i>.moe_mlp.moe_aux_loss``), or nothing."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        _check_ported(cfg)
+        if cfg.remat:
+            from ..ops.remat import resolve_remat_policy
+
+            resolve_remat_policy(cfg.remat_policy)  # an unknown name raises
         self.config = cfg
+        self.intermediates: Dict = {}
         meta = torch.device("meta")
         self.wte = Embed(cfg.vocab_size, cfg.n_embd, cfg.dtype, meta)
         self.wpe = Embed(cfg.block_size, cfg.n_embd, cfg.dtype, meta)
@@ -281,18 +355,37 @@ class GPT(nn.Module):
         return load_params(self, init_params(self.config, seed, device),
                            device)
 
-    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+    def forward(self, idx: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """With ``dropout > 0`` and ``deterministic=False`` the masks come
+        from `generator` (None: torch's default generator), one seed a
+        block."""
         cfg = self.config
         T = idx.shape[1]
         x = self.wte(idx) + self.wpe.embedding[:T].to(cfg.dtype)[None]
         blocks = [getattr(self, f"h_{i}") for i in range(cfg.n_layer)]
         if cfg.remat:
-            from ..ops.remat import resolve_remat_policy, trace_remat_policy
+            from ..ops.remat import (
+                MODEL_CHECKPOINT_NAMES,
+                resolve_remat_policy,
+                trace_remat_policy,
+            )
 
-            wrap = resolve_remat_policy(trace_remat_policy(cfg.remat_policy))
+            wrap = resolve_remat_policy(
+                trace_remat_policy(cfg.remat_policy),
+                cfg.remat_names or MODEL_CHECKPOINT_NAMES)
             blocks = [functools.partial(wrap, b) for b in blocks]
-        for block in blocks:
-            x = block(x)
+        seeds = [None] * cfg.n_layer
+        if cfg.dropout > 0 and not deterministic:
+            seeds = torch.randint(
+                0, 2 ** 62, (cfg.n_layer,), generator=generator,
+                device=generator.device if generator else "cpu").tolist()
+        self.intermediates = {}
+        for i, (block, seed) in enumerate(zip(blocks, seeds)):
+            x, aux = block(x, seed)
+            if aux is not None:
+                self.intermediates[f"h_{i}"] = {
+                    "moe_mlp": {"moe_aux_loss": aux}}
         x = self.ln_f(x)
         return x @ self.wte.embedding.to(cfg.dtype).t()
 

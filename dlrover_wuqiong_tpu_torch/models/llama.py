@@ -25,10 +25,13 @@ visible phase error); RoPE rotates halves of the head (``x[:d/2]`` with
 ``sqrt(head_dim)`` and masks with ``-inf`` (GPT's masks with
 ``finfo.min``).
 
-Not ported, raising at build: ``fp8`` and remat policies other than
-"full" (ROADMAP queue 1 item 3); the JAX fields ``remat_names`` and
-``fp8_filter`` come back with them.  "ring" and "ulysses" over a mesh raise
-in `models.attention.attend`; without a mesh they run the flash route.
+The model knobs of the JAX config: ``fp8`` with ``fp8_filter`` (the
+seven name-filtered projections as `models.fp8.Fp8Dense`; the lm head
+stays a `Dense`, as flax's), and the five remat policies with
+``remat_names`` (`ops.remat`; each block anchors ``attn_out`` and
+``mlp_out`` as JAX's `LlamaBlock` does).  "ring" and "ulysses" over a
+mesh raise in `models.attention.attend`; without a mesh they run the
+flash route.
 """
 
 from __future__ import annotations
@@ -61,11 +64,15 @@ class LlamaConfig:
     # bfloat16 whatever it says (models/attention.py, the dtype contract)
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
-    remat_policy: str = "full"
+    remat_policy: str = "full"  # ops/remat.py policy names
+    remat_names: tuple = ()  # () = the models' ("attn_out", "mlp_out")
     use_flash_attention: bool = True
     attn_impl: str = "flash"  # "flash" | "ring" | "ulysses"
     mesh: Any = None
+    # fp8 products on the name-filtered projections (models/fp8.py)
     fp8: bool = False
+    fp8_filter: tuple = ("q_proj", "k_proj", "v_proj", "o_proj",
+                         "gate_proj", "up_proj", "down_proj")
 
     @classmethod
     def nano(cls):
@@ -242,18 +249,12 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor) -> torch.Tensor:
-        x = x + self.attention(self.input_norm(x), cos, sin)
-        return x + self.feed_forward(self.post_attn_norm(x))
+        from ..ops.remat import checkpoint_name
 
-
-def _check_ported(cfg: LlamaConfig) -> None:
-    if cfg.fp8:
-        raise NotImplementedError("fp8 projections are not ported yet "
-                                  "(ROADMAP queue 1 item 3)")
-    if cfg.remat:
-        from ..ops.remat import resolve_remat_policy
-
-        resolve_remat_policy(cfg.remat_policy)
+        attn = self.attention(self.input_norm(x), cos, sin)
+        x = x + checkpoint_name(attn, "attn_out")
+        h = self.feed_forward(self.post_attn_norm(x))
+        return x + checkpoint_name(h, "mlp_out")
 
 
 class Llama(nn.Module):
@@ -265,7 +266,10 @@ class Llama(nn.Module):
         super().__init__()
         from .fp8 import Dense
 
-        _check_ported(cfg)
+        if cfg.remat:
+            from ..ops.remat import resolve_remat_policy
+
+            resolve_remat_policy(cfg.remat_policy)  # an unknown name raises
         self.config = cfg
         meta = torch.device("meta")
         h = cfg.hidden_size
@@ -291,9 +295,15 @@ class Llama(nn.Module):
                               idx.device)
         blocks = [getattr(self, f"layers_{i}") for i in range(cfg.num_layers)]
         if cfg.remat:
-            from ..ops.remat import resolve_remat_policy, trace_remat_policy
+            from ..ops.remat import (
+                MODEL_CHECKPOINT_NAMES,
+                resolve_remat_policy,
+                trace_remat_policy,
+            )
 
-            wrap = resolve_remat_policy(trace_remat_policy(cfg.remat_policy))
+            wrap = resolve_remat_policy(
+                trace_remat_policy(cfg.remat_policy),
+                cfg.remat_names or MODEL_CHECKPOINT_NAMES)
             blocks = [functools.partial(wrap, b) for b in blocks]
         for block in blocks:
             x = block(x, cos, sin)

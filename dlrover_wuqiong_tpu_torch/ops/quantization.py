@@ -31,15 +31,30 @@ A CUDA tensor launches the kernel or raises; nothing falls back.  `LAUNCHES`
 counts kernel launches per wrapper (plain calls are not counted; a grouped
 call counts under ``quantize_int8_blockwise``).
 
-fp8 stays plain torch (``torch.float8_e4m3fn`` / ``e5m2``): it is elementwise
-scaling with no TPU kernel behind it.  `fp8_dot`, `fp8_matmul` and
-`Fp8Einsum` are training-side and not ported yet.
+fp8 (`fp8_quantize`, `fp8_dot` :162, `fp8_matmul` :178-206, `Fp8Einsum`
+:209) has no TPU kernel behind it: the JAX package scales in jnp and
+multiplies with ``dot_general(..., preferred_element_type=f32)``.  The
+port scales in torch (per-tensor current scaling, a true division for
+the scale, so q and scale are bitwise JAX's on the CPU) and multiplies:
+
+- on the card, the e4m3 forward through ``torch._scaled_mm`` (fp8 tensor
+  cores, float32 accumulation, the dequantizing scales ``1/sa``, ``1/sb``
+  applied in its epilogue); M, K and N must be multiples of 16, and any
+  other shape raises;
+- the e5m2 backward's two products as bf16 products of the upcast e5m2
+  operands with a float32 result: cuBLASLt takes e4m3 x e4m3, e4m3 x e5m2
+  and e5m2 x e4m3 but not e5m2 x e5m2, and every e5m2 value is exact in
+  bf16, so these equal an fp8 tensor-core product up to summation order
+  (the JAX package on a TPU without fp8 units upcasts the same way);
+- on the CPU, the plain form: fp8 values cast back to float32 and
+  multiplied in float32, as JAX's CPU ``dot_general`` computes them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -286,14 +301,26 @@ E5M2 = torch.float8_e5m2
 _FP8_MAX = {E4M3: 448.0, E5M2: 57344.0}
 
 
+def fp8_dense_override() -> Optional[bool]:
+    """DWT_FP8_DENSE: "1" forces the name-filtered projections onto fp8,
+    "0" forces them off, unset or "" defers to the model config's ``fp8``
+    (read when a model is built; parity :38)."""
+    value = os.environ.get("DWT_FP8_DENSE", "")
+    if value == "":
+        return None
+    return value == "1"
+
+
 def fp8_quantize(x: torch.Tensor, dtype=E4M3,
                  scale: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-tensor scaling into fp8; returns (fp8 x, f32 scale)."""
     if scale is None:
         amax = x.abs().amax().float()
-        scale = torch.where(amax > 0, _FP8_MAX[dtype] / amax,
-                            torch.ones_like(amax))
+        # a tensor dividend: ``448.0 / amax`` is a reciprocal multiply in
+        # torch, where jnp divides
+        scale = torch.where(amax > 0, torch.full_like(amax, _FP8_MAX[dtype])
+                            / amax, torch.ones_like(amax))
     q = (x.float() * scale).to(dtype)
     return q, scale
 
@@ -301,3 +328,88 @@ def fp8_quantize(x: torch.Tensor, dtype=E4M3,
 def fp8_dequantize(q: torch.Tensor, scale: torch.Tensor,
                    dtype=torch.float32) -> torch.Tensor:
     return (q.float() / scale).to(dtype)
+
+
+def _scaled_mm(qa: torch.Tensor, qb: torch.Tensor, sa: torch.Tensor,
+               sb: torch.Tensor, out_dtype) -> torch.Tensor:
+    """qa (M, K) @ qb (K, N), both fp8 with quantizing scales sa and sb,
+    on the fp8 tensor cores; raises for a shape they do not take."""
+    (m, k), n = qa.shape, qb.shape[1]
+    if m % 16 or k % 16 or n % 16:
+        raise ValueError(f"fp8 product ({m}, {k}) @ ({k}, {n}): "
+                         "torch._scaled_mm takes M, K and N in multiples "
+                         "of 16")
+    if qa.dtype == E5M2 and qb.dtype == E5M2:
+        raise ValueError("fp8 product: torch._scaled_mm takes no "
+                         "e5m2 x e5m2 pair")
+    # the second operand column-major: the (K, N) row-major kernel's
+    # transpose made contiguous, viewed back
+    return torch._scaled_mm(qa.contiguous(), qb.t().contiguous().t(),
+                            scale_a=sa.reciprocal(), scale_b=sb.reciprocal(),
+                            out_dtype=out_dtype)
+
+
+def _upcast_mm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x @ y of two fp8 tensors, float32 result.  On the card a bf16
+    product of the upcast operands (every fp8 value is exact in bf16),
+    float32 accumulation and result; on the CPU in float32."""
+    if x.is_cuda:
+        bf = torch.bfloat16
+        return torch.mm(x.to(bf), y.to(bf), out_dtype=torch.float32)
+    return x.float() @ y.float()
+
+
+def fp8_dot(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.bfloat16,
+            fwd_dtype=E4M3) -> torch.Tensor:
+    """Scaled fp8 matmul: a (..., K) @ b (K, N), both operands rounded
+    through `fwd_dtype` with per-tensor scales, the float32 sum divided
+    by ``sa * sb`` (on the card: multiplied by both reciprocals in the
+    product's epilogue), cast to `out_dtype`."""
+    qa, sa = fp8_quantize(a, fwd_dtype)
+    qb, sb = fp8_quantize(b, fwd_dtype)
+    lead = a.shape[:-1]
+    qa = qa.reshape(-1, a.shape[-1])
+    if a.is_cuda:
+        out = _scaled_mm(qa, qb, sa, sb, out_dtype)
+    else:
+        out = ((qa.float() @ qb.float()) / (sa * sb)).to(out_dtype)
+    return out.reshape(*lead, b.shape[-1])
+
+
+class _Fp8Matmul(torch.autograd.Function):
+    """e4m3 forward, e5m2 gradients (parity `_fp8_mm_fwd` :193,
+    `_fp8_mm_bwd` :197): a and b are kept, and the backward quantizes g,
+    b and a to e5m2 for ``ga = qg qb^T / (sg sb)`` and
+    ``gb = qa^T qg / (sa sg)``."""
+
+    @staticmethod
+    def forward(ctx, a, b, out_dtype):
+        ctx.save_for_backward(a, b)
+        return fp8_dot(a, b, out_dtype, E4M3)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        qg, sg = fp8_quantize(g, E5M2)
+        qb, sb = fp8_quantize(b, E5M2)
+        qa, sa = fp8_quantize(a, E5M2)
+        ga = _upcast_mm(qg, qb.t()) / (sg * sb)
+        gb = _upcast_mm(qa.t(), qg) / (sa * sg)
+        return ga.to(a.dtype), gb.to(b.dtype), None
+
+
+def fp8_matmul(a: torch.Tensor, b: torch.Tensor,
+               out_dtype=torch.bfloat16) -> torch.Tensor:
+    """2-D fp8 matmul a (m, k) @ b (k, n) -> (m, n), differentiable in a
+    and b; callers flatten leading batch dims."""
+    return _Fp8Matmul.apply(a, b, out_dtype)
+
+
+class Fp8Einsum:
+    """(B, T, C) x (C, F) projections through `fp8_matmul`."""
+
+    @staticmethod
+    def project(x: torch.Tensor, w: torch.Tensor,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+        y = fp8_matmul(x.reshape(-1, x.shape[-1]), w, out_dtype)
+        return y.reshape(*x.shape[:-1], w.shape[-1])

@@ -2,7 +2,8 @@
 
 Parity: dlrover_wuqiong_tpu/trainer/train_step.py — `TrainState` (:35),
 `accumulate_grads` (:46), `make_train_step` (:65, fused driver :143-158),
-`auto_fused_steps` (:163) and `make_lm_loss` (:255), on one device.
+`auto_fused_steps` (:163) and `make_lm_loss` (:255, the MoE aux loss
+:268-270), on one device.
 
 PyTorch holds state in place, so the pieces map as follows:
 
@@ -334,13 +335,21 @@ def make_lm_loss(model_apply: Optional[Callable] = None) -> Callable:
     ``loss_fn(params, batch)``, where `params` is the model and
     ``model_apply(params, input_ids)`` (default: calling the model)
     gives the logits.  GPT's `cross_entropy_loss` serves every model
-    family, Llama too, as in the JAX package."""
+    family, Llama too, as in the JAX package.  The MoE aux losses of the
+    forward (the model's ``intermediates``, as flax sows them) are added
+    when there are any."""
     from ..models.gpt import cross_entropy_loss
 
     apply = model_apply or (lambda model, idx: model(idx))
 
     def loss_fn(params, batch):
-        return cross_entropy_loss(apply(params, batch["input_ids"]),
+        loss = cross_entropy_loss(apply(params, batch["input_ids"]),
                                   batch["labels"])
+        inter = getattr(params, "intermediates", None)
+        if inter:
+            from ..models.moe import collect_moe_aux_loss
+
+            loss = loss + collect_moe_aux_loss(inter)
+        return loss
 
     return loss_fn

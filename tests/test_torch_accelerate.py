@@ -1,0 +1,138 @@
+"""Port parity: `auto_accelerate`'s one-device strategies against JAX's.
+
+- Each one-device strategy list gives the overrides JAX's
+  ``StrategyContext.model_overrides`` gives for the same list and the
+  same model family (dtypes mapped jnp -> torch), the same accumulation
+  steps, and a rebuilt model that carries them.
+- Every JAX strategy name the port does not take yet raises naming its
+  ROADMAP item; an unknown name raises JAX's message word for word; a bad
+  remat policy raises when the strategy is resolved.
+- ``[("amp", {"fp8": True}), ("checkpoint", {"policy": "dots"})]`` trains
+  a nano GPT on the CPU with falling loss, its projections `Fp8Dense`.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dlrover_wuqiong_tpu.auto import accelerate as jacc
+from dlrover_wuqiong_tpu.models import gpt as jgpt
+from dlrover_wuqiong_tpu.models import llama as jllama
+from dlrover_wuqiong_tpu_torch.auto import accelerate as tacc
+from dlrover_wuqiong_tpu_torch.models import fp8 as tfp8
+from dlrover_wuqiong_tpu_torch.models import gpt as tgpt
+from dlrover_wuqiong_tpu_torch.models import llama as tllama
+from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+FAMILIES = {"gpt": (jgpt.GPT, jgpt.GPTConfig, tgpt.GPT, tgpt.GPTConfig),
+            "llama": (jllama.Llama, jllama.LlamaConfig, tllama.Llama,
+                      tllama.LlamaConfig)}
+
+STRATEGIES = {
+    "none": [],
+    "amp": [("amp", {})],
+    "amp_off": [("amp_native", {"enabled": False})],
+    "half_fp8": [("half", {"fp8": True})],
+    "fp8_filter": [("amp", {"fp8": True, "filter": ["c_fc", "up_proj"]})],
+    "checkpoint": ["checkpoint"],
+    "checkpoint_off": [("checkpoint", {"enabled": False})],
+    "dots": [("checkpoint", {"policy": "dots"})],
+    "offload_names": [("checkpoint", {"policy": "offload_names",
+                                      "names": ["attn_out"]})],
+    "module_replace_off": [("module_replace", {"enabled": False})],
+    "grad_accum": [("grad_accum", {"steps": 4})],
+    "all": [("amp", {"fp8": True}), ("checkpoint", {"policy": "save_names"}),
+            ("module_replace", {}), ("grad_accum", {"steps": 2})],
+}
+
+
+def _jax_value(v):
+    return DTYPES.get(v, v)
+
+
+@pytest.mark.parametrize("fam", sorted(FAMILIES))
+@pytest.mark.parametrize("case", sorted(STRATEGIES))
+def test_overrides_match_jax(fam, case):
+    jm, jc, tm, tc = FAMILIES[fam]
+    strategy = STRATEGIES[case]
+    jctx = jacc.resolve_strategy(strategy, 1)
+    tctx = tacc.resolve_strategy(strategy)
+    jcfg = dataclasses.replace(jc.nano(), dtype=jnp.float32, remat=False)
+    tcfg = dataclasses.replace(tc.nano(), dtype=torch.float32, remat=False)
+    want = {k: _jax_value(v)
+            for k, v in jctx.model_overrides(jm(jcfg)).items()}
+    got = tctx.model_overrides(tm(tcfg))
+    assert got == want
+    assert tctx.accum_steps == jctx.accum_steps
+    assert (tctx.amp, tctx.remat, tctx.flash_attention) == \
+        (jctx.amp, jctx.remat, jctx.flash_attention)
+
+
+def test_auto_accelerate_rebuilds_the_model_with_the_overrides():
+    strategy = [("amp", {"fp8": True, "filter": ["c_fc"]}),
+                ("checkpoint", {"policy": "offload_dots"}),
+                ("grad_accum", {"steps": 2})]
+    cfg = dataclasses.replace(tgpt.GPTConfig.nano(), dtype=torch.float32,
+                              remat=False)
+    res = tacc.auto_accelerate(tgpt.GPT(cfg), device="cpu",
+                               strategy=strategy)
+    got = res.model.config
+    assert (got.dtype, got.fp8, got.fp8_filter, got.remat,
+            got.remat_policy) == (torch.bfloat16, True, ("c_fc",), True,
+                                  "offload_dots")
+    assert res.accum_steps == res.strategy.accum_steps == 2
+    assert isinstance(res.model.h_0.mlp.c_fc, tfp8.Fp8Dense)
+    assert type(res.model.h_0.attn.c_attn) is tfp8.Dense
+    assert res.state.params is res.model
+    # an explicit accum_steps wins over the strategy's
+    res = tacc.auto_accelerate(tgpt.GPT(cfg), device="cpu",
+                               strategy=strategy, accum_steps=3)
+    assert res.accum_steps == 3
+
+
+NOT_PORTED = {"fsdp": "8a", "zero2": "8a", "zero3": "8a",
+              "data_parallel": "8a", "ddp": "8a", "tensor_parallel": "8a",
+              "expert_parallel": "8a", "multi_slice": "8a",
+              "sequence_parallel": "8b", "pipeline_parallel": "8c",
+              "local_sgd": "8c", "hsdp": "8c", "stable_bf16": "9",
+              "bf16_optimizer": "9", "optimizer_offload": "9"}
+
+
+@pytest.mark.parametrize("name", sorted(NOT_PORTED))
+def test_unported_strategies_raise_with_their_item(name):
+    with pytest.raises(ValueError,
+                       match=rf"queue 1 item {NOT_PORTED[name]}\)"):
+        tacc.resolve_strategy([(name, {})])
+    with pytest.raises(ValueError, match="not ported yet"):
+        tacc.auto_accelerate(tgpt.GPT(tgpt.GPTConfig.nano()), device="cpu",
+                             strategy=[("amp", {}), (name, {})])
+
+
+def test_registries_agree_and_unknown_names_raise_the_jax_message():
+    assert sorted(tacc._STRATEGY_REGISTRY) == sorted(jacc._STRATEGY_REGISTRY)
+    with pytest.raises(ValueError) as jerr:
+        jacc.resolve_strategy([("warp_drive", {})], 1)
+    with pytest.raises(ValueError) as terr:
+        tacc.resolve_strategy([("warp_drive", {})])
+    assert str(terr.value) == str(jerr.value)
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        tacc.resolve_strategy([("checkpoint", {"policy": "most"})])
+
+
+def test_fp8_and_dots_strategy_trains_nano_on_cpu():
+    res = tacc.auto_accelerate(
+        tgpt.GPT(tgpt.GPTConfig.nano()), optimizer=adamw(1e-3), device="cpu",
+        strategy=[("amp", {"fp8": True}), ("checkpoint", {"policy": "dots"})])
+    assert res.model.config.fp8 and res.model.config.remat_policy == "dots"
+    assert isinstance(res.model.h_1.attn.c_proj, tfp8.Fp8Dense)
+    ids = np.random.default_rng(2).integers(0, 512, (2, 33))
+    b = res.place_batch({"input_ids": ids[:, :-1], "labels": ids[:, 1:]})
+    losses = []
+    for _ in range(4):
+        res.state, m = res.train_step(res.state, b)
+        losses.append(m["loss"].item())
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -160,10 +160,29 @@ def test_loss_ignores_labels_and_matches_plain_form():
 
 
 def test_unported_config_values_raise():
-    for kw in (dict(dropout=0.1), dict(moe_experts=4), dict(fp8=True),
-               dict(remat=True, remat_policy="dots")):
-        with pytest.raises((NotImplementedError, ValueError)):
-            tgpt.GPT(dataclasses.replace(tgpt.GPTConfig.nano(), **kw))
+    """Every model knob of the JAX config is ported; an unknown remat
+    policy still raises at build."""
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        tgpt.GPT(dataclasses.replace(tgpt.GPTConfig.nano(), remat=True,
+                                     remat_policy="dotz"))
+
+
+@pytest.mark.parametrize("knob", [
+    dict(dropout=0.1), dict(moe_experts=4), dict(fp8=True),
+    dict(remat=True, remat_policy="dots"),
+    dict(remat=True, remat_policy="offload_dots"),
+    dict(remat=True, remat_policy="save_names"),
+    dict(remat=True, remat_policy="offload_names",
+         remat_names=("mlp_out",))], ids=lambda kw: "-".join(
+             f"{k}={v}" for k, v in kw.items()))
+def test_model_knobs_build_and_run(knob):
+    cfg = dataclasses.replace(tgpt.GPTConfig.nano(), **knob)
+    model = tgpt.GPT(cfg).init_params(device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 16)))
+    logits = model(ids)
+    assert logits.shape == (2, 16, 512) and logits.dtype == torch.bfloat16
+    assert torch.isfinite(logits.float()).all()
+    assert bool(model.intermediates) == bool(cfg.moe_experts)
 
 
 def test_export_round_trip_serves_the_same_tokens(jparams):

@@ -109,7 +109,8 @@ def test_import_loads_no_jax_and_no_cuda():
     assert leaked == []
     assert rec["cuda"] is False
     for mod in ("serving.engine", "ops.flash_attention", "models.gpt",
-                "models.llama", "models.attention", "models.fp8", "ops.remat",
+                "models.llama", "models.attention", "models.fp8",
+                "models.moe", "ops.remat",
                 "trainer.train_step", "auto.accelerate") + CONTROL_PLANE \
             + CHECKPOINT + ELASTIC + MASTER_JOURNAL + STANDBY:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in rec["mods"]

@@ -319,12 +319,37 @@ def test_export_load_round_trip_is_bitwise(jparams):
 
 
 def test_unported_config_values_raise():
-    for kw in (dict(fp8=True), dict(remat=True, remat_policy="dots")):
-        with pytest.raises((NotImplementedError, ValueError)):
-            tllama.Llama(dataclasses.replace(tllama.LlamaConfig.nano(),
-                                             **kw))
+    """fp8 and every remat policy build (test_model_knobs_build_and_run);
+    an unknown remat policy and "ring" over a mesh still raise."""
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        tllama.Llama(dataclasses.replace(tllama.LlamaConfig.nano(),
+                                         remat=True, remat_policy="dotz"))
     cfg = dataclasses.replace(tllama.LlamaConfig.nano(), attn_impl="ring",
                               mesh=object())
     model = tllama.Llama(cfg).init_params(device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         model(torch.zeros((1, 8), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("knob", [
+    dict(fp8=True), dict(fp8=True, fp8_filter=("up_proj",)),
+    dict(remat=True, remat_policy="dots"),
+    dict(remat=True, remat_policy="offload_dots"),
+    dict(remat=True, remat_policy="save_names"),
+    dict(remat=True, remat_policy="offload_names")],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_model_knobs_build_and_run(knob):
+    from dlrover_wuqiong_tpu_torch.models.fp8 import Fp8Dense
+
+    cfg = dataclasses.replace(tllama.LlamaConfig.nano(), **knob)
+    model = tllama.Llama(cfg).init_params(device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 16)))
+    logits = model(ids)
+    assert logits.shape == (2, 16, 512) and torch.isfinite(
+        logits.float()).all()
+    fp8 = {n for n, m in model.named_modules() if isinstance(m, Fp8Dense)}
+    if cfg.fp8:
+        assert fp8 and all(any(f in n for f in cfg.fp8_filter) for n in fp8)
+        assert "lm_head" not in fp8
+    else:
+        assert not fp8

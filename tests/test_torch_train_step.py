@@ -159,6 +159,10 @@ def test_auto_accelerate_rejects_strategies_and_devices():
     with pytest.raises(ValueError, match="queue 1 item 8"):
         auto_accelerate(tgpt.GPT(tgpt.GPTConfig.nano()), device="cpu",
                         devices=["cuda:0", "cuda:1"])
+    # the one-device strategies build
+    res = auto_accelerate(tgpt.GPT(tgpt.GPTConfig.nano()), device="cpu",
+                          strategy=[("amp", {"fp8": True})])
+    assert res.model.config.fp8 and res.strategy.amp is True
 
 
 @pytest.mark.parametrize("step_s,overhead_s,cadence,want", [
