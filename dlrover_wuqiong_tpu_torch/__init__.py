@@ -28,7 +28,8 @@ and the one-device training path:
   auto.accelerate.auto_accelerate       model + optimizer -> train step;
                                         the one-device strategies (amp
                                         with fp8, checkpoint,
-                                        module_replace, grad_accum)
+                                        module_replace, grad_accum,
+                                        stable_bf16, optimizer_offload)
   trainer.train_step                    TrainState, make_train_step
                                         (accumulation, fused K steps), adamw
   models.gpt.GPT / cross_entropy_loss   GPT-2 as nn.Modules, flax names,
@@ -46,6 +47,11 @@ and the one-device training path:
   ops.flash_attention                   forward + fused / split backward
                                         (CUDA kernels in
                                         csrc/flash_attention.cu)
+  optimizers                            AGD, adamw8bit (int8 moments),
+                                        WSAM's train step, StableBF16
+                                        (Kahan or masters), muP; the
+                                        leaf-wise step and the host-
+                                        offloaded state
 
 the flash checkpoint of that training state:
 

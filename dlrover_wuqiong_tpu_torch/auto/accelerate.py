@@ -27,11 +27,25 @@ The one-device strategies rebuild the model with
     ("module_replace", {"enabled"})   the flash route on or off
     ("grad_accum", {"steps"})         microbatches a step
 
+and the optimizer strategies (JAX :235-248, :598-604, :684-694):
+
+    ("stable_bf16" | "bf16_optimizer", {"master"})
+        bf16 parameters (cast after the seeded float32 init), the
+        optimizer wrapped in `optimizers.bf16_stable.StableBF16`
+        (Kahan compensation, or float32 masters with master=True)
+    ("optimizer_offload", {"enabled"})
+        the optimizer state in pinned host memory between steps; the
+        update moves it to the device and back leaf by leaf
+        (`optimizers.leaf.offload_state`)
+
+With optimizer_offload or an offload_* remat policy, the host link is
+probed once at resolve time (`common.util.measure_h2d_gbps`) and a slow
+one warns with its rate (JAX `_warn_slow_offload_link` :402-443).
+
 The JAX package's other strategy names raise with the ROADMAP item that
 ports them: the mesh strategies (item 8a; "sequence_parallel" 8b;
-"pipeline_parallel", "local_sgd" and "hsdp" 8c) and the optimizer ones
-("stable_bf16", "bf16_optimizer", "optimizer_offload": item 9).  So does
-more than one device (item 8a).
+"pipeline_parallel", "local_sgd" and "hsdp" 8c).  So does more than one
+device (item 8a).
 """
 
 from __future__ import annotations
@@ -43,13 +57,17 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..common.log import get_logger
 from ..trainer.train_step import (
     OptimizerFactory,
     TrainState,
     adamw,
+    ensure_state,
     make_lm_loss,
     make_train_step,
 )
+
+logger = get_logger("accelerate")
 
 # strategy registry: name -> handler(ctx, cfg)
 _STRATEGY_REGISTRY: Dict[str, Callable] = {}
@@ -104,8 +122,6 @@ _NOT_PORTED = {
                     "8a"),
     "sequence_parallel": "8b",
     **dict.fromkeys(("pipeline_parallel", "local_sgd", "hsdp"), "8c"),
-    **dict.fromkeys(("stable_bf16", "bf16_optimizer", "optimizer_offload"),
-                    "9"),
 }
 
 
@@ -113,8 +129,8 @@ def _not_ported(name: str, item: str) -> Callable:
     def handler(ctx: StrategyContext, cfg: Dict):
         raise ValueError(f"strategy {name!r} is not ported yet (ROADMAP "
                          f"queue 1 item {item}); the port trains on one "
-                         "device with amp, checkpoint, module_replace and "
-                         "grad_accum")
+                         "device with amp, checkpoint, module_replace, "
+                         "grad_accum, stable_bf16 and optimizer_offload")
     return handler
 
 
@@ -157,6 +173,61 @@ def _s_module_replace(ctx: StrategyContext, cfg: Dict):
 @register_strategy("grad_accum")
 def _s_accum(ctx: StrategyContext, cfg: Dict):
     ctx.accum_steps = cfg.get("steps", 1)
+
+
+@register_strategy("stable_bf16")
+@register_strategy("bf16_optimizer")
+def _s_stable_bf16(ctx: StrategyContext, cfg: Dict):
+    """bf16 parameters trained stably: Kahan compensation (default) or
+    float32 master weights ({"master": True})."""
+    ctx.extra["stable_bf16"] = {"master": bool(cfg.get("master", False))}
+
+
+@register_strategy("optimizer_offload")
+def _s_opt_offload(ctx: StrategyContext, cfg: Dict):
+    """The optimizer state in pinned host memory between steps."""
+    ctx.extra["optimizer_offload"] = cfg.get("enabled", True)
+
+
+def _warn_slow_offload_link(ctx: StrategyContext, device,
+                            num_params: int) -> None:
+    """Resolve-time host-to-device probe for the offload strategies.
+
+    optimizer_offload and the offload_* remat policies move state or
+    activations across the host link every step.  On a slow link they
+    deliver a step-time regression of several times; measure once, log
+    the rate, and warn with the estimated per-step cost when the traffic
+    cannot be hidden.  ``DWT_H2D_GBPS`` pins or overrides the probe."""
+    offload_opt = bool(ctx.extra.get("optimizer_offload"))
+    offload_acts = str(ctx.extra.get("remat_policy", "")).startswith(
+        "offload")
+    if not (offload_opt or offload_acts):
+        return
+    try:
+        from ..common.util import measure_h2d_gbps
+
+        gbps = measure_h2d_gbps(device)
+    except Exception:  # noqa: BLE001: a failed probe must not break
+        logger.debug("h2d probe failed", exc_info=True)
+        return
+    what = " + ".join(filter(None, [
+        "optimizer_offload" if offload_opt else "",
+        f"remat {ctx.extra.get('remat_policy')}" if offload_acts else ""]))
+    est = None
+    if offload_opt and num_params:
+        # adam moments f32 both ways, on one device
+        est = 2 * 8 * num_params / (gbps * 1e9)
+    if gbps < 1.0 or (est is not None and est > 1.0):
+        logger.warning(
+            "%s selected on a slow host link: measured H2D %.3f GB/s%s — "
+            "expect the offload traffic to DOMINATE step time.  Set "
+            "DWT_H2D_GBPS to override the probe.", what, gbps,
+            f", est. {est:.1f}s/step moment traffic per device"
+            if est is not None else "")
+    else:
+        logger.info("%s: measured H2D %.1f GB/s%s", what, gbps,
+                    f", est. {est * 1e3:.0f}ms/step moment traffic"
+                    if est is not None else "")
 
 
 def resolve_strategy(strategy: Optional[Sequence]) -> StrategyContext:
@@ -243,8 +314,32 @@ def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
         model = type(model)(dataclasses.replace(model.config, **overrides))
     device = resolve_device(device)
     model.init_params(seed, device)
+    optimizer = optimizer or adamw(3e-4)
+    sb = ctx.extra.get("stable_bf16")
+    offload = bool(ctx.extra.get("optimizer_offload"))
+    if sb is not None:
+        if offload:
+            raise ValueError("stable_bf16 with optimizer_offload is not "
+                             "ported: offload an optimizer over float32 "
+                             "parameters, or keep the bf16 state on the "
+                             "device")
+        from ..optimizers.bf16_stable import stable_bf16
+
+        # bf16 parameters, not just bf16 compute; stable_bf16 keeps the
+        # updates from vanishing below the bf16 ulp
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.is_floating_point():
+                    p.data = p.data.to(torch.bfloat16)
+        optimizer = stable_bf16(optimizer, master=sb["master"])
+    _warn_slow_offload_link(ctx, device,
+                            sum(p.numel() for p in model.parameters()))
     loss = loss_fn or make_lm_loss()
-    state = TrainState.create(model, optimizer or adamw(3e-4))
+    state = TrainState.create(model, optimizer)
+    if offload:
+        from ..optimizers.leaf import offload_state
+
+        offload_state(state.opt_state, ensure_state)
     step = make_train_step(loss, ctx.accum_steps, fused_steps)
     return AccelerateResult(train_step=step, state=state, loss_fn=loss,
                             model=model, device=device, strategy=ctx,

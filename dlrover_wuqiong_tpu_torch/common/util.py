@@ -1,10 +1,10 @@
 """The repo's retry policy, and the device out-of-memory test.
 
 Parity: `retry_call` and its loop, copied from
-dlrover_wuqiong_tpu/common/util.py:21-97 (stdlib only), and
-`is_oom_error` (:284-296) for torch.  The rest of that module
-(`sync_tree`, the transfer probe) is about JAX arrays and has no use
-here.
+dlrover_wuqiong_tpu/common/util.py:21-97 (stdlib only), `is_oom_error`
+(:284-296) for torch, and the host-to-device probe `measure_h2d_gbps`
+(:145-186) for a CUDA device.  The rest of that module (`sync_tree`)
+is about JAX arrays and has no use here.
 """
 
 from __future__ import annotations
@@ -103,3 +103,49 @@ def is_oom_error(exc: BaseException) -> bool:
     import torch
 
     return isinstance(exc, torch.cuda.OutOfMemoryError)
+
+
+_h2d_gbps_cache: dict = {}
+_H2D_PROBE_BYTES = 32 << 20
+
+
+def measure_h2d_gbps(device=None) -> float:
+    """Measured host->device rate in GB/s, cached per device.
+
+    One 32 MB copy from pinned host memory to the device (the path the
+    offloaded optimizer state and the offload_* remat policies take),
+    after a warm-up copy.  ``DWT_H2D_GBPS`` overrides the measurement
+    (tests fake a slow link; an operator can pin a known value to skip
+    the probe).  `device` defaults to ``cuda``; a CPU device has no link
+    to measure and raises."""
+    import os
+
+    env = os.getenv("DWT_H2D_GBPS")
+    if env:
+        try:
+            v = float(env)
+            if v > 0:  # non-positive would crash downstream estimates
+                return v
+        except ValueError:
+            pass
+    import torch
+
+    device = torch.device(device if device is not None else "cuda")
+    if device.type != "cuda":
+        raise ValueError(f"measure_h2d_gbps: {device} has no host link "
+                         f"to measure")
+    key = str(device)
+    if key in _h2d_gbps_cache:
+        return _h2d_gbps_cache[key]
+    nbytes = _H2D_PROBE_BYTES
+    host = torch.ones(nbytes // 4, dtype=torch.float32, pin_memory=True)
+    dev = torch.empty_like(host, device=device)
+    dev.copy_(host, non_blocking=True)  # warm: allocator, pinned mapping
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize(device)
+    dt = max(time.perf_counter() - t0, 1e-9)
+    gbps = nbytes / dt / 1e9
+    _h2d_gbps_cache[key] = gbps
+    return gbps

@@ -28,9 +28,14 @@ PyTorch holds state in place, so the pieces map as follows:
   the update, as ``scale_by_schedule`` reads it.
 - `TrainState.tree` gives the state's live tensors under the names JAX
   gives a `TrainState` with ``optax.adamw`` (the flash checkpoint's
-  tree), or with the Trainer's chain for a `ClipAdamW`, and
-  `TrainState.load_tree` writes a checkpoint back into the module and
-  the optimizer.
+  tree), or with the Trainer's chain for a `ClipAdamW`, or with the
+  optax counterpart of any of the port's optimizers (`optimizer_tree`:
+  AGD, adamw8bit, stable_bf16, muP's chain), and `TrainState.load_tree`
+  writes a checkpoint back into the module and the optimizer.
+- `optimizer_step` is the update: the optimizer's own step, or, with
+  its state offloaded to the host (``optimizer_offload``), the
+  leaf-wise step of optimizers/leaf.py that moves each parameter's
+  state to the device and back (JAX :115-120).
 - ``fused_steps=K > 1`` runs the same step K times in a Python loop over
   batches stacked on a leading axis of size K; the per-step losses and
   grad norms stay on the device, so a fusion needs one host readback.
@@ -43,9 +48,11 @@ import dataclasses
 import functools
 import math
 from collections import OrderedDict
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+from ..optimizers.leaf import LeafOptimizer, StateHops, step_leaves
 
 OptimizerFactory = Callable[[Any], torch.optim.Optimizer]
 
@@ -82,9 +89,9 @@ class ClipAdamW(torch.optim.AdamW):
         self.schedule_count = torch.zeros((), dtype=torch.float32)
 
     @torch.no_grad()
-    def step(self, closure=None):
-        grads = [p.grad for g in self.param_groups for p in g["params"]
-                 if p.grad is not None]
+    def pre_step(self, grads) -> None:
+        """optax's clip of `grads` (in place) and the schedule's lr into
+        every group."""
         if grads:
             # optax: select(norm < max, g, g / norm * max)
             norm = global_norm(grads)
@@ -95,8 +102,21 @@ class ClipAdamW(torch.optim.AdamW):
         lr = float(self.schedule(int(self.schedule_count)))
         for group in self.param_groups:
             group["lr"] = lr
-        loss = super().step(closure)
+
+    def leaf_step(self):
+        """AdamW's own update, without the clip and the count (the
+        leaf-wise step of optimizers/leaf.py runs those once)."""
+        return torch.optim.AdamW.step(self)
+
+    def post_step(self) -> None:
         self.schedule_count += 1
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self.pre_step([p.grad for g in self.param_groups
+                       for p in g["params"] if p.grad is not None])
+        loss = super().step(closure)
+        self.post_step()
         return loss
 
     def optax_state(self, adam: Dict) -> tuple:
@@ -131,101 +151,148 @@ class TrainState:
 
     # ---------------------------------------------------- checkpoint tree
 
-    def _adam_states(self) -> Dict[str, Dict]:
-        """{param name: its Adam/AdamW state}, creating the state torch
-        creates lazily at the first step where there is none yet (the same
-        tensors `torch.optim.AdamW._init_group` makes), so a fresh state
-        has every leaf of the checkpoint tree."""
+    def tree(self) -> "StateTree":
+        """The live tensors (no copies) under the names JAX's
+        ``flatten_state_dict`` gives a JAX `TrainState` with the same
+        optax optimizer: ``step``, ``params/<flax path>`` and the
+        optimizer's node (`optimizer_tree`), in JAX's order.  With
+        ``optax.adamw``: ``opt_state/0/count``, ``opt_state/0/mu/<flax
+        path>`` (torch's ``exp_avg``) and ``opt_state/0/nu/<flax path>``
+        (``exp_avg_sq``); a `ClipAdamW`'s state sits where the Trainer's
+        chain puts it: ``opt_state/1/0/{count,mu,nu}`` and the schedule's
+        ``opt_state/1/2/count``.  An offloaded state's leaves are its host
+        tensors, read after the device's copies into them are done.
+
+        torch keeps one Adam ``step`` count per parameter where optax
+        keeps one ``count``: the tree holds the first parameter's, and a
+        restore into the tree (``FlashCheckpointer.load_checkpoint(
+        state.tree())``) goes through `load_tree`, which writes it into
+        every parameter's."""
         opt = self.opt_state
-        if not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
-            raise TypeError(f"{type(opt).__name__}: the checkpoint tree maps "
-                            f"torch's Adam/AdamW state onto optax.adamw's")
-        groups = {id(p): g for g in opt.param_groups for p in g["params"]}
-        out = {}
-        for name, p in self.params.named_parameters():
-            group = groups[id(p)]
-            if group["amsgrad"]:
-                raise ValueError("amsgrad has no optax.adamw counterpart")
+        if getattr(opt, "offload_hops", None) is not None:
+            StateHops.sync(opt)
+        names = {id(p): n for n, p in self.params.named_parameters()}
+        node, after_load = optimizer_tree(opt, names)
+        return StateTree(self, after_load, step=self.step,
+                         params=nest(dict(self.params.named_parameters())),
+                         opt_state=node)
+
+    @torch.no_grad()
+    def load_tree(self, flat: Dict[str, Any]) -> "TrainState":
+        """Write a checkpoint's flat name→array map (``CheckpointEngine
+        .load``) into the module and the optimizer, in place, on their
+        devices (an offloaded state into its host tensors): the
+        parameters and the optimizer's leaves, and ``step`` (JAX int32)
+        into the int64 step; then the optimizer's own fix-up (torch's
+        Adam: ``count`` into every parameter's ``step``)."""
+        from ..checkpoint.engine import copy_into
+
+        tree = self.tree()
+        copy_into(tree, flat)
+        if tree.after_load is not None:
+            tree.after_load()
+        return self
+
+
+def nest(leaves: Dict[str, Any]) -> Dict[str, Any]:
+    """{``h_0.attn.c_attn.kernel``: leaf} -> the flax nesting."""
+    tree: Dict[str, Any] = {}
+    for name, leaf in leaves.items():
+        *path, last = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
+def adam_states(opt: torch.optim.Optimizer) -> Dict[int, Dict]:
+    """{id(param): its Adam/AdamW state}, creating the state torch
+    creates lazily at the first step where there is none yet (the
+    tensors `torch.optim.AdamW._init_group` makes, of the parameter's
+    shape and dtype), so a fresh state has every leaf of the checkpoint
+    tree."""
+    out = {}
+    for group in opt.param_groups:
+        if group["amsgrad"]:
+            raise ValueError("amsgrad has no optax.adamw counterpart")
+        for p in group["params"]:
             st = opt.state[p]
             if not st:
                 on_device = group["capturable"] or group["fused"]
                 st["step"] = torch.zeros(
                     (), dtype=torch.float32,
                     device=p.device if on_device else "cpu")
-                st["exp_avg"] = torch.zeros_like(
-                    p, memory_format=torch.preserve_format)
-                st["exp_avg_sq"] = torch.zeros_like(
-                    p, memory_format=torch.preserve_format)
-            out[name] = st
-        return out
+                st["exp_avg"] = torch.zeros(p.shape, dtype=p.dtype,
+                                            device=p.device)
+                st["exp_avg_sq"] = torch.zeros(p.shape, dtype=p.dtype,
+                                               device=p.device)
+            out[id(p)] = st
+    return out
 
-    def tree(self) -> "StateTree":
-        """The live tensors (no copies) under the names JAX's
-        ``flatten_state_dict`` gives a JAX `TrainState` with
-        ``optax.adamw``: ``step``, ``params/<flax path>``,
-        ``opt_state/0/count``, ``opt_state/0/mu/<flax path>`` (torch's
-        ``exp_avg``) and ``opt_state/0/nu/<flax path>`` (``exp_avg_sq``),
-        in JAX's order.  A `ClipAdamW`'s state sits where the Trainer's
-        chain puts it: ``opt_state/1/0/{count,mu,nu}`` and the schedule's
-        ``opt_state/1/2/count``.
 
-        torch keeps one ``step`` count per parameter where optax keeps one
-        ``count``: the tree holds the first parameter's, and a restore
-        into the tree (``FlashCheckpointer.load_checkpoint(state.tree())``)
-        goes through `load_tree`, which writes it into every
-        parameter's."""
-        states = self._adam_states()
+def ensure_state(opt) -> None:
+    """Create the optimizer state torch makes lazily (Adam, AdamW); the
+    port's own optimizers make theirs when built."""
+    if isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+        adam_states(opt)
 
-        def nest(leaves: Dict[str, Any]) -> Dict[str, Any]:
-            """``h_0.attn.c_attn.kernel`` -> the flax nesting."""
-            tree: Dict[str, Any] = {}
-            for name, leaf in leaves.items():
-                *path, last = name.split(".")
-                node = tree
-                for k in path:
-                    node = node.setdefault(k, {})
-                node[last] = leaf
-            return tree
 
-        adam = OrderedDict(
-            count=next(iter(states.values()))["step"],
-            mu=nest({n: s["exp_avg"] for n, s in states.items()}),
-            nu=nest({n: s["exp_avg_sq"] for n, s in states.items()}))
-        wrap = getattr(self.opt_state, "optax_state", None)
-        return StateTree(self, adam, step=self.step,
-                         params=nest(dict(self.params.named_parameters())),
-                         opt_state=wrap(adam) if wrap else (adam,))
+def optimizer_tree(opt, names: Dict[int, str]) -> Tuple[Any, Optional[
+        Callable[[], None]]]:
+    """(the optax-shaped node of `opt`'s state, a fix-up to run after a
+    restore wrote into it, or None).  `names` maps ``id(param)`` to the
+    parameter's dotted flax name.  The port's optimizers give their own
+    (``optax_tree``); torch's Adam and AdamW give optax.adamw's node,
+    placed by the optimizer's ``optax_state`` where a chain nests it."""
+    own = getattr(opt, "optax_tree", None)
+    if own is not None:
+        return own(names)
+    if not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+        raise TypeError(f"{type(opt).__name__}: the checkpoint tree maps "
+                        f"the port's optimizers and torch's Adam/AdamW "
+                        f"onto optax's state")
+    states = adam_states(opt)
+    ps = [p for g in opt.param_groups for p in g["params"]]
+    adam = OrderedDict(
+        count=states[id(ps[0])]["step"],
+        mu=nest({names[id(p)]: states[id(p)]["exp_avg"] for p in ps}),
+        nu=nest({names[id(p)]: states[id(p)]["exp_avg_sq"] for p in ps}))
+    wrap = getattr(opt, "optax_state", None)
 
-    @torch.no_grad()
-    def load_tree(self, flat: Dict[str, Any]) -> "TrainState":
-        """Write a checkpoint's flat name→array map (``CheckpointEngine
-        .load``) into the module and the optimizer, in place, on their
-        devices: the parameters and moments, ``count`` (JAX int32) into
-        every parameter's torch ``step``, and ``step`` (JAX int32) into
-        the int64 step.  Creates AdamW's state if it has taken no step."""
-        from ..checkpoint.engine import copy_into
-
-        tree = self.tree()
-        copy_into(tree, flat)
-        count = tree.adam["count"]
-        for st in self._adam_states().values():
+    def after_load():
+        count = adam["count"]
+        for st in states.values():
             if st["step"] is not count:
                 st["step"].copy_(count)
-        return self
+
+    return (wrap(adam) if wrap else (adam,)), after_load
 
 
 class StateTree(OrderedDict):
     """`TrainState.tree`'s mapping.  A restore into it goes through its
-    state's `TrainState.load_tree`, so that torch's per-parameter step
-    counts all get the restored ``count``."""
+    state's `TrainState.load_tree`, so that the optimizer's fix-up runs
+    (torch's per-parameter step counts all get the restored
+    ``count``)."""
 
-    def __init__(self, state: TrainState, adam: Dict, **tree):
+    def __init__(self, state: TrainState,
+                 after_load: Optional[Callable[[], None]], **tree):
         super().__init__(**tree)
         self.state = state
-        self.adam = adam  # the AdamW node, wherever the layout puts it
+        self.after_load = after_load
 
     def load_tree(self, flat: Dict[str, Any]) -> TrainState:
         return self.state.load_tree(flat)
+
+
+def optimizer_step(opt) -> None:
+    """`opt`'s step; with its state offloaded (`optimizers.leaf
+    .offload_state`), leaf by leaf through the host hops."""
+    hops = getattr(opt, "offload_hops", None)
+    if hops is None or isinstance(opt, LeafOptimizer):
+        opt.step()
+    else:
+        step_leaves(opt, hops)
 
 
 def accumulate_grads(grad_fn: Callable[[Any], torch.Tensor],
@@ -248,8 +315,11 @@ def accumulate_grads(grad_fn: Callable[[Any], torch.Tensor],
 
 
 def global_norm(grads) -> torch.Tensor:
-    """sqrt(sum of squares over every leaf), float32."""
-    norms = torch._foreach_norm([g.float() for g in grads])
+    """sqrt(sum of squares over every leaf), float32.  Each leaf's norm
+    accumulates in float32 inside the kernel: a float32 copy of every
+    bf16 gradient at once would be 4 bytes a parameter (25 GB for
+    Llama-3 8B at 24 layers under stable_bf16)."""
+    norms = torch._foreach_norm(grads, dtype=torch.float32)
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -287,7 +357,7 @@ def make_train_step(loss_fn: Callable[[torch.nn.Module, Dict], torch.Tensor],
             loss = accumulate_grads(grad_fn, model, batch, accum_steps)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         gnorm = global_norm(grads)
-        opt.step()
+        optimizer_step(opt)
         state.step += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 

@@ -4,9 +4,11 @@
   ``StrategyContext.model_overrides`` gives for the same list and the
   same model family (dtypes mapped jnp -> torch), the same accumulation
   steps, and a rebuilt model that carries them.
-- Every JAX strategy name the port does not take yet raises naming its
-  ROADMAP item; an unknown name raises JAX's message word for word; a bad
-  remat policy raises when the strategy is resolved.
+- Every JAX strategy name the port does not take yet (the mesh ones)
+  raises naming its ROADMAP item; the optimizer strategies resolve as
+  JAX's do and build bf16 parameters or an offloaded state; an unknown
+  name raises JAX's message word for word; a bad remat policy raises
+  when the strategy is resolved.
 - ``[("amp", {"fp8": True}), ("checkpoint", {"policy": "dots"})]`` trains
   a nano GPT on the CPU with falling loss, its projections `Fp8Dense`.
 """
@@ -98,8 +100,12 @@ NOT_PORTED = {"fsdp": "8a", "zero2": "8a", "zero3": "8a",
               "data_parallel": "8a", "ddp": "8a", "tensor_parallel": "8a",
               "expert_parallel": "8a", "multi_slice": "8a",
               "sequence_parallel": "8b", "pipeline_parallel": "8c",
-              "local_sgd": "8c", "hsdp": "8c", "stable_bf16": "9",
-              "bf16_optimizer": "9", "optimizer_offload": "9"}
+              "local_sgd": "8c", "hsdp": "8c"}
+#: the optimizer strategies (ROADMAP item 9) and the context each sets
+OPTIMIZER_STRATEGIES = {
+    "stable_bf16": ("stable_bf16", {"master": False}),
+    "bf16_optimizer": ("stable_bf16", {"master": False}),
+    "optimizer_offload": ("optimizer_offload", True)}
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
@@ -110,6 +116,23 @@ def test_unported_strategies_raise_with_their_item(name):
     with pytest.raises(ValueError, match="not ported yet"):
         tacc.auto_accelerate(tgpt.GPT(tgpt.GPTConfig.nano()), device="cpu",
                              strategy=[("amp", {}), (name, {})])
+
+
+@pytest.mark.parametrize("name", sorted(OPTIMIZER_STRATEGIES))
+def test_optimizer_strategies_resolve_as_jax(name):
+    """The three names no longer raise; each sets JAX's context entry."""
+    key, want = OPTIMIZER_STRATEGIES[name]
+    t = tacc.resolve_strategy([(name, {})])
+    j = jacc.resolve_strategy([(name, {})], 1)
+    assert t.extra[key] == j.extra[key] == want
+    res = tacc.auto_accelerate(tgpt.GPT(dataclasses.replace(
+        tgpt.GPTConfig.nano(), n_layer=1)), device="cpu",
+        strategy=[("amp", {}), (name, {})])
+    p = next(res.model.parameters())
+    assert p.dtype == (torch.float32 if key == "optimizer_offload"
+                       else torch.bfloat16)
+    assert (getattr(res.state.opt_state, "offload_hops", None) is not None
+            ) == (key == "optimizer_offload")
 
 
 def test_registries_agree_and_unknown_names_raise_the_jax_message():

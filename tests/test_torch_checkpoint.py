@@ -322,6 +322,200 @@ def test_train_state_tree_has_jax_names(jax_run):
         124_475_904 * 12 + 8 + 4)
 
 
+# ------------------------------------------------ the optimizers' state
+
+def _jax_optimizers():
+    import dlrover_wuqiong_tpu.optimizers.bf16_stable  # noqa: F401
+    import dlrover_wuqiong_tpu.optimizers.low_bit  # noqa: F401
+    import dlrover_wuqiong_tpu.optimizers.mup  # noqa: F401
+    from dlrover_wuqiong_tpu.optimizers.agd import agd as jagd
+
+    jbf = sys.modules["dlrover_wuqiong_tpu.optimizers.bf16_stable"]
+    jlow = sys.modules["dlrover_wuqiong_tpu.optimizers.low_bit"]
+    jmup = sys.modules["dlrover_wuqiong_tpu.optimizers.mup"]
+    base = jax.eval_shape(jgpt.GPT(dataclasses.replace(
+        jgpt.GPTConfig.nano(), dtype=jnp.float32, remat=False,
+        n_embd=64)).init_params, jax.random.PRNGKey(0))
+    return {
+        "agd": lambda p: jagd(1e-3, weight_decay=0.1),
+        "agd_amsgrad": lambda p: jagd(1e-3, amsgrad=True, clip=1.0),
+        "adamw8bit": lambda p: jlow.adamw8bit(1e-3, weight_decay=0.1),
+        "stable_bf16": lambda p: jbf.stable_bf16(optax.adamw(3e-4)),
+        "stable_bf16_master": lambda p: jbf.stable_bf16(
+            optax.adamw(3e-4), master=True),
+        "stable_bf16_adamw8bit": lambda p: jbf.stable_bf16(
+            jlow.adamw8bit(1e-3)),
+        "mup": lambda p: jmup.mup_adam(1e-3, jmup.width_mults(base, p),
+                                       weight_decay=0.1),
+    }
+
+
+def _port_optimizer(name, model):
+    from dlrover_wuqiong_tpu_torch.optimizers import (
+        adamw8bit,
+        agd,
+        mup_adam,
+        stable_bf16,
+        width_mults,
+    )
+
+    base = tgpt.GPT(dataclasses.replace(_cfg(), n_embd=64))
+    return {
+        "agd": lambda: agd(1e-3, weight_decay=0.1),
+        "agd_amsgrad": lambda: agd(1e-3, amsgrad=True, clip=1.0),
+        "adamw8bit": lambda: adamw8bit(1e-3, weight_decay=0.1),
+        "stable_bf16": lambda: stable_bf16(adamw(3e-4)),
+        "stable_bf16_master": lambda: stable_bf16(adamw(3e-4),
+                                                  master=True),
+        "stable_bf16_adamw8bit": lambda: stable_bf16(adamw8bit(1e-3)),
+        "mup": lambda: mup_adam(1e-3, width_mults(base, model),
+                                weight_decay=0.1),
+    }[name]()
+
+
+OPTIMIZERS = ("agd", "agd_amsgrad", "adamw8bit", "stable_bf16",
+              "stable_bf16_master", "stable_bf16_adamw8bit", "mup")
+
+
+def _opt_port_state(name, params):
+    """The port's TrainState of GPT nano at `params` with optimizer
+    `name`; the stable_bf16 ones on bf16 parameters, as the strategy
+    makes them."""
+    model = load_params(tgpt.GPT(_cfg()), params, "cpu")
+    if name.startswith("stable_bf16"):
+        with torch.no_grad():
+            for p in model.parameters():
+                p.data = p.data.to(torch.bfloat16)
+    return TrainState.create(model, _port_optimizer(name, model))
+
+
+@pytest.fixture(scope="module")
+def jax_opt_runs(jax_run, tmp_path_factory):
+    """Per optimizer, lazily: the JAX TrainState's flat names, 2 jitted
+    steps from jax_run's p0 saved to disk through the JAX checkpointer,
+    the flat state at step 2, step 3's loss."""
+    cache = {}
+    opts = _jax_optimizers()
+
+    def get(name):
+        if name in cache:
+            return cache[name]
+        jsaver.AsyncCheckpointSaver.reset()
+        model = jgpt.GPT(dataclasses.replace(
+            jgpt.GPTConfig.nano(), dtype=jnp.float32, remat=False))
+        params = jax.tree_util.tree_map(jnp.asarray, jax_run["p0"])
+        if name.startswith("stable_bf16"):
+            params = jax.tree_util.tree_map(
+                lambda p: p.astype(jnp.bfloat16), params)
+        tx = opts[name](params)
+        state = jtrain.TrainState.create(params, tx)
+        grad = jax.value_and_grad(jtrain.make_lm_loss(model.apply))
+
+        @jax.jit
+        def step(st, b):
+            loss, g = grad(st.params, b)
+            u, o = tx.update(g, st.opt_state, st.params)
+            return jtrain.TrainState(st.step + 1, optax.apply_updates(
+                st.params, u), o), loss
+
+        names = {k: (tuple(np.shape(v)), str(np.asarray(v).dtype))
+                 for k, v in jshm.flatten_state_dict(state).items()}
+        for i in range(2):
+            state, _ = step(state, _host_batch(i))
+        ckpt_dir = str(tmp_path_factory.mktemp(f"jax-{name}"))
+        ck = jck.FlashCheckpointer(ckpt_dir, job_name=_job(f"jo{name}"),
+                                   standalone=True)
+        ck.save_checkpoint(2, state, storage_type=jck.StorageType.DISK)
+        assert ck.wait_latest_checkpoint(60)
+        ck.close()
+        jsaver.AsyncCheckpointSaver.reset()
+        flat2 = {k: np.asarray(v)
+                 for k, v in jshm.flatten_state_dict(state).items()}
+        _, loss3 = step(state, _host_batch(2))
+        cache[name] = {"names": names, "flat2": flat2,
+                       "ckpt_dir": ckpt_dir, "loss3": float(loss3)}
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_optimizer_tree_has_jax_names(jax_run, jax_opt_runs, name):
+    """`TrainState.tree()` of each new optimizer: the names, shapes and
+    dtypes JAX's ``flatten_state_dict`` gives the JAX TrainState with the
+    same optax optimizer, in its order; but the dtypes of the two counts
+    the port keeps as torch does (``step`` int64, torch Adam's ``count``
+    float32: a restore casts them)."""
+    want = jax_opt_runs(name)["names"]
+    state = _opt_port_state(name, jax_run["p0"])
+    tree = flatten_state_dict(state.tree())
+    got = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+           for k, v in tree.items()}
+    assert list(got) == list(want)
+    torch_counts = {"step"} | {k for k in got if k.endswith("/count")
+                               and got[k][1] == "float32"}
+    assert torch_counts <= {"step", "opt_state/inner/0/count",
+                            "opt_state/0/0/count"}
+    for k in got:
+        assert got[k][0] == want[k][0], k
+        assert k in torch_counts or got[k][1] == want[k][1], k
+
+
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_jax_optimizer_checkpoint_resumes_in_port(jax_run, jax_opt_runs,
+                                                  name):
+    run = jax_opt_runs(name)
+    state = _opt_port_state(name, tgpt.init_params(_cfg(), seed=1,
+                                                   device="cpu"))
+    ck = FlashCheckpointer(run["ckpt_dir"], job_name=_job(f"jr{name}"),
+                           standalone=True)
+    try:
+        ck.load_checkpoint(state)
+        assert ck.last_restore_report["step"] == 2
+    finally:
+        ck.close()
+    got = flatten_state_dict(state.tree())
+    for k, v in got.items():
+        w = run["flat2"][k]
+        v = v.detach()
+        if v.dtype == torch.bfloat16:
+            assert np.array_equal(v.view(torch.int16).numpy(),
+                                  w.view(np.int16)), k
+        else:
+            assert np.array_equal(v.numpy(), w.astype(v.numpy().dtype)), k
+    loss3 = _port_steps(state, [2])[0]
+    np.testing.assert_allclose(loss3, run["loss3"], rtol=RTOL)
+
+
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_port_optimizer_checkpoint_resumes_bitwise(jax_run, tmp_path,
+                                                   name):
+    """2 port steps, a save to shm, a restore into a state built from
+    another seed, then one step on each: loss, parameters and every
+    state leaf bitwise."""
+    state = _opt_port_state(name, jax_run["p0"])
+    _port_steps(state, [0, 1])
+    ck = FlashCheckpointer(str(tmp_path / "ck"), job_name=_job(f"pp{name}"),
+                           standalone=True)
+    try:
+        ck.save_checkpoint(2, state.tree(), StorageType.MEMORY)
+        ck.wait_staging(60)
+        fresh = _opt_port_state(name, tgpt.init_params(_cfg(), seed=1,
+                                                       device="cpu"))
+        ck.load_checkpoint(fresh)
+        assert ck.last_restore_report["tier"] == "shm"
+    finally:
+        ck.close()
+    a = _port_steps(state, [2])[0]
+    b = _port_steps(fresh, [2])[0]
+    assert a == b
+    fa, fb = flatten_state_dict(state.tree()), flatten_state_dict(
+        fresh.tree())
+    assert list(fa) == list(fb)
+    for k in fa:
+        assert torch.equal(fa[k], fb[k]), k
+
+
 def test_jax_writes_port_resumes(jax_run):
     state = _port_state(tgpt.init_params(_cfg(), seed=1, device="cpu"))
     ck = FlashCheckpointer(jax_run["ckpt_dir"], job_name=_job("j2t"),

@@ -22,6 +22,9 @@
   the sharding client, the standby tailer and the incident timeline
   import no ``torch``, no numpy and nothing of JAX; the master-kill and
   master-failover drills default to ``cuda``.
+- The optimizers (``optimizers``: AGD, int8-state Adam, WSAM, stable
+  bf16, muP, the leaf-wise step and the offload) are among the modules
+  imported and scanned.
 """
 
 import ast
@@ -75,6 +78,10 @@ MASTER_JOURNAL = ("master.journal", "master.dataset_splitter",
 #: the warm standby and the incident timeline
 STANDBY = ("master.standby", "telemetry.timeline",
            "telemetry.incident_report")
+#: the optimizers and the leaf-wise step they share with the offload
+OPTIMIZERS = ("optimizers", "optimizers.leaf", "optimizers.agd",
+              "optimizers.low_bit", "optimizers.wsam",
+              "optimizers.bf16_stable", "optimizers.mup")
 
 
 def _forbidden(module: str) -> bool:
@@ -112,7 +119,7 @@ def test_import_loads_no_jax_and_no_cuda():
                 "models.llama", "models.attention", "models.fp8",
                 "models.moe", "ops.remat",
                 "trainer.train_step", "auto.accelerate") + CONTROL_PLANE \
-            + CHECKPOINT + ELASTIC + MASTER_JOURNAL + STANDBY:
+            + CHECKPOINT + ELASTIC + MASTER_JOURNAL + STANDBY + OPTIMIZERS:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in rec["mods"]
 
 

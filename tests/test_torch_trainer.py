@@ -284,3 +284,46 @@ def test_training_args_fields_equal_jax():
     port = [(f.name, f.default) for f in dataclasses.fields(TrainingArgs)]
     jax_ = [(f.name, f.default) for f in dataclasses.fields(JaxArgs)]
     assert port == jax_
+
+
+@pytest.mark.parametrize("name", ["agd", "adamw8bit", "stable_bf16",
+                                  "stable_bf16_master"])
+def test_trainer_resumes_the_new_optimizers_bitwise(tmp_path, name):
+    """The Trainer with AGD, adamw8bit, or the stable_bf16 strategy over
+    its own clip_adamw: 8 steps with a disk save at 4 and 8; a second
+    Trainer on the same directory resumes at 8 with every leaf of the
+    state (names included) bitwise the first's."""
+    from dlrover_wuqiong_tpu_torch.optimizers import adamw8bit, agd
+
+    kw = {"agd": dict(optimizer=agd(1e-3, weight_decay=0.1)),
+          "adamw8bit": dict(optimizer=adamw8bit(1e-3, weight_decay=0.1)),
+          "stable_bf16": dict(strategy=[("stable_bf16", {})]),
+          "stable_bf16_master": dict(strategy=[("stable_bf16",
+                                                {"master": True})])}[name]
+    opt = kw.pop("optimizer", None)
+
+    def trainer(job):
+        with _Job(job):
+            return Trainer(_port_model(), TrainingArgs(
+                output_dir=str(tmp_path), **dict(KNOBS, **kw)), _data,
+                optimizer=opt, device="cpu")
+
+    tr = trainer(f"tt-{name}-a")
+    out = tr.train()
+    assert out["stopped_at"] == STEPS and np.isfinite(out["final_loss"])
+    assert tr.ckpt.wait_latest_checkpoint(60)
+    want = {k: v.detach().clone()
+            for k, v in flatten_state_dict(tr.state.tree()).items()}
+    tr.ckpt.close()
+    AsyncCheckpointSaver.reset()
+    tr2 = trainer(f"tt-{name}-b")
+    assert tr2.train()["stopped_at"] == STEPS
+    assert tr2.resumed["step"] == STEPS
+    got = flatten_state_dict(tr2.state.tree())
+    assert list(got) == list(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    if name.startswith("stable_bf16"):
+        assert {p.dtype for p in tr2.model.parameters()} == {torch.bfloat16}
+        # the chain of clip_adamw inside StableBF16State
+        assert "opt_state/inner/1/2/count" in got
+    tr2.ckpt.close()
