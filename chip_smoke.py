@@ -176,9 +176,9 @@ Phases, in order; a failure in any of them exits non-zero:
    first, step 20 committed, 12 forward and 12 fused-backward launches a
    step.  8.2: the same Trainer as the worker of ``python -m
    dlrover_wuqiong_tpu_torch.run --standalone --max_restarts=3``, a
-   SIGKILL at each of 2 seeded steps in [8, 17] (the worker waits out
-   its staging there).  Checks: the launcher exits 0 after exactly 2
-   restarts, ``latest_checkpointed_iteration.txt`` reads 20, the killed
+   SIGKILL at one seeded step in [8, 17] (the worker waits out its
+   staging there).  Checks: the launcher exits 0 after exactly 1
+   restart, ``latest_checkpointed_iteration.txt`` reads 20, the killed
    generation's segment holds the step before its kill step and the next
    generation resumes there from tier ``shm`` and trains from the step
    after, every step's loss in every generation is bitwise 8.1's, and
@@ -210,20 +210,20 @@ Phases, in order; a failure in any of them exits non-zero:
 10. The journaled master (``chaos.master_kill``, GPT-2 124M at full
    width and depth, bf16 compute over float32 masters, B = 8, T = 1024).
    10.1: ``auto_accelerate(GPT(cfg with remat=False), optimizer=adamw(
-   3e-4), seed=0)`` in this process over the sample ranges [0, 2048) in
+   3e-4), seed=0)`` in this process over the sample ranges [0, 1024) in
    order, 8 samples a step (each sample a row of 1025 tokens from (seed,
-   sample index)): 256 reference losses, every one finite, the last
+   sample index)): 128 reference losses, every one finite, the last
    below the first, the median step, and 12 forward and 12
    fused-backward launches a step (counts set to 0 just before, read
    just after).  10.2: ``python -m dlrover_wuqiong_tpu_torch.master
    --journal-dir=...`` as a subprocess, ``python -m
    dlrover_wuqiong_tpu_torch.run --nnodes=1 --max_restarts=2`` dialing
    it, its worker the same trainer on the card fed by the master's
-   dataset shards (2048 samples, 32 minibatches a shard: 8 shards of 32
+   dataset shards (1024 samples, 32 minibatches a shard: 4 shards of 32
    steps); after the 2nd fetch and 4 of its steps the master is
    SIGKILLed, and 1.5 s later a new one starts on the same journal and
    port.  Checks, every invariant of the drill: one worker generation,
-   the launcher exits 0, the 2048 samples tiled once (fetched ==
+   the launcher exits 0, the 1024 samples tiled once (fetched ==
    completed), steps inside the outage, heartbeats buffered and drained,
    the epoch at 2 and the node re-registered, the worker's ledger
    degraded and productive both > 0, 0.5 <= goodput_wall <= 1 (the ideal
@@ -233,7 +233,7 @@ Phases, in order; a failure in any of them exits non-zero:
    the journal and the worker's flight dump, every journal event once in
    (epoch, seq) order over epochs [1, 2], its degraded seconds within
    0.05 s of the worker's ledger, and the offline CLI's hash equal to
-   the live bytes; every one of the 256 losses bitwise 10.1's; and the
+   the live bytes; every one of the 128 losses bitwise 10.1's; and the
    worker's own counters at 12 forward and 12 fused-backward launches a
    step and no int8 one.  Prints the outage, the restart gap, the frames
    and seconds of the replay, the journal's gauges, the steps in the
@@ -249,8 +249,8 @@ Phases, in order; a failure in any of them exits non-zero:
    journal; the worker dials ``PRIMARY,STANDBY``.  The primary is
    SIGKILLed; the standby promotes after 1.0 s of lease silence.  Checks,
    every invariant of the drill: one worker generation, the launcher
-   exits 0, the endpoint list rotated, the 2048 samples tiled once, all
-   256 losses bitwise 10.1's, the buffer drained, the promoted epoch 3
+   exits 0, the endpoint list rotated, the 1024 samples tiled once, all
+   128 losses bitwise 10.1's, the buffer drained, the promoted epoch 3
    (old + 2) seen by the worker and the node re-registered, degraded and
    productive > 0, the standby fetched before the kill, the promotion
    gap below this run's restart baseline (the corpse revived, spawn to
@@ -299,12 +299,13 @@ Phases, in order; a failure in any of them exits non-zero:
    their new values, Adam8bit's int8 codes equal (codes off by one
    counted, failing above ``OPT_CODE_SHARE`` of them).  13.2: GPT-2 124M
    at phase 4b's build with adamw, agd, adamw8bit, mup_adam (base n_embd
-   256), stable_bf16 (Kahan and master), optimizer_offload and WSAM
-   (rho 0.05, decoupled), one build at a time on one batch, 2 warm-up
-   and 5 timed steps: losses finite and falling, step 1's loss equal
-   across the float32 builds, bf16 parameters and losses within
-   ``STABLE_LOSS_RTOL`` of adamw's under stable_bf16, the offloaded
-   state in pinned host memory and its parameters bitwise adamw's,
+   256), stable_bf16 (Kahan and master, and Kahan with
+   optimizer_offload), optimizer_offload and WSAM (rho 0.05, decoupled),
+   one build at a time on one batch, 2 warm-up and 5 timed steps: losses
+   finite and falling, step 1's loss equal across the float32 builds,
+   bf16 parameters and losses within ``STABLE_LOSS_RTOL`` of adamw's
+   under stable_bf16, the offloaded state in pinned host memory and its
+   parameters bitwise adamw's (stable_bf16's with stable_bf16),
    offload and adamw8bit peaks below adamw's, 12 + 12 flash launches a
    step (24 + 24 under WSAM); ms a step, tokens/s, peak and the
    optimizer's device ms (profiler).  13.3: GPT-2 124M under stable_bf16
@@ -315,6 +316,25 @@ Phases, in order; a failure in any of them exits non-zero:
    dq and 24 dk/dv launches a step, ms, tokens/s, peak beside the
    computed state (fails, printing the peak, if it does not fit).  No
    int8 launch.
+14. The mesh strategies (``chip_smoke.parallel_phase``, runnable alone),
+   in an NCCL world of one of its own (a TCP store on a free localhost
+   port), destroyed at the end.  14.1: GPT-2 124M at phase 4b's build
+   plain, then under fsdp, zero2, ddp and tensor_parallel 1 + fsdp (the
+   DTensor route with its redistributes), then plain again, one build at
+   a time, 2 warm-up and 5 timed steps: every mesh build's parameters
+   DTensors on the card, its losses and final parameters bitwise the
+   plain build's, 12 + 12 flash launches a step; ms a step, tokens/s,
+   peak and the device ms in NCCL kernels (profiler, 2 steps).  14.3:
+   the fsdp build's state saved to shm through FlashCheckpointer (its
+   leaf names the plain build's: whole pieces in a world of one) and
+   restored into an fsdp build from another seed; the next step's loss
+   and the parameters bitwise.  14.2: Llama-3 8B at phase 4c's cut
+   under fsdp, 1 warm-up and 3 timed steps: losses finite, 4c's trend
+   rule, 8 forward, 4 dq and 4 dk/dv launches a step, ms, peak and NCCL
+   ms.  14.4, computed on the meta device in a child process: Llama-3
+   8B at full depth under fsdp in a fake world of 8, rank 0's bytes of
+   parameters and AdamW moments within 1% of the total's eighth, and
+   ``auto_plan``'s "does not fit" for one card of this card's memory.
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2517,12 +2537,12 @@ def ckpt_run(torch, tfa, ckpt_dir: str, opened: list) -> tuple:
 # ------------------------------------------------------------ phase 8
 
 #: the elastic drill's run: GPT-2 124M at phase 4b's batch, warmup then
-#: cosine, a disk save every 10 steps (and a shm stage every step), the
-#: SIGKILLs at seeded steps in [8, 17] (14 and 17).  20 steps: the
+#: cosine, a disk save every 10 steps (and a shm stage every step), one
+#: SIGKILL at a seeded step in [8, 17] (14).  20 steps and one kill: the
 #: script's wall on a slow host came within 10% of the 1200 s limit
-#: with 30
+#: with 30 steps, and again with phase 14 beside two kills
 ELASTIC = dict(batch=TRAIN_B, seq=TRAIN_T, max_steps=20, warmup=5,
-               save_steps=10, kill_range=(8, 17))
+               save_steps=10, kill_range=(8, 17), kills=1)
 
 
 @contextlib.contextmanager
@@ -2629,7 +2649,7 @@ def elastic_phase(torch, tfa) -> tuple:
     e = ELASTIC
     r = drill.elastic_drill(model="gpt2", device="cuda", timeout_s=600, **e)
     gens = r["generations"]
-    check(r["rc"] == 0 and len(gens) == drill.KILLS + 1,
+    check(r["rc"] == 0 and len(gens) == e["kills"] + 1,
           f"drill: launcher exit {r['rc']} after {len(gens) - 1} restarts")
     check(r["committed_step"] == str(e["max_steps"]),
           f"drill: latest_checkpointed_iteration.txt reads "
@@ -2662,7 +2682,7 @@ def elastic_phase(torch, tfa) -> tuple:
               f"drill generation {gen['gen']}: int8 launches")
         for k, v in gen["launches"].items():
             summed[k] = summed.get(k, 0) + v
-    check(len(r["splits"]) == drill.KILLS, f"drill: {len(r['splits'])} "
+    check(len(r["splits"]) == e["kills"], f"drill: {len(r['splits'])} "
           f"kill splits")
     check(not os.path.exists(f"/dev/shm/{r['job']}_ckpt_shm_0"),
           "drill: the segment was not unlinked")
@@ -3641,12 +3661,14 @@ def opt_gpt2_builds(torch, tfa) -> tuple:
                             strategy=[("stable_bf16", {})]),
         "stable_bf16_master": dict(optimizer=adamw(3e-4), strategy=[
             ("stable_bf16", {"master": True})]),
+        "stable_bf16_offload": dict(optimizer=adamw(3e-4), strategy=[
+            ("stable_bf16", {}), ("optimizer_offload", {})]),
         "optimizer_offload": dict(optimizer=adamw(3e-4), strategy=[
             ("optimizer_offload", {})]),
         "wsam": dict(optimizer=adamw(3e-4)),
     }
     batch = train_batch(torch, 50257)
-    out, launches, adamw_params = {}, {}, None
+    out, launches, kept_params = {}, {}, {}
     for name, kw in specs.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -3683,9 +3705,25 @@ def opt_gpt2_builds(torch, tfa) -> tuple:
         else:
             check(dtypes == {"torch.float32"}, f"13.2 {name}: parameters "
                   f"{dtypes}, not float32")
-        if name == "adamw":
-            adamw_params = [p.detach().cpu() for p in
-                            res.model.parameters()]
+        if name in ("adamw", "stable_bf16"):
+            kept_params[name] = [p.detach().cpu() for p in
+                                 res.model.parameters()]
+        if name == "stable_bf16_offload":
+            opt = res.state.opt_state
+            host = list(opt.comp) + [
+                v for view in opt.views for k, v in
+                opt.inner.state[view].items() if k != "step"]
+            check(host and all(v.device.type == "cpu" and v.is_pinned()
+                               for v in host),
+                  "13.2 stable_bf16_offload: the state is not in pinned "
+                  "host memory between steps")
+            row["host_state_bytes"] = sum(v.numel() * v.element_size()
+                                          for v in host)
+            same = all(torch.equal(a, p.detach().cpu()) for a, p in zip(
+                kept_params["stable_bf16"], res.model.parameters()))
+            check(same, "13.2 stable_bf16_offload: parameters after the "
+                  "timed steps are not bitwise the stable_bf16 build's")
+            row["params_bitwise_stable_bf16"] = same
         if name == "optimizer_offload":
             opt = res.state.opt_state
             host = [v for p in res.model.parameters()
@@ -3697,7 +3735,7 @@ def opt_gpt2_builds(torch, tfa) -> tuple:
             row["host_state_bytes"] = sum(v.numel() * v.element_size()
                                           for v in host)
             same = all(torch.equal(a, p.detach().cpu()) for a, p in zip(
-                adamw_params, res.model.parameters()))
+                kept_params["adamw"], res.model.parameters()))
             check(same, "13.2 optimizer_offload: parameters after the timed "
                   "steps are not bitwise the adamw build's")
             row["params_bitwise_adamw"] = same
@@ -3709,7 +3747,7 @@ def opt_gpt2_builds(torch, tfa) -> tuple:
     check(len({first[n] for n in f32}) == 1, f"13.2: step 1's loss differs "
           f"across the float32 builds: {first}")
     ref = out["adamw"]["losses"]
-    for n in ("stable_bf16", "stable_bf16_master"):
+    for n in ("stable_bf16", "stable_bf16_master", "stable_bf16_offload"):
         rel = max(abs(a - b) / abs(b) for a, b in zip(out[n]["losses"], ref))
         out[n]["max_relative_loss_vs_adamw"] = rel
         check(rel <= STABLE_LOSS_RTOL, f"13.2 {n}: losses {out[n]['losses']}"
@@ -3971,6 +4009,380 @@ def print_optimizers(op: dict):
     print(f"optimizers: phase wall {op['phase_wall_s']:.1f} s (13.1 "
           f"{op['rules_wall_s']:.1f}, 13.2 {op['gpt2_wall_s']:.1f}, 13.3 "
           f"{op['checkpoint_wall_s']:.1f}, 13.4 {op['llama_wall_s']:.1f})")
+
+
+# ------------------------------------------------------------ phase 14
+
+#: 14.1's builds beside the plain one: GPT-2 124M at phase 4b's build
+MESH_BUILDS = {
+    "fsdp": [("fsdp", {})],
+    "zero2": [("zero2", {})],
+    "ddp": [("ddp", {})],
+    # the tensor-parallel DTensor route and its redistributes, at tp 1
+    "tp1_fsdp": [("tensor_parallel", {"size": 1}), ("fsdp", {})],
+}
+MESH_WARMUP, MESH_TIMED, MESH_PROFILED = 2, 5, 2
+MESH_LLAMA_WARMUP, MESH_LLAMA_TIMED = 1, 3
+#: 14.4: the world Llama-3 8B's training state is sharded over, computed
+MESH_FIT_WORLD = 8
+
+# 14.4 runs in a child process: a "fake" world of MESH_FIT_WORLD on the
+# meta device, so no later phase inherits a process group
+FIT_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+world = int(sys.argv[2])
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+try:
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.llama import Llama, LlamaConfig
+    from dlrover_wuqiong_tpu_torch.parallel.fsdp import is_dtensor, state_bytes
+    cfg = LlamaConfig.llama3_8b()
+    res = auto_accelerate(Llama(cfg), strategy=[("fsdp", {})],
+                          materialize=False, device="cpu")
+    params = list(res.model.parameters())
+    opt = res.state.opt_state
+    moments = [t for p in params for k, t in opt.state[p].items()
+               if k != "step"]
+    local = [t.to_local() if is_dtensor(t) else t for t in params + moments]
+    print(json.dumps({
+        "world": world, "num_params": cfg.num_params(),
+        "rank0_param_bytes": state_bytes(params),
+        "rank0_state_bytes": state_bytes(params + moments),
+        "total_state_bytes": 12 * cfg.num_params(),
+        "all_meta": all(t.is_meta for t in local),
+        "plan": res.strategy.plan.describe()}))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """An NCCL world of one on card 0, its TCP store on a free localhost
+    port, destroyed on the way out whatever happened."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_profile(torch, res, batch, n: int) -> dict:
+    """n profiled steps: the device ms a step in NCCL kernels and in all
+    device activities (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            res.state, _ = res.train_step(res.state, batch)
+        torch.cuda.synchronize()
+    ev = device_events(torch, prof)
+    if not ev:
+        return {"nccl_ms_per_step": "not measured",
+                "device_busy_ms_per_step": "not measured"}
+    nccl = [e for e in ev if "nccl" in e.name.lower()]
+    return {"nccl_ms_per_step": sum(e.time_range.elapsed_us()
+                                    for e in nccl) / n / 1e3,
+            "nccl_kernels_per_step": len(nccl) / n,
+            "device_busy_ms_per_step": sum(e.time_range.elapsed_us()
+                                           for e in ev) / n / 1e3}
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def mesh_gpt2(torch, tfa) -> tuple:
+    """14.1: GPT-2 124M (phase 4b's build) plain, then under each of
+    `MESH_BUILDS`, then plain again, one build at a time from one seed on
+    one batch: MESH_WARMUP + MESH_TIMED steps, their peak, then
+    MESH_PROFILED profiled steps.  Every mesh build's parameters are
+    DTensors on the card, its losses and final parameters bitwise the
+    plain build's, 12 + 12 flash launches a step.  Returns (report,
+    timed launches, the fsdp build kept for 14.3)."""
+    import dataclasses
+    import gc
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.parallel.fsdp import is_dtensor
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    cfg = dataclasses.replace(GPTConfig.gpt2(), remat=False)
+    batch = train_batch(torch, 50257)
+    out, launches, plain, kept = {}, {}, None, None
+    for name in ["plain", *MESH_BUILDS, "plain_again"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the peak over what was allocated before the build (the fsdp
+        # build kept for 14.3, the batch)
+        before = torch.cuda.memory_allocated()
+        res = auto_accelerate(GPT(cfg), optimizer=adamw(3e-4), seed=0,
+                              strategy=MESH_BUILDS.get(name))
+        warm, warm_n, _, _ = run_steps(torch, tfa, res, batch, MESH_WARMUP)
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, ms, lc = run_steps(torch, tfa, res, batch,
+                                          MESH_TIMED)
+        peak = torch.cuda.max_memory_allocated() - before
+        expect_launches(lc, MESH_TIMED, cfg.n_layer, 1, "fused",
+                        f"14.1 {name}")
+        launches[name] = lc
+        row = {"losses": warm + losses, "grad_norms": warm_n + norms,
+               "ms_per_step": ms, "tokens_per_s": TRAIN_B * TRAIN_T / ms
+               * 1e3, "peak_bytes": peak,
+               "plan": res.strategy.plan.describe()}
+        row.update(nccl_profile(torch, res, batch, MESH_PROFILED))
+        params = [p for _, p in res.model.named_parameters()]
+        dtensors = sum(is_dtensor(p) for p in params)
+        row["dtensor_params"] = dtensors
+        if name in MESH_BUILDS:
+            # every parameter FSDP2 shards is a DTensor (under tensor
+            # parallel the replicated ones too)
+            check(dtensors >= len(params) - len(
+                res.mesh_state.replicated) and dtensors > 0 and all(
+                _local(p).is_cuda for p in params),
+                f"14.1 {name}: {dtensors} of {len(params)} parameters are "
+                f"DTensors on the card")
+        host = [_local(p).detach().cpu() for p in params]
+        if plain is None:
+            plain = (row["losses"], host)
+        else:
+            same_l = row["losses"] == plain[0]
+            same_p = all(torch.equal(a, b) for a, b in zip(host, plain[1]))
+            row["losses_bitwise_plain"] = same_l
+            row["params_bitwise_plain"] = same_p
+            check(same_l and same_p, f"14.1 {name}: losses {row['losses']}"
+                  f" against the plain build's {plain[0]}, parameters "
+                  f"bitwise {same_p}")
+        out[name] = row
+        if name == "fsdp":
+            kept = res
+        del res
+    return out, launches, kept
+
+
+def mesh_llama(torch, tfa) -> tuple:
+    """14.2: Llama-3 8B at phase 4c's cut (4 layers, full width, B = 1,
+    T = 4096, remat "full") under fsdp: MESH_LLAMA_WARMUP warm-up and
+    MESH_LLAMA_TIMED timed steps, 4c's trend rule on the losses and its
+    launches (2 forward, 1 dq and 1 dk/dv a layer and step)."""
+    import dataclasses
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.llama import Llama, LlamaConfig
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_layers=LLAMA_LAYERS)
+    t0 = time.monotonic()
+    res = auto_accelerate(Llama(cfg), optimizer=adamw(3e-4), seed=0,
+                          strategy=[("fsdp", {})])
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    batch = train_batch(torch, cfg.vocab_size, b=LLAMA_B, t=LLAMA_T)
+    warm, _, _, _ = run_steps(torch, tfa, res, batch, MESH_LLAMA_WARMUP)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms, lc = run_steps(torch, tfa, res, batch,
+                                      MESH_LLAMA_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    every = warm + losses
+    check(all(map(lambda x: x == x and abs(x) < float("inf"),
+                  every + norms)), f"14.2: non-finite loss or grad norm: "
+          f"{every} {norms}")
+    head, tail = sum(every[:2]) / 2, sum(every[-2:]) / 2
+    check(tail < head, f"14.2: the mean loss of the last two steps {tail} "
+          f"is not below the first two's {head}: {every}")
+    expect_launches(lc, MESH_LLAMA_TIMED, LLAMA_LAYERS, 2, "split",
+                    "14.2 Llama-3 8B under fsdp")
+    row = {"layers": LLAMA_LAYERS, "batch": LLAMA_B, "seq": LLAMA_T,
+           "losses": every, "grad_norms": norms, "ms_per_step": ms,
+           "tokens_per_s": LLAMA_B * LLAMA_T / ms * 1e3, "peak_bytes": peak,
+           "init_s": init_s, "plan": res.strategy.plan.describe()}
+    row.update(nccl_profile(torch, res, batch, 1))
+    del res
+    torch.cuda.empty_cache()
+    return row, lc
+
+
+def mesh_checkpoint(torch, tfa, a) -> dict:
+    """14.3: 14.1's fsdp build saved to shm through FlashCheckpointer,
+    restored into a fresh fsdp build from another seed; one step on
+    each: loss and parameters bitwise, and the leaf names the plain
+    build's (whole pieces in a world of one)."""
+    import dataclasses
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    cfg = dataclasses.replace(GPTConfig.gpt2(), remat=False)
+    batch = train_batch(torch, 50257)
+    with elastic_workspace("dwt-mesh-ckpt-") as (out_dir, opened):
+        from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import (
+            FlashCheckpointer,
+            StorageType,
+        )
+        from dlrover_wuqiong_tpu_torch.checkpoint.shm_handler import (
+            _leaf_refs,
+            flatten_state_dict,
+        )
+
+        ck = FlashCheckpointer(out_dir, job_name=os.environ["DWT_JOB_NAME"],
+                               standalone=True)
+        opened.append(ck)
+        tree = a.state.tree()
+        names = [e for n, leaf in flatten_state_dict(tree).items()
+                 for e, _, _, _ in _leaf_refs(n, leaf)]
+        plain = auto_accelerate(GPT(cfg), optimizer=adamw(3e-4), seed=0,
+                                materialize=False)
+        want = list(flatten_state_dict(plain.state.tree()))
+        del plain
+        check(names == want, f"14.3: leaf names {names[:4]}... are not "
+              f"the plain build's {want[:4]}...")
+        step = int(a.state.step)
+        t0 = time.monotonic()
+        ck.save_checkpoint(step, tree, StorageType.MEMORY)
+        blocked = time.monotonic() - t0
+        ck.wait_staging(120)
+        staged = time.monotonic() - t0
+        b = auto_accelerate(GPT(cfg), optimizer=adamw(3e-4), seed=1,
+                            strategy=MESH_BUILDS["fsdp"])
+        t0 = time.monotonic()
+        ck.load_checkpoint(b.state)
+        torch.cuda.synchronize()
+        restore = time.monotonic() - t0
+        rep = ck.last_restore_report
+        check(rep["tier"] == "shm" and rep["step"] == step,
+              f"14.3: restored {rep}")
+        la, _, _, _ = run_steps(torch, tfa, a, batch, 1)
+        lb, _, _, _ = run_steps(torch, tfa, b, batch, 1)
+        check(la == lb, f"14.3: the resumed step's loss {lb} is not the "
+              f"original's {la}")
+        same = all(torch.equal(_local(p), _local(q)) for p, q in zip(
+            a.model.parameters(), b.model.parameters()))
+        check(same, "14.3: the resumed parameters are not bitwise")
+        return {"leaves": len(names), "step": step, "blocked_s": blocked,
+                "staged_s": staged, "restore_s": restore,
+                "loss_after_resume": la[0]}
+
+
+def mesh_fit_8b(torch) -> dict:
+    """14.4, computed on the meta device: Llama-3 8B at full depth under
+    fsdp over a fake world of MESH_FIT_WORLD (a child process), rank 0's
+    bytes of parameters and AdamW moments beside the total's share; and
+    auto_plan's refusal for one card of this one's memory."""
+    from dlrover_wuqiong_tpu_torch.models.llama import LlamaConfig
+    from dlrover_wuqiong_tpu_torch.parallel.mesh import (
+        auto_plan,
+        detect_hbm_per_device,
+    )
+
+    r = subprocess.run([sys.executable, "-c", FIT_CHILD, HERE,
+                        str(MESH_FIT_WORLD)], capture_output=True,
+                       text=True, timeout=300, cwd=HERE)
+    check(r.returncode == 0, f"14.4 child failed: {r.stderr[-4000:]}")
+    fit = json.loads(r.stdout.strip().splitlines()[-1])
+    share = fit["total_state_bytes"] / MESH_FIT_WORLD
+    check(fit["all_meta"] and fit["plan"] == f"fsdp{MESH_FIT_WORLD}",
+          f"14.4: {fit}")
+    check(abs(fit["rank0_state_bytes"] - share) <= 0.01 * share,
+          f"14.4: rank 0 holds {fit['rank0_state_bytes']} bytes, not the "
+          f"total's 1/{MESH_FIT_WORLD} ({share:.0f})")
+    hbm = detect_hbm_per_device("cuda")
+    try:
+        auto_plan(1, LlamaConfig.llama3_8b().num_params(),
+                  hbm_per_device=hbm)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and "does not fit" in refusal,
+          f"14.4: auto_plan took Llama-3 8B on one card of {hbm} bytes")
+    fit.update(total_share_bytes=share, card_bytes=hbm,
+               one_card_refusal=refusal)
+    return fit
+
+
+def parallel_phase(torch, tfa) -> tuple:
+    """Phase 14: the mesh strategies.  14.1-14.3 in an NCCL world of one
+    of this process's own, destroyed at the end; 14.4 in a child.
+    Returns (report, {run: flash launches})."""
+    import gc
+
+    t0 = time.monotonic()
+    out, walls = {}, {}
+    with nccl_world():
+        out["gpt2"], launches, kept = mesh_gpt2(torch, tfa)
+        walls["14.1"] = time.monotonic() - t0
+        out["checkpoint"] = mesh_checkpoint(torch, tfa, kept)
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+        walls["14.3"] = time.monotonic() - t0 - walls["14.1"]
+        out["llama"], launches["llama_fsdp"] = mesh_llama(torch, tfa)
+        walls["14.2"] = time.monotonic() - t0 - walls["14.1"] - walls["14.3"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t4 = time.monotonic()
+    out["fit_8b"] = mesh_fit_8b(torch)
+    walls["14.4"] = time.monotonic() - t4
+    out["walls_s"] = walls
+    out["phase_wall_s"] = time.monotonic() - t0
+    return out, launches
+
+
+def print_parallel(pp: dict):
+    """Phase 14's lines: the report as JSON, then its numbers."""
+    print("parallel: " + json.dumps(pp))
+    for name, r in pp["gpt2"].items():
+        nccl = r["nccl_ms_per_step"]
+        print(f"parallel: 14.1 GPT-2 124M {name} ({r['plan']}): "
+              f"{r['ms_per_step']:.2f} ms a step, {r['tokens_per_s']:.0f} "
+              f"tokens/s, peak {r['peak_bytes'] / 1e9:.2f} GB over what was "
+              f"allocated before it, NCCL device "
+              + (f"{nccl:.3f} ms" if isinstance(nccl, float) else str(nccl))
+              + " a step"
+              + (f", losses and parameters bitwise the plain build's"
+                 if r.get("params_bitwise_plain") else ""))
+    ll = pp["llama"]
+    nccl = ll["nccl_ms_per_step"]
+    print(f"parallel: 14.2 Llama-3 8B ({ll['layers']} layers) fsdp, built "
+          f"and filled leaf by leaf in {ll['init_s']:.2f} s: "
+          f"{ll['ms_per_step']:.2f} ms a step, {ll['tokens_per_s']:.0f} "
+          f"tokens/s, peak {ll['peak_bytes'] / 1e9:.2f} GB, NCCL device "
+          + (f"{nccl:.3f} ms" if isinstance(nccl, float) else str(nccl))
+          + f" a step; losses {ll['losses']}")
+    c = pp["checkpoint"]
+    print(f"parallel: 14.3 fsdp state, {c['leaves']} leaves (the plain "
+          f"build's names): save blocked {c['blocked_s'] * 1e3:.1f} ms, "
+          f"staged {c['staged_s']:.3f} s, restore {c['restore_s']:.3f} s; "
+          f"the resumed step bitwise")
+    f = pp["fit_8b"]
+    print(f"parallel: 14.4 computed on the meta device: Llama-3 8B "
+          f"({f['num_params']} parameters) under fsdp over a fake world of "
+          f"{f['world']}: rank 0 holds {f['rank0_state_bytes'] / 1e9:.3f} "
+          f"GB of parameters + AdamW moments (parameters "
+          f"{f['rank0_param_bytes'] / 1e9:.3f} GB), the total's 1/"
+          f"{f['world']} is {f['total_share_bytes'] / 1e9:.3f} GB; one card "
+          f"of {f['card_bytes'] / 2 ** 30:.1f} GiB: {f['one_card_refusal']}")
+    w = pp["walls_s"]
+    print(f"parallel: phase wall {pp['phase_wall_s']:.1f} s (14.1 "
+          f"{w['14.1']:.1f}, 14.3 {w['14.3']:.1f}, 14.2 {w['14.2']:.1f}, "
+          f"14.4 {w['14.4']:.1f})")
 
 
 def main():
@@ -4437,6 +4849,13 @@ def main():
     print_optimizers(optz)
 
     lap('13')
+    # phase 14 — the mesh strategies in an NCCL world of one, the 8B fit
+    gc.collect()
+    torch.cuda.empty_cache()
+    par, par_launches = parallel_phase(torch, tfa)
+    print_parallel(par)
+
+    lap('14')
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -4504,6 +4923,8 @@ def main():
                 run: (sum(l[name] for l in counts.values())
                       if run == "gpt2" else counts[name])
                 for run, counts in opt_launches.items()},
+            "launches_mesh": {run: counts[name]
+                              for run, counts in par_launches.items()},
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {

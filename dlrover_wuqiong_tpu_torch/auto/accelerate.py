@@ -1,13 +1,14 @@
-"""`auto_accelerate` on one device: model + optimizer -> a ready train step.
+"""`auto_accelerate`: model + optimizer -> a ready train step, on one
+device or over a ``torch.distributed`` world.
 
 Parity: dlrover_wuqiong_tpu/auto/accelerate.py — `auto_accelerate` (:446),
 `AccelerateResult` (:289), and the strategy registry (`register_strategy`
-:56, `StrategyContext` :63, `resolve_strategy` :258), the one-device
-slice: no mesh, no compile cache.  It materializes the model's
-parameters on the device (seeded flax-layout init), builds the
-optimizer over them (default
-``adamw(3e-4)``, the JAX default ``optax.adamw(3e-4)``), and returns the
-train step of `trainer.train_step.make_train_step`::
+:56, `StrategyContext` :63, the mesh strategies :99-156,
+`resolve_strategy` :258), without the compile cache.  It materializes
+the model's parameters on the device (seeded flax-layout init), builds
+the optimizer over them (default ``adamw(3e-4)``, the JAX default
+``optax.adamw(3e-4)``), and returns the train step of
+`trainer.train_step.make_train_step`::
 
     res = auto_accelerate(GPT(cfg), optimizer=adamw(3e-4))
     res.state, m = res.train_step(res.state, res.place_batch(
@@ -36,16 +37,40 @@ and the optimizer strategies (JAX :235-248, :598-604, :684-694):
     ("optimizer_offload", {"enabled"})
         the optimizer state in pinned host memory between steps; the
         update moves it to the device and back leaf by leaf
-        (`optimizers.leaf.offload_state`)
+        (`optimizers.leaf.offload_state`); with stable_bf16 the whole
+        `StableBF16` state (inner moments, and compensation or masters),
+        as JAX offloads the whole ``opt_state``
 
 With optimizer_offload or an offload_* remat policy, the host link is
 probed once at resolve time (`common.util.measure_h2d_gbps`) and a slow
 one warns with its rate (JAX `_warn_slow_offload_link` :402-443).
 
-The JAX package's other strategy names raise with the ROADMAP item that
-ports them: the mesh strategies (item 8a; "sequence_parallel" 8b;
-"pipeline_parallel", "local_sgd" and "hsdp" 8c).  So does more than one
-device (item 8a).
+and the mesh strategies (JAX :99-156), which size the dims of a
+`parallel.mesh.MeshPlan` (an unset data dim takes the devices left):
+
+    ("fsdp" | "zero3" | "zero2", {"size"})   fsdp; zero2 keeps each
+        block's gathered parameters from its forward to its backward
+    ("data_parallel" | "ddp", {"size"})      dp
+    ("tensor_parallel", {"size"})            tp, the DTensor route (also
+        at size 1)
+    ("multi_slice", {"slices", "devices_per_slice", "tp", "sp"})
+        dp over slices, fsdp (and tp) inside a slice
+
+The devices are the ranks of the default process group (`devices`, if
+given, must count them; a single device given is this rank alone);
+without a group, the world is one device and no mesh is built, as
+before.  With a mesh strategy named, or more than one
+device, the model is built on ``meta`` and sharded by construction
+(`parallel.fsdp`): each rank materializes its own pieces of each leaf
+from the seeded init, the optimizer state takes the parameters'
+placements, and `AccelerateResult.place_batch` gives the rank its slice
+of the global batch.  ``materialize=False`` stops before any allocation:
+the state is meta DTensors with their placements and local shapes (the
+port of JAX's AOT scale proof).
+
+"expert_parallel" raises until ROADMAP queue 1 item 8a part 2,
+"sequence_parallel" until 8b, and "pipeline_parallel", "local_sgd" and
+"hsdp" until 8c.
 """
 
 from __future__ import annotations
@@ -58,6 +83,13 @@ import torch
 
 from .. import resolve_device
 from ..common.log import get_logger
+from ..parallel.mesh import (
+    MeshPlan,
+    auto_plan,
+    build_mesh,
+    detect_hbm_per_device,
+    hybrid_slice_plan,
+)
 from ..trainer.train_step import (
     OptimizerFactory,
     TrainState,
@@ -82,6 +114,7 @@ def register_strategy(name: str):
 
 @dataclasses.dataclass
 class StrategyContext:
+    plan: MeshPlan = dataclasses.field(default_factory=MeshPlan)
     accum_steps: int = 1
     # tri-state: None = keep the model's own config; True/False = override
     amp: Optional[bool] = None  # bf16 compute
@@ -117,20 +150,22 @@ class StrategyContext:
 
 #: JAX strategy names whose port is still to come -> the ROADMAP item
 _NOT_PORTED = {
-    **dict.fromkeys(("fsdp", "zero2", "zero3", "data_parallel", "ddp",
-                     "tensor_parallel", "expert_parallel", "multi_slice"),
-                    "8a"),
+    "expert_parallel": "8a part 2",
     "sequence_parallel": "8b",
     **dict.fromkeys(("pipeline_parallel", "local_sgd", "hsdp"), "8c"),
 }
 
+#: the strategies that shard the state over a mesh
+MESH_STRATEGIES = ("fsdp", "zero2", "zero3", "data_parallel", "ddp",
+                   "tensor_parallel", "multi_slice")
+
 
 def _not_ported(name: str, item: str) -> Callable:
-    def handler(ctx: StrategyContext, cfg: Dict):
+    def handler(ctx: StrategyContext, cfg: Dict, num_devices: int):
         raise ValueError(f"strategy {name!r} is not ported yet (ROADMAP "
-                         f"queue 1 item {item}); the port trains on one "
-                         "device with amp, checkpoint, module_replace, "
-                         "grad_accum, stable_bf16 and optimizer_offload")
+                         f"queue 1 item {item}); the port trains with fsdp, "
+                         "zero2/zero3, data_parallel/ddp, tensor_parallel, "
+                         "multi_slice and the one-device strategies")
     return handler
 
 
@@ -138,10 +173,71 @@ for _name, _item in _NOT_PORTED.items():
     register_strategy(_name)(_not_ported(_name, _item))
 
 
+@register_strategy("fsdp")
+@register_strategy("zero3")
+def _s_fsdp(ctx: StrategyContext, cfg: Dict, num_devices: int):
+    ctx.plan.fsdp = cfg.get("size", 0) or 0  # 0 -> fill remaining
+    ctx.extra["mesh"] = True
+
+
+@register_strategy("zero2")
+def _s_zero2(ctx: StrategyContext, cfg: Dict, num_devices: int):
+    """zero3's sharding; each block keeps its gathered parameters from
+    its forward to its backward (the same numbers, more memory)."""
+    _s_fsdp(ctx, cfg, num_devices)
+    ctx.extra["reshard_after_forward"] = False
+
+
+@register_strategy("data_parallel")
+@register_strategy("ddp")
+def _s_dp(ctx: StrategyContext, cfg: Dict, num_devices: int):
+    ctx.plan.dp = cfg.get("size", 0) or 0
+    ctx.extra["mesh"] = True
+
+
+@register_strategy("tensor_parallel")
+def _s_tp(ctx: StrategyContext, cfg: Dict, num_devices: int):
+    """cfg: size (default 1).  Every size, 1 included, makes the
+    parameters DTensors over the mesh's ``tp`` dim: at size 1 the numbers
+    are those of the build without it, and the step pays DTensor's host
+    dispatch (GPT-2 124M, B = 24, T = 1024 on one NVIDIA H100 80GB HBM3
+    at 700 W: 248-270 ms a step against 141-143 ms under fsdp alone,
+    chip_smoke.py phase 14.1).  Leave it out where tp would be 1."""
+    ctx.plan.tp = cfg.get("size", 1)
+    ctx.extra["mesh"] = True
+    ctx.extra["tensor_parallel"] = True
+
+
+@register_strategy("multi_slice")
+def _s_multi_slice(ctx: StrategyContext, cfg: Dict, num_devices: int):
+    """dp spans the slices, fsdp/tp/sp stay inside a slice, so only the
+    dp gradient reduction crosses the slow links.  dp is the outermost
+    mesh dim: rank order is slice-major (slice 0's ranks first).  cfg:
+    slices (required), devices_per_slice (default: evenly divided), tp,
+    sp."""
+    slices = int(cfg.get("slices", 2))
+    if slices < 2:
+        raise ValueError("multi_slice needs slices >= 2")
+    per = int(cfg.get("devices_per_slice") or num_devices // slices)
+    if slices * per != num_devices:
+        raise ValueError(
+            f"multi_slice: {slices} slices x {per} devices/slice != "
+            f"{num_devices} devices")
+    tp, sp = int(cfg.get("tp", 1)), int(cfg.get("sp", 1))
+    if per % (tp * sp):
+        raise ValueError(
+            f"multi_slice: tp={tp} x sp={sp} must divide the "
+            f"{per} devices of a slice (fsdp fills the quotient)")
+    ctx.plan = hybrid_slice_plan(slices, per, tp=tp, sp=sp)
+    ctx.extra["mesh"] = True
+    if tp > 1:
+        ctx.extra["tensor_parallel"] = True
+
+
 @register_strategy("amp")
 @register_strategy("amp_native")
 @register_strategy("half")
-def _s_amp(ctx: StrategyContext, cfg: Dict):
+def _s_amp(ctx: StrategyContext, cfg: Dict, num_devices: int):
     """bf16 compute; with {"fp8": True} the name-filtered projections
     also become `Fp8Dense` (`filter` replaces the config's filter)."""
     ctx.amp = cfg.get("enabled", True)
@@ -152,7 +248,7 @@ def _s_amp(ctx: StrategyContext, cfg: Dict):
 
 
 @register_strategy("checkpoint")
-def _s_ckpt(ctx: StrategyContext, cfg: Dict):
+def _s_ckpt(ctx: StrategyContext, cfg: Dict, num_devices: int):
     """cfg: enabled, policy (`ops.remat.POLICIES`; an unknown one raises
     here), names (the *_names policies' anchors)."""
     ctx.remat = cfg.get("enabled", True)
@@ -166,25 +262,25 @@ def _s_ckpt(ctx: StrategyContext, cfg: Dict):
 
 
 @register_strategy("module_replace")
-def _s_module_replace(ctx: StrategyContext, cfg: Dict):
+def _s_module_replace(ctx: StrategyContext, cfg: Dict, num_devices: int):
     ctx.flash_attention = cfg.get("enabled", True)
 
 
 @register_strategy("grad_accum")
-def _s_accum(ctx: StrategyContext, cfg: Dict):
+def _s_accum(ctx: StrategyContext, cfg: Dict, num_devices: int):
     ctx.accum_steps = cfg.get("steps", 1)
 
 
 @register_strategy("stable_bf16")
 @register_strategy("bf16_optimizer")
-def _s_stable_bf16(ctx: StrategyContext, cfg: Dict):
+def _s_stable_bf16(ctx: StrategyContext, cfg: Dict, num_devices: int):
     """bf16 parameters trained stably: Kahan compensation (default) or
     float32 master weights ({"master": True})."""
     ctx.extra["stable_bf16"] = {"master": bool(cfg.get("master", False))}
 
 
 @register_strategy("optimizer_offload")
-def _s_opt_offload(ctx: StrategyContext, cfg: Dict):
+def _s_opt_offload(ctx: StrategyContext, cfg: Dict, num_devices: int):
     """The optimizer state in pinned host memory between steps."""
     ctx.extra["optimizer_offload"] = cfg.get("enabled", True)
 
@@ -230,17 +326,36 @@ def _warn_slow_offload_link(ctx: StrategyContext, device,
                     if est is not None else "")
 
 
-def resolve_strategy(strategy: Optional[Sequence]) -> StrategyContext:
+def resolve_strategy(strategy: Optional[Sequence], num_devices: int = 1,
+                     num_params: Optional[int] = None,
+                     seq_len: int = 0,
+                     hbm_per_device: Optional[int] = None) -> StrategyContext:
     """Each (name, cfg) item (or a bare name) through its handler, in
-    order; no strategy leaves every flag at None."""
+    order, then the unset data dim filled with the devices left (JAX
+    :256-290); no strategy takes `parallel.mesh.auto_plan`'s plan."""
     ctx = StrategyContext()
-    for item in strategy or ():
+    if not strategy:
+        ctx.plan = auto_plan(
+            num_devices, num_params, seq_len=seq_len,
+            hbm_per_device=hbm_per_device or detect_hbm_per_device())
+        return ctx
+    for item in strategy:
         name, cfg = item if isinstance(item, (tuple, list)) else (item, {})
         handler = _STRATEGY_REGISTRY.get(name)
         if handler is None:
             raise ValueError(f"unknown optimization strategy: {name!r}; "
                              f"known: {sorted(_STRATEGY_REGISTRY)}")
-        handler(ctx, cfg or {})
+        handler(ctx, cfg or {}, num_devices)
+    # fill the unset data dim with remaining devices (domination rule)
+    fixed = (ctx.plan.tp * ctx.plan.sp * ctx.plan.pp * ctx.plan.ep)
+    remaining = num_devices // fixed
+    if ctx.plan.fsdp == 0 and ctx.plan.dp == 0:
+        ctx.plan.fsdp, ctx.plan.dp = remaining, 1
+    elif ctx.plan.fsdp == 0:
+        ctx.plan.fsdp = max(1, remaining // max(1, ctx.plan.dp))
+    elif ctx.plan.dp == 0:
+        ctx.plan.dp = max(1, remaining // max(1, ctx.plan.fsdp))
+    ctx.plan.validate(num_devices)
     return ctx
 
 
@@ -255,6 +370,8 @@ class AccelerateResult:
         default_factory=StrategyContext)
     accum_steps: int = 1
     fused_steps: int = 1
+    # the sharded build's mesh side (parallel.fsdp.MeshState), or None
+    mesh_state: Any = None
     _fused_cache: Dict[int, Callable] = dataclasses.field(
         default_factory=dict)
 
@@ -270,9 +387,17 @@ class AccelerateResult:
             self._fused_cache[k] = fn
         return fn
 
-    def place_batch(self, batch: Dict) -> Dict:
+    def place_batch(self, batch: Dict, batch_axis: Optional[int] = None
+                    ) -> Dict:
         """Host batch (numpy arrays or tensors) -> int64 tensors on the
-        device.  Leading microbatch (and fused) axes pass through."""
+        device.  Leading microbatch (and fused) axes pass through.  On a
+        mesh the batch is the global one and the rank keeps its slice
+        of the batch dim over (dp, fsdp)."""
+        if self.mesh_state is not None:
+            if batch_axis is None:
+                batch_axis = 1 if self.accum_steps > 1 else 0
+            batch = self.mesh_state.planner.place_batch(batch, batch_axis)
+
         def put(x):
             if isinstance(x, np.ndarray):
                 x = torch.from_numpy(x)
@@ -283,7 +408,30 @@ class AccelerateResult:
 
     def place_fused_batch(self, batch: Dict) -> Dict:
         """`place_batch` for a fused batch (leading axis of size K)."""
-        return self.place_batch(batch)
+        return self.place_batch(batch, 1 + (1 if self.accum_steps > 1
+                                            else 0))
+
+
+def _world(devices: Optional[Sequence]) -> int:
+    """The number of devices: one for a single device given (this rank
+    alone, whatever the world), else the default process group's world
+    (which `devices`, if given, must count), or one without a group."""
+    import torch.distributed as dist
+
+    if devices is not None and len(devices) == 1:
+        return 1
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if devices is not None and len(devices) != world:
+            raise ValueError(f"{len(devices)} devices given in a "
+                             f"torch.distributed world of {world}: each "
+                             "rank holds one device")
+        return world
+    if devices is not None and len(devices) > 1:
+        raise ValueError(
+            f"{len(devices)} devices: initialize a torch.distributed "
+            f"world of {len(devices)} (one rank a device) first")
+    return 1
 
 
 def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
@@ -291,7 +439,9 @@ def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
                     accum_steps: Optional[int] = None, fused_steps: int = 1,
                     device=None, seed: int = 0,
                     strategy: Optional[Sequence] = None,
-                    devices: Optional[Sequence] = None) -> AccelerateResult:
+                    devices: Optional[Sequence] = None,
+                    materialize: bool = True,
+                    seq_len: int = 0) -> AccelerateResult:
     """Resolve `strategy`, rebuild `model` with its overrides, initialize
     it on `device` (default ``cuda``) from `seed`, and build the
     optimizer and the train step.
@@ -301,47 +451,95 @@ def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
     over {input_ids, labels}.  `accum_steps` replaces the strategy's.
     ``fused_steps=K > 1`` makes `train_step` the fused K-step driver; any
     K is also available through `AccelerateResult.fused_train_step`.
+    `devices` and `materialize` as in the module docstring; `seq_len`
+    feeds `parallel.mesh.auto_plan` when no strategy is given.
     """
-    if devices is not None and len(devices) > 1:
+    import torch.distributed as dist
+
+    num_devices = _world(devices)
+    names = {(i[0] if isinstance(i, (tuple, list)) else i)
+             for i in strategy or ()}
+    sharded = num_devices > 1 or bool(names & set(MESH_STRATEGIES))
+    if sharded and not (dist.is_available() and dist.is_initialized()):
         raise ValueError(
-            f"{len(devices)} devices: multi-device training is not ported "
-            "yet (ROADMAP queue 1 item 8a)")
-    ctx = resolve_strategy(strategy)
+            f"strategy {sorted(names & set(MESH_STRATEGIES))} shards over "
+            "a torch.distributed world: initialize the default process "
+            "group first (a world of one is fine)")
+    device = resolve_device(device)
+    num_params = None
+    if sharded and hasattr(getattr(model, "config", None), "num_params"):
+        num_params = model.config.num_params()
+    ctx = resolve_strategy(strategy, num_devices, num_params, seq_len,
+                           hbm_per_device=detect_hbm_per_device(device))
     if accum_steps:
         ctx.accum_steps = accum_steps
     overrides = ctx.model_overrides(model)
     if overrides:
         model = type(model)(dataclasses.replace(model.config, **overrides))
-    device = resolve_device(device)
-    model.init_params(seed, device)
     optimizer = optimizer or adamw(3e-4)
     sb = ctx.extra.get("stable_bf16")
     offload = bool(ctx.extra.get("optimizer_offload"))
+    mesh_state = None
+    if sharded:
+        mesh_state = _shard(model, ctx, device, seed, materialize,
+                            sb is not None)
+    elif materialize:
+        model.init_params(seed, device)
     if sb is not None:
-        if offload:
-            raise ValueError("stable_bf16 with optimizer_offload is not "
-                             "ported: offload an optimizer over float32 "
-                             "parameters, or keep the bf16 state on the "
-                             "device")
         from ..optimizers.bf16_stable import stable_bf16
 
-        # bf16 parameters, not just bf16 compute; stable_bf16 keeps the
-        # updates from vanishing below the bf16 ulp
-        with torch.no_grad():
-            for p in model.parameters():
-                if p.is_floating_point():
-                    p.data = p.data.to(torch.bfloat16)
+        if not sharded:
+            # bf16 parameters, not just bf16 compute; stable_bf16 keeps
+            # the updates from vanishing below the bf16 ulp
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.is_floating_point():
+                        p.data = p.data.to(torch.bfloat16)
         optimizer = stable_bf16(optimizer, master=sb["master"])
-    _warn_slow_offload_link(ctx, device,
-                            sum(p.numel() for p in model.parameters()))
+    num_local = sum((p.to_local() if hasattr(p, "to_local") else p).numel()
+                    for p in model.parameters())
+    if materialize:
+        _warn_slow_offload_link(ctx, device, num_local)
     loss = loss_fn or make_lm_loss()
-    state = TrainState.create(model, optimizer)
+    if mesh_state is not None:
+        from ..optimizers.leaf import over_local_shards
+
+        optimizer = over_local_shards(optimizer, force=offload)
+    state = TrainState.create(model, optimizer, mesh_state)
     if offload:
         from ..optimizers.leaf import offload_state
 
         offload_state(state.opt_state, ensure_state)
+    elif mesh_state is not None:
+        ensure_state(state.opt_state)  # the moments' placements, now
     step = make_train_step(loss, ctx.accum_steps, fused_steps)
     return AccelerateResult(train_step=step, state=state, loss_fn=loss,
                             model=model, device=device, strategy=ctx,
                             accum_steps=ctx.accum_steps,
-                            fused_steps=max(fused_steps, 1))
+                            fused_steps=max(fused_steps, 1),
+                            mesh_state=mesh_state)
+
+
+def _shard(model, ctx: StrategyContext, device, seed: int,
+           materialize: bool, bf16: bool):
+    """Build the mesh, shard `model` (still on ``meta``) over it and,
+    with `materialize`, fill each rank's pieces from the seeded init
+    (JAX :676-711); `bf16` casts the parameters first (stable_bf16)."""
+    from ..parallel.fsdp import materialize as fill, shard_model
+    from ..parallel.sharding import ShardingPlanner
+
+    mesh = build_mesh(ctx.plan, device.type)
+    planner = ShardingPlanner(mesh)
+    if bf16:
+        for p in model.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(torch.bfloat16)
+    mesh_state = shard_model(
+        model, mesh, ctx.plan, planner,
+        tensor_parallel=bool(ctx.extra.get("tensor_parallel")),
+        reshard_after_forward=ctx.extra.get("reshard_after_forward", True))
+    if materialize:
+        fill(model, seed, device)
+    logger.info("auto_accelerate: mesh=%s over %s", ctx.plan.describe(),
+                device.type)
+    return mesh_state

@@ -687,7 +687,7 @@ def ckpt_corrupt(timeout: float = 180.0, device: str = "cuda") -> Dict:
 #: CPU GPT nano at the JAX drill's 576 samples, B = 4 and 24 minibatches
 #: a shard
 MASTER_KILL = {
-    "gpt2": dict(dataset_size=2048, batch=8, minibatches=32, seq=1024),
+    "gpt2": dict(dataset_size=1024, batch=8, minibatches=32, seq=1024),
     "nano": dict(dataset_size=576, batch=4, minibatches=24, seq=128),
 }
 #: the seed of every sample's tokens and of the model's weights

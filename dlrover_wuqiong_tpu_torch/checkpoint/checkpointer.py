@@ -42,8 +42,12 @@ class FlashCheckpointer:
                  local_shard_num: int = 1,
                  standalone: Optional[bool] = None,
                  wire_dtype: Optional[str] = None,
-                 replica_fetch=None):
-        """`wire_dtype="bf16"` halves checkpoint bytes end to end (D2H
+                 replica_fetch=None,
+                 world_shard_num: Optional[int] = None):
+        """`world_shard_num`: the shards of the whole world that a commit
+        waits for (`CheckpointEngine`).
+
+        `wire_dtype="bf16"` halves checkpoint bytes end to end (D2H
         staging, disk, restore H2D) by narrowing float32 leaves to bf16
         on the device; restore upcasts back on the device.  NOT bit-exact
         for float32 state (bf16/int leaves round-trip exactly) — for
@@ -58,7 +62,7 @@ class FlashCheckpointer:
             checkpoint_dir, local_rank=local_rank, job_name=job_name,
             node_rank=node_rank, local_shard_num=local_shard_num,
             standalone=standalone, wire_dtype=wire_dtype,
-            replica_fetch=replica_fetch)
+            replica_fetch=replica_fetch, world_shard_num=world_shard_num)
         self.checkpoint_dir = checkpoint_dir
         # optional CkptReplicaManager attachment so replica-count changes
         # have somewhere to land (the agent owns the ring; standalone

@@ -82,11 +82,14 @@ from .integrity import (
     verify_rank_bytes,
     verify_segment_entries,
 )
+from ..parallel.fsdp import is_dtensor
 from .shm_handler import (
     TORCH_ONLY_DTYPES,
+    MeshPiece,
     SharedMemoryHandler,
     _np_dtype,
     flatten_state_dict,
+    mesh_piece,
 )
 
 logger = get_logger("ckpt_engine")
@@ -108,8 +111,14 @@ class CheckpointEngine:
                  storage: Optional[CheckpointStorage] = None,
                  local_shard_num: int = 1, node_rank: int = 0,
                  wire_dtype: Optional[str] = None,
-                 replica_fetch=None):
-        """`wire_dtype="bf16"`: f32 float leaves are cast to bf16 ON
+                 replica_fetch=None,
+                 world_shard_num: Optional[int] = None):
+        """`world_shard_num`: the shards of every node that a commit
+        waits for (default: this node's `local_shard_num`); a sharded
+        world whose ranks each host their own saver gives each rank its
+        ``node_rank`` and the world's size here.
+
+        `wire_dtype="bf16"`: f32 float leaves are cast to bf16 ON
         DEVICE during the snapshot — halving D2H staging, disk bytes, and
         restore H2D (restore upcasts on device).  NOT bit-exact for f32
         sources (16 mantissa bits dropped; bf16/int leaves round-trip
@@ -118,6 +127,7 @@ class CheckpointEngine:
         self.checkpoint_dir = checkpoint_dir
         self.local_rank = local_rank
         self.job_name = job_name
+        self.world_shard_num = world_shard_num or local_shard_num
         if wire_dtype not in (None, "bf16"):
             raise ValueError(f"unsupported wire_dtype {wire_dtype!r}")
         self.wire_dtype = wire_dtype
@@ -162,7 +172,8 @@ class CheckpointEngine:
             # host the async saver in-process (no separate agent)
             self._saver = AsyncCheckpointSaver.start_async_saving_ckpt(
                 job_name, local_shard_num=local_shard_num,
-                node_rank=node_rank, storage=self.storage)
+                node_rank=node_rank, storage=self.storage,
+                world_shard_num=world_shard_num)
             self._saver.register_path(checkpoint_dir)
             self._event_queue = self._saver._event_queue
         else:
@@ -243,7 +254,19 @@ class CheckpointEngine:
         thread can read them while training rolls forward.
         """
         flat = flatten_state_dict(state)
+        pieces: Dict[str, MeshPiece] = {}
+        for name, leaf in list(flat.items()):
+            if is_dtensor(leaf):
+                leaf = mesh_piece(leaf)
+            if isinstance(leaf, MeshPiece):
+                # a sharded leaf: this rank's piece, if it writes it
+                if leaf.owner:
+                    pieces[name] = leaf
+                    flat[name] = leaf.local
+                else:
+                    del flat[name]
         snap = _Snapshot(list(flat))
+        snap.pieces = pieces
         groups: Dict[torch.device, Dict[torch.dtype, List[str]]] = {}
         for name, leaf in flat.items():
             if not torch.is_tensor(leaf):
@@ -324,6 +347,8 @@ class CheckpointEngine:
                     stream.synchronize()
         snap.slabs.clear()
         snap.timing["d2h_s"] = time.monotonic() - t0
+        for n, piece in snap.pieces.items():
+            host[n] = piece.with_local(host[n])
         return OrderedDict((n, host[n]) for n in snap.order)
 
     def _wait_drain(self, timeout: Optional[float] = None):
@@ -631,8 +656,12 @@ class CheckpointEngine:
             # process's shards): restaging the ASSEMBLED global state
             # would blow local shm up to full-model size — skip the heal,
             # the next save re-stages the right shards
-            restage = not any(f.get("reason") == "partial-local-coverage"
-                              for f in report["fallbacks"])
+            # (and a rank of a sharded world, whose own pieces the next
+            # save stages: a global state staged here would be persisted
+            # over the committed generation by the saver's teardown flush)
+            restage = self.world_shard_num == 1 and not any(
+                f.get("reason") == "partial-local-coverage"
+                for f in report["fallbacks"])
             self._finish_degraded(flat, report["step"], path, report,
                                   restage=restage)
             return flat
@@ -951,6 +980,8 @@ class _Snapshot:
         self.slabs: List[Tuple] = []
         self.events: Dict[torch.device, Tuple] = {}
         self.timing: Dict[str, float] = {}
+        # name -> the layout of a sharded leaf's piece (shm_handler)
+        self.pieces: Dict[str, Any] = {}
 
     def device_ms(self) -> float:
         """Device time of the snapshot's copies (CUDA events); waits for
@@ -1033,11 +1064,21 @@ def copy_into(template: Any, flat: Dict[str, Any]):
     for name, leaf in flatten_state_dict(template).items():
         if name not in flat:
             raise KeyError(f"checkpoint missing tensor {name!r}")
+        if is_dtensor(leaf):
+            leaf = mesh_piece(leaf)
+        value = flat[name]
+        if isinstance(leaf, MeshPiece):
+            # a sharded leaf keeps this rank's slice of the global array
+            if tuple(value.shape) != tuple(leaf.global_shape):
+                raise ValueError(f"{name}: checkpoint shape "
+                                 f"{tuple(value.shape)} != "
+                                 f"{tuple(leaf.global_shape)}")
+            value = value[tuple(slice(a, b) for a, b in leaf.index)]
+            leaf = leaf.local
         if not torch.is_tensor(leaf):
             raise TypeError(f"template leaf {name!r} is a "
                             f"{type(leaf).__name__}: restore writes into "
                             f"tensors in place")
-        value = flat[name]
         if not torch.is_tensor(value):
             value = np.asarray(value)
         stored = _torch_dtype(value)

@@ -24,10 +24,15 @@ Where the JAX module walks ``jax.Array`` shards, this one takes
   ``tree_flatten_with_path`` gives (``/``-joined keys, indices and field
   names; a ``dict``'s keys sorted, as JAX sorts them; ``None`` is an
   empty subtree).
-- `_leaf_refs` takes a tensor whole.  Writing ``#shardN`` leaves from a
-  sharded tensor waits for DTensor (ROADMAP queue 1 item 8); reading them
-  stays (the engine assembles them), so a checkpoint JAX wrote from a
-  sharded mesh loads.
+- `_leaf_refs` takes a tensor whole.  A rank's piece of a sharded
+  tensor (a `MeshPiece`, which a sharded `TrainState.tree` hands over, or
+  a DTensor) is one ``name#shardN`` leaf with its global shape and
+  ``[start, stop)`` index per dim, as JAX writes a ``jax.Array``'s
+  distinct shards (JAX :99-114); a piece that covers the whole tensor
+  keeps the plain name, and a piece replicated over other ranks is
+  written only by the rank at coordinate 0 of those mesh dims.  The
+  engine assembles ``#shardN`` leaves, so a checkpoint from any mesh
+  loads in any world.
 - Dtype names stay JAX's (``float32``, ``bfloat16``, ``float8_e4m3fn``,
   ``int32``, ...).  numpy has no bfloat16 or float8 without ``ml_dtypes``,
   which the port does not use: such bytes move as same-width unsigned
@@ -120,11 +125,57 @@ class TensorMeta:
         return cls(**d)
 
 
+class MeshPiece:
+    """A rank's piece of a sharded leaf: its `local` tensor, the global
+    shape, the ``[start, stop)`` index per dim, its number among the
+    leaf's distinct pieces, and whether this rank writes it (`owner`)."""
+
+    def __init__(self, local, global_shape, index, number: int = 0,
+                 owner: bool = True):
+        self.local = local
+        self.global_shape = [int(s) for s in global_shape]
+        self.index = [[int(a), int(b)] for a, b in index]
+        self.number = number
+        self.owner = owner
+
+    @property
+    def whole(self) -> bool:
+        return self.index == [[0, s] for s in self.global_shape]
+
+    def with_local(self, local) -> "MeshPiece":
+        """The same piece over another copy of its values."""
+        return MeshPiece(local, self.global_shape, self.index,
+                         self.number, self.owner)
+
+
+def mesh_piece(value) -> MeshPiece:
+    """A DTensor's local piece as a `MeshPiece` (its layout from its own
+    mesh: `parallel.sharding.dtensor_layout`)."""
+    from ..parallel.sharding import dtensor_layout
+
+    index, number, owner = dtensor_layout(value)
+    return MeshPiece(value.to_local(), value.shape, index, number, owner)
+
+
 def _leaf_refs(name: str, value: Any) -> List[Tuple[str, Any, List[int],
                                                     List[List[int]]]]:
     """One leaf -> [(name, ref, global_shape, index)]: a tensor stays
-    where it is (no transfer here) and is staged whole; anything else
-    becomes a numpy array."""
+    where it is (no transfer here) and is staged whole; a rank's piece
+    of a sharded leaf (`MeshPiece`, DTensor) is ``name#shardN``, or
+    nothing where another rank writes it; anything else becomes a numpy
+    array."""
+    from ..parallel.fsdp import is_dtensor
+
+    if is_dtensor(value):
+        value = mesh_piece(value)
+    if isinstance(value, MeshPiece):
+        if not value.owner:
+            return []
+        ref = value.local
+        ref = ref.detach() if torch.is_tensor(ref) else np.asarray(ref)
+        ename = name if value.whole else f"{name}#shard{value.number}"
+        return [(ename, ref, list(value.global_shape),
+                 [list(i) for i in value.index])]
     if torch.is_tensor(value):
         ref = value.detach()
     else:

@@ -1,7 +1,9 @@
 """Attention dispatch for model modules (GPT, and Llama after its GQA
 repeat): the flash route.
 
-Parity: dlrover_wuqiong_tpu/models/attention.py — `attend` (:20).  The
+Parity: dlrover_wuqiong_tpu/models/attention.py — `attend` (:20).
+Under tensor parallel the models hand `attend` each rank's heads
+(`local_heads`).  The
 model config's ``attn_impl`` picks the implementation; only "flash" (the
 one-device route) is ported.  "ring" and "ulysses" with a mesh raise:
 context-parallel attention comes with `parallel/long_context.py`, ROADMAP
@@ -22,6 +24,27 @@ from __future__ import annotations
 import torch
 
 from ..ops.flash_attention import mha
+
+
+def local_heads(*xs):
+    """(each of `xs` (b, T, h, d) with this rank's heads, ``to_global``).
+
+    Under tensor parallel q, k and v are DTensors over ``tp``: the flash
+    kernels and their plain versions have no DTensor rule, so each is laid
+    out head-sharded (``Shard(2)``) and its local heads go to the kernel;
+    ``to_global`` wraps the local output back as the head-sharded DTensor.
+    Plain tensors pass through, and ``to_global`` is the identity."""
+    from ..parallel.fsdp import is_dtensor
+
+    if not is_dtensor(xs[0]):
+        return (*xs, lambda y: y)
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = xs[0].device_mesh
+    heads = [Shard(2)] * mesh.ndim
+    local = [x.redistribute(mesh, heads).to_local() for x in xs]
+    return (*local, lambda y: DTensor.from_local(y, mesh, heads,
+                                                  run_check=False))
 
 
 def attend(q, k, v, cfg, causal: bool = True):

@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
+from .attention import local_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,35 +163,49 @@ def _embed(num: int, features: int, gen, device) -> Dict[str, torch.Tensor]:
     return {"embedding": emb.mul_(math.sqrt(1.0 / features))}
 
 
+def _leaves(prefix: str, tree: Dict):
+    """(dotted name, tensor) of a nested dict's leaves, in its order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(f"{prefix}{k}.", v)
+        else:
+            yield prefix + k, v
+
+
 @torch.no_grad()
+def init_leaves(cfg: GPTConfig, seed: int = 0, device=None):
+    """`init_params`'s leaves one module at a time, as (dotted name,
+    tensor) in the order the generator draws them: a sharded build keeps
+    each rank's piece of a leaf and frees the rest before the next."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    C = cfg.n_embd
+    yield from _leaves("wte.", _embed(cfg.vocab_size, C, gen, device))
+    yield from _leaves("wpe.", _embed(cfg.block_size, C, gen, device))
+    for i in range(cfg.n_layer):
+        h = f"h_{i}."
+        yield from _leaves(h + "ln_1.", _layer_norm(C, device))
+        yield from _leaves(h + "attn.c_attn.", _dense(C, 3 * C, gen, device))
+        yield from _leaves(h + "attn.c_proj.", _dense(C, C, gen, device))
+        yield from _leaves(h + "ln_2.", _layer_norm(C, device))
+        if cfg.moe_experts:
+            yield from _leaves(h + "moe_mlp.", _moe(cfg, gen, device))
+        else:
+            yield from _leaves(h + "mlp.c_fc.", _dense(C, 4 * C, gen, device))
+            yield from _leaves(h + "mlp.c_proj.",
+                               _dense(4 * C, C, gen, device))
+    yield from _leaves("ln_f.", _layer_norm(C, device))
+
+
 def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> Dict:
     """Seeded float32 parameters in the flax tree layout, made on `device`
     (default ``cuda``) with flax's initializers: lecun-normal Dense kernels,
     zero biases, LayerNorm scale 1 and bias 0, flax Embed's normal, and
     with ``moe_experts`` the MoE leaves at flax's paths (`_moe`)."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    C = cfg.n_embd
-    params: Dict = {
-        "wte": _embed(cfg.vocab_size, C, gen, device),
-        "wpe": _embed(cfg.block_size, C, gen, device),
-    }
-    for i in range(cfg.n_layer):
-        params[f"h_{i}"] = {
-            "ln_1": _layer_norm(C, device),
-            "attn": {"c_attn": _dense(C, 3 * C, gen, device),
-                     "c_proj": _dense(C, C, gen, device)},
-            "ln_2": _layer_norm(C, device),
-        }
-        if cfg.moe_experts:
-            params[f"h_{i}"]["moe_mlp"] = _moe(cfg, gen, device)
-        else:
-            params[f"h_{i}"]["mlp"] = {
-                "c_fc": _dense(C, 4 * C, gen, device),
-                "c_proj": _dense(4 * C, C, gen, device)}
-    params["ln_f"] = _layer_norm(C, device)
-    return params
+    from ..trainer.train_step import nest
+
+    return nest(dict(init_leaves(cfg, seed, device)))
 
 
 # ------------------------------------------------------------ modules
@@ -207,7 +222,37 @@ class Embed(nn.Module):
                                                   device=device))
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        from ..parallel.fsdp import is_dtensor
+
+        if is_dtensor(self.embedding) and not is_dtensor(idx):
+            return _vocab_parallel_embed(idx, self.embedding).to(self.dtype)
         return F.embedding(idx, self.embedding).to(self.dtype)
+
+
+def _vocab_parallel_embed(idx: torch.Tensor, table) -> torch.Tensor:
+    """The rows of a tensor-parallel `table` (a DTensor over ``tp``,
+    the vocab sharded or not) for ids that every tp rank holds, as a
+    replicated DTensor.  DTensor's own embedding rule keeps a masked
+    partial sum whose mask a later cast or a remat loses, so the lookup
+    is by hand: each rank takes the rows its vocab piece holds, zeroes
+    the others, and the partial rows are summed over ``tp`` (one rank
+    contributes each row, so the sum is exact)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from ..parallel.sharding import _chunk
+
+    mesh = table.device_mesh
+    local = table.to_local()
+    if not table.placements[0].is_shard():
+        return DTensor.from_local(F.embedding(idx, local), mesh,
+                                  [Replicate()], run_check=False)
+    lo, hi = _chunk(0, table.shape[0], mesh.size(0), mesh.get_local_rank(0))
+    inside = (idx >= lo) & (idx < hi)
+    rows = F.embedding(torch.where(inside, idx - lo, 0), local)
+    rows = rows * inside[..., None].to(rows.dtype)
+    return DTensor.from_local(rows, mesh, [Partial()],
+                              run_check=False).redistribute(
+                                  mesh, [Replicate()])
 
 
 class LayerNorm(nn.Module):
@@ -241,10 +286,15 @@ class CausalSelfAttention(nn.Module):
         cfg = self.cfg
         B, T, C = x.shape
         H, D = cfg.n_head, cfg.head_dim
+        # under tensor parallel c_attn's output is sharded over its 3C
+        # columns, so a tp piece crosses the q/k/v boundary: the split is
+        # global (DTensor gathers), and only then are the heads taken
+        # local (the columns keep JAX's layout in the checkpoint)
         q, k, v = self.c_attn(x).split(C, dim=-1)
-        q = q.reshape(B, T, H, D)
-        k = k.reshape(B, T, H, D)
-        v = v.reshape(B, T, H, D)
+        q, k, v, to_global = local_heads(q.reshape(B, T, H, D),
+                                         k.reshape(B, T, H, D),
+                                         v.reshape(B, T, H, D))
+        H = q.shape[2]
         if cfg.use_flash_attention:
             from .attention import attend
 
@@ -258,6 +308,7 @@ class CausalSelfAttention(nn.Module):
             att = att.masked_fill(~mask, torch.finfo(att.dtype).min)
             att = torch.softmax(att.float(), dim=-1).to(q.dtype)
             y = torch.einsum("bhqk,bkhd->bqhd", att, v)
+        y = to_global(y)
         return dropout(self.c_proj(y.reshape(B, T, C)), cfg.dropout, gen)
 
 
@@ -355,6 +406,15 @@ class GPT(nn.Module):
         return load_params(self, init_params(self.config, seed, device),
                            device)
 
+    def init_leaves(self, seed: int = 0, device=None):
+        """`init_leaves` of this model's config."""
+        return init_leaves(self.config, seed, device)
+
+    def fsdp_units(self):
+        """The modules that FSDP2 shards and gathers one at a time below
+        the root (`parallel.fsdp.shard_model`): the blocks."""
+        return [getattr(self, f"h_{i}") for i in range(self.config.n_layer)]
+
     def forward(self, idx: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """With ``dropout > 0`` and ``deterministic=False`` the masks come
@@ -446,4 +506,14 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        ignore_index: int = -1) -> torch.Tensor:
     """Token cross-entropy (scalar float32) of (B, T, V) logits against
     (B, T) targets; targets equal to `ignore_index` do not count."""
+    from ..parallel.fsdp import is_dtensor
+
+    if is_dtensor(logits):
+        # tensor parallel: the chunked autograd.Function has no DTensor
+        # rule, so the vocab-sharded logits are gathered on every tp rank
+        # (their backward takes each rank's columns of the gradient)
+        from torch.distributed.tensor import Replicate
+
+        logits = logits.redistribute(
+            placements=[Replicate()] * logits.device_mesh.ndim).to_local()
     return _CrossEntropy.apply(logits, targets, ignore_index)

@@ -46,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
-from .gpt import Embed, _dense, _embed
+from .attention import local_heads
+from .gpt import Embed, _dense, _embed, _leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,32 +102,44 @@ class LlamaConfig:
 
 
 @torch.no_grad()
-def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> Dict:
-    """Seeded float32 parameters in the flax tree layout, made on `device`
-    (default ``cuda``) with flax's initializers: lecun-normal Dense kernels
-    and no biases, RMSNorm scale 1, flax Embed's normal."""
+def init_leaves(cfg: LlamaConfig, seed: int = 0, device=None):
+    """`init_params`'s leaves one module at a time, as (dotted name,
+    tensor) in the order the generator draws them (`models.gpt
+    .init_leaves`)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     h, i, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
     kv = cfg.num_kv_heads * hd
     dense = functools.partial(_dense, gen=gen, device=device, use_bias=False)
-    ones = lambda: {"scale": torch.ones(h, device=device)}
-    params: Dict = {"embed_tokens": _embed(cfg.vocab_size, h, gen, device)}
+    ones = lambda: {"scale": torch.ones(h, device=device)}  # noqa: E731
+    yield from _leaves("embed_tokens.", _embed(cfg.vocab_size, h, gen,
+                                                device))
     for n in range(cfg.num_layers):
-        params[f"layers_{n}"] = {
-            "input_norm": ones(),
-            "attention": {"q_proj": dense(h, cfg.num_heads * hd),
-                          "k_proj": dense(h, kv), "v_proj": dense(h, kv),
-                          "o_proj": dense(cfg.num_heads * hd, h)},
-            "post_attn_norm": ones(),
-            "feed_forward": {"gate_proj": dense(h, i),
-                             "up_proj": dense(h, i),
-                             "down_proj": dense(i, h)},
-        }
-    params["norm"] = ones()
-    params["lm_head"] = dense(h, cfg.vocab_size)
-    return params
+        lay = f"layers_{n}."
+        yield from _leaves(lay + "input_norm.", ones())
+        for name, fan_in, fan_out in (("q_proj", h, cfg.num_heads * hd),
+                                      ("k_proj", h, kv), ("v_proj", h, kv),
+                                      ("o_proj", cfg.num_heads * hd, h)):
+            yield from _leaves(f"{lay}attention.{name}.",
+                               dense(fan_in, fan_out))
+        yield from _leaves(lay + "post_attn_norm.", ones())
+        for name, fan_in, fan_out in (("gate_proj", h, i),
+                                      ("up_proj", h, i),
+                                      ("down_proj", i, h)):
+            yield from _leaves(f"{lay}feed_forward.{name}.",
+                               dense(fan_in, fan_out))
+    yield from _leaves("norm.", ones())
+    yield from _leaves("lm_head.", dense(h, cfg.vocab_size))
+
+
+def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> Dict:
+    """Seeded float32 parameters in the flax tree layout, made on `device`
+    (default ``cuda``) with flax's initializers: lecun-normal Dense kernels
+    and no biases, RMSNorm scale 1, flax Embed's normal."""
+    from ..trainer.train_step import nest
+
+    return nest(dict(init_leaves(cfg, seed, device)))
 
 
 # ------------------------------------------------------------ functions
@@ -199,9 +212,14 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         B, T, _ = x.shape
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = apply_rope(self.q_proj(x).reshape(B, T, H, hd), cos, sin)
-        k = apply_rope(self.k_proj(x).reshape(B, T, KV, hd), cos, sin)
-        v = self.v_proj(x).reshape(B, T, KV, hd)
+        # under tensor parallel each rank takes its q and kv heads before
+        # RoPE and the GQA repeat: a rank's q heads read its kv heads
+        q, k, v, to_global = local_heads(
+            self.q_proj(x).reshape(B, T, H, hd),
+            self.k_proj(x).reshape(B, T, KV, hd),
+            self.v_proj(x).reshape(B, T, KV, hd))
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
         rep = H // KV
         if rep > 1:  # GQA: each kv head serves `rep` consecutive q heads
             k = k.repeat_interleave(rep, dim=2)
@@ -221,7 +239,7 @@ class LlamaAttention(nn.Module):
             att = att.masked_fill(~mask, -math.inf)
             att = torch.softmax(att, dim=-1).to(cfg.dtype)
             y = torch.einsum("bhqk,bkhd->bqhd", att, v)
-        return self.o_proj(y.reshape(B, T, H * hd))
+        return self.o_proj(to_global(y).reshape(B, T, H * hd))
 
 
 class LlamaMLP(nn.Module):
@@ -287,6 +305,16 @@ class Llama(nn.Module):
 
         return load_params(self, init_params(self.config, seed, device),
                            device)
+
+    def init_leaves(self, seed: int = 0, device=None):
+        """`init_leaves` of this model's config."""
+        return init_leaves(self.config, seed, device)
+
+    def fsdp_units(self):
+        """The modules that FSDP2 shards and gathers one at a time below
+        the root (`parallel.fsdp.shard_model`): the blocks."""
+        return [getattr(self, f"layers_{i}")
+                for i in range(self.config.num_layers)]
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
         cfg = self.config

@@ -21,6 +21,13 @@ float32 zero with the parameter's shape), and during the step holds the
 precise view of one parameter at a time, so the float32 transients stay
 those of one leaf (`optimizers.leaf`).  The inner state is keyed by the
 stand-ins.
+
+With ``optimizer_offload`` the whole state lives in pinned host memory
+between steps, as JAX puts the whole ``opt_state`` on ``pinned_host``
+(dlrover_wuqiong_tpu/auto/accelerate.py:684-711): the inner moments and
+the compensation or masters hop to the device one leaf at a time around
+that leaf's update (`StableBF16.offload_own_state`), the arithmetic
+unchanged.
 """
 
 from __future__ import annotations
@@ -46,6 +53,9 @@ def _is_float(p: torch.Tensor) -> bool:
 class StableBF16:
     """``stable_bf16(inner, master)`` around the parameters `params`;
     `inner` is the inner optimizer's factory ``params -> Optimizer``."""
+
+    steps_own_offload = True
+    offload_hops = None
 
     def __init__(self, params, inner: Callable, master: bool = False):
         self.params: List[torch.Tensor] = list(params)
@@ -74,12 +84,48 @@ class StableBF16:
         return torch.zeros((), dtype=torch.float32,
                            device=p.device).expand(p.shape)
 
+    @property
+    def norm_fn(self):
+        return getattr(self.inner, "norm_fn", None)
+
+    @norm_fn.setter
+    def norm_fn(self, fn) -> None:
+        """The inner clip's norm (a mesh's global norm), if it clips."""
+        if hasattr(self.inner, "norm_fn"):
+            self.inner.norm_fn = fn
+
     def zero_grad(self, set_to_none: bool = True) -> None:
         for p in self.params:
             if set_to_none:
                 p.grad = None
             elif p.grad is not None:
                 p.grad.zero_()
+
+    @torch.no_grad()
+    def offload_own_state(self, init_state: Callable[[Any], None]):
+        """The whole state to pinned host memory (``optimizer_offload``):
+        the inner optimizer's per-leaf state and each compensation or
+        master.  Returns the hops the steps take."""
+        from .leaf import StateHops
+
+        init_state(self.inner)
+        pin = any(p.device.type == "cuda" for p in self.params)
+
+        def host(t):
+            h = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                            pin_memory=pin)
+            return h.copy_(t)
+
+        for view in self.views:
+            state = self._stepper.state[view]
+            for k, v in self._stepper.state_leaves(view).items():
+                state[k] = host(v)
+        for i, c in enumerate(self.comp):
+            self.comp[i] = host(c)
+            if self.master:
+                self.views[i].data = self.comp[i]
+        self.offload_hops = StateHops()
+        return self.offload_hops
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -89,12 +135,21 @@ class StableBF16:
                 loss = closure()
         st = self._stepper
         own = isinstance(self.inner, LeafOptimizer)
+        hops = self.offload_hops
         grads = [p.grad for p in self.params if p.grad is not None]
         ctx = st.begin_step(grads)
         group_of = {id(v): g for g in st.param_groups for v in g["params"]}
-        for p, e, view in zip(self.params, self.comp, self.views):
+        for p, e_home, view in zip(self.params, self.comp, self.views):
             if p.grad is None or not _is_float(p):
                 continue
+            e = e_home
+            if hops is not None:
+                # this leaf's compensation (or master) and inner state on
+                # the parameter's device for its update
+                e = e_home.to(p.device, non_blocking=True)
+                if self.master:
+                    view.data = e
+                hops.enter(st, view, p.device)
             if not self.master:
                 view.data = p.float().add_(e.float())
             if own:
@@ -105,6 +160,8 @@ class StableBF16:
                 view.grad = p.grad.float()
                 st.update_leaf(view, group_of[id(view)], ctx)
                 view.grad = None
+            if hops is not None:
+                hops.leave(st, view)
             v = view.data
             if self.master:
                 p.copy_(v)
@@ -112,7 +169,11 @@ class StableBF16:
                 p.copy_(v)
                 e.copy_(v.sub_(p.float()))
                 view.data = self._hollow(p)
-            del v
+            if e is not e_home:
+                e_home.copy_(e, non_blocking=True)
+                if self.master:
+                    view.data = e_home
+            del v, e
         st.end_step(ctx)
         return loss
 

@@ -22,6 +22,10 @@ the generators that the loss draws from (`generators`; by default
 torch's default generator of each parameter's device) before the first
 pass and restores it before the second.  The loss returned is the first
 pass's.
+
+The step takes a one-device state: on a mesh (a state from a sharded
+``auto_accelerate``) the perturbation's norm and the loss would be the
+rank's own, so it raises there.
 """
 
 from __future__ import annotations
@@ -126,6 +130,10 @@ def make_wsam_train_step(loss_fn: Callable, learning_rate: float,
     alpha = gamma / (1.0 - gamma)
 
     def step(state, batch):
+        if state.mesh_state is not None:
+            raise NotImplementedError(
+                "WSAM over a mesh is not ported: its perturbation norm and "
+                "loss would be each rank's own")
         model, opt = state.params, state.opt_state
         params = list(model.parameters())
         loss, grads, sharp = wsam_gradients(

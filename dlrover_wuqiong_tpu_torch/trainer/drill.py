@@ -198,10 +198,10 @@ def worker_main(argv=None) -> int:
 # ------------------------------------------------------------------ drill
 
 
-def kill_steps(lo: int, hi: int) -> List[int]:
-    """`KILLS` distinct kill steps in [lo, hi] drawn from `SEED`,
+def kill_steps(lo: int, hi: int, kills: int = KILLS) -> List[int]:
+    """`kills` distinct kill steps in [lo, hi] drawn from `SEED`,
     ascending."""
-    return sorted(random.Random(SEED).sample(range(lo, hi + 1), KILLS))
+    return sorted(random.Random(SEED).sample(range(lo, hi + 1), kills))
 
 
 def _read_jsonl(path: str) -> List[Dict]:
@@ -270,18 +270,19 @@ def _split(kill_t: float, spans: List[Dict], done: Dict) -> Dict:
 def elastic_drill(model: str = "gpt2", device: str = "cuda",
                   batch: int = 24, seq: int = 1024, max_steps: int = 60,
                   warmup: int = 10, save_steps: int = 20,
-                  kill_range=(10, 50), timeout_s: float = 900.0) -> Dict:
+                  kill_range=(10, 50), timeout_s: float = 900.0,
+                  kills: int = KILLS) -> Dict:
     """Run the drill under ``run --standalone --max_restarts=3`` in a
     workspace of its own (checkpoint, socket and marker directories, job
     name), removed with the shm segment whether it passes or fails.
-    `KILLS` SIGKILLs land at seeded steps in `kill_range`.  Each
+    `kills` SIGKILLs land at seeded steps in `kill_range`.  Each
     generation has `timeout_s` to reach its marker."""
     from dlrover_wuqiong_tpu_torch.checkpoint.shm_handler import (
         SharedMemoryHandler,
     )
     from dlrover_wuqiong_tpu_torch.common.constants import CheckpointConstant
 
-    steps = kill_steps(*kill_range)
+    steps = kill_steps(*kill_range, kills)
     if steps and not 1 < steps[0] and steps[-1] < max_steps:
         raise ValueError(f"kill steps {steps} must lie in (1, {max_steps})")
     job = f"dwt-el-{os.getpid()}"

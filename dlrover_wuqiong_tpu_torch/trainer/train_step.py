@@ -36,6 +36,14 @@ PyTorch holds state in place, so the pieces map as follows:
   its state offloaded to the host (``optimizer_offload``), the
   leaf-wise step of optimizers/leaf.py that moves each parameter's
   state to the device and back (JAX :115-120).
+- On a mesh (`parallel.fsdp.MeshState` in ``TrainState.mesh_state``)
+  the parameters are FSDP2/DTensor pieces, the batch is the rank's
+  slice of the global batch, and the step's ``loss`` and ``grad_norm``
+  are the global values: the loss averaged over the data ranks (the
+  global batch's mean for equal slices; FSDP2 averages the gradients so
+  too), and the norm over every distinct piece once.  `TrainState.tree`
+  gives the checkpoint DTensors over the whole mesh, and `load_tree`
+  keeps each rank's slice of global arrays.
 - ``fused_steps=K > 1`` runs the same step K times in a Python loop over
   batches stacked on a leading axis of size K; the per-step losses and
   grad norms stay on the device, so a fusion needs one host readback.
@@ -52,7 +60,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..optimizers.leaf import LeafOptimizer, StateHops, step_leaves
+from ..optimizers.leaf import StateHops, step_leaves
 
 OptimizerFactory = Callable[[Any], torch.optim.Optimizer]
 
@@ -80,6 +88,9 @@ class ClipAdamW(torch.optim.AdamW):
     so a restored optimizer resumes the schedule where it stopped."""
 
     MAX_NORM = 1.0
+    #: the norm of the gradients (a mesh's `MeshState.global_norm` on a
+    #: sharded state)
+    norm_fn: Callable = None
 
     def __init__(self, params, schedule: Callable[[int], float],
                  weight_decay: float):
@@ -94,11 +105,12 @@ class ClipAdamW(torch.optim.AdamW):
         every group."""
         if grads:
             # optax: select(norm < max, g, g / norm * max)
-            norm = global_norm(grads)
+            norm = (self.norm_fn or global_norm)(grads)
             keep = norm < self.MAX_NORM
-            torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
-            torch._foreach_mul_(grads, torch.where(keep, 1.0,
-                                                   self.MAX_NORM))
+            for part in by_kind(grads):
+                torch._foreach_div_(part, torch.where(keep, 1.0, norm))
+                torch._foreach_mul_(part, torch.where(keep, 1.0,
+                                                      self.MAX_NORM))
         lr = float(self.schedule(int(self.schedule_count)))
         for group in self.param_groups:
             group["lr"] = lr
@@ -140,14 +152,19 @@ class TrainState:
     step: torch.Tensor            # int64 scalar on the device
     params: torch.nn.Module
     opt_state: torch.optim.Optimizer
+    # the mesh of a sharded state (parallel.fsdp.MeshState), or None
+    mesh_state: Any = None
 
     @classmethod
-    def create(cls, params: torch.nn.Module,
-               optimizer: OptimizerFactory) -> "TrainState":
-        device = next(params.parameters()).device
+    def create(cls, params: torch.nn.Module, optimizer: OptimizerFactory,
+               mesh_state: Any = None) -> "TrainState":
+        p = next(params.parameters())
+        device = p.to_local().device if hasattr(p, "to_local") else p.device
+        opt = optimizer(list(params.parameters()))
+        if mesh_state is not None and hasattr(opt, "norm_fn"):
+            opt.norm_fn = mesh_state.global_norm
         return cls(step=torch.zeros((), dtype=torch.int64, device=device),
-                   params=params,
-                   opt_state=optimizer(list(params.parameters())))
+                   params=params, opt_state=opt, mesh_state=mesh_state)
 
     # ---------------------------------------------------- checkpoint tree
 
@@ -173,9 +190,19 @@ class TrainState:
             StateHops.sync(opt)
         names = {id(p): n for n, p in self.params.named_parameters()}
         node, after_load = optimizer_tree(opt, names)
-        return StateTree(self, after_load, step=self.step,
+        tree = StateTree(self, after_load, step=self.step,
                          params=nest(dict(self.params.named_parameters())),
                          opt_state=node)
+        if self.mesh_state is not None:
+            # every leaf as this rank's piece of the global leaf: the
+            # checkpoint writes each distinct piece once, as JAX's
+            # name#shardN
+            names = {n.replace(".", "/"): p
+                     for n, p in self.params.named_parameters()}
+            tree = StateTree(self, after_load, **_map_leaves(
+                lambda path, t: self.mesh_state.piece(path, t, names),
+                OrderedDict(tree)))
+        return tree
 
     @torch.no_grad()
     def load_tree(self, flat: Dict[str, Any]) -> "TrainState":
@@ -192,6 +219,27 @@ class TrainState:
         if tree.after_load is not None:
             tree.after_load()
         return self
+
+
+def _map_leaves(fn: Callable, node: Any, path: str = "") -> Any:
+    """`node` with ``fn(path, leaf)`` applied to every tensor leaf, its
+    path "/"-joined as the checkpoint names it (dicts, NamedTuples,
+    lists and tuples rebuilt around them)."""
+    def sub(k):
+        return f"{path}/{k}" if path else str(k)
+
+    if torch.is_tensor(node):
+        return fn(path, node)
+    if isinstance(node, dict):
+        return type(node)((k, _map_leaves(fn, v, sub(k)))
+                          for k, v in node.items())
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_map_leaves(fn, getattr(node, f), sub(f))
+                            for f in node._fields))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map_leaves(fn, v, sub(i))
+                          for i, v in enumerate(node))
+    return node
 
 
 def nest(leaves: Dict[str, Any]) -> Dict[str, Any]:
@@ -223,19 +271,24 @@ def adam_states(opt: torch.optim.Optimizer) -> Dict[int, Dict]:
                 st["step"] = torch.zeros(
                     (), dtype=torch.float32,
                     device=p.device if on_device else "cpu")
-                st["exp_avg"] = torch.zeros(p.shape, dtype=p.dtype,
-                                            device=p.device)
-                st["exp_avg_sq"] = torch.zeros(p.shape, dtype=p.dtype,
-                                               device=p.device)
+                # zeros_like: a DTensor parameter's moments are DTensors
+                # of its placements
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
             out[id(p)] = st
     return out
 
 
 def ensure_state(opt) -> None:
     """Create the optimizer state torch makes lazily (Adam, AdamW); the
-    port's own optimizers make theirs when built."""
+    port's own optimizers make theirs when built.  A wrapper's (`inner`)
+    is its inner optimizer's."""
     if isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
         adam_states(opt)
+    elif getattr(opt, "inner", None) is not None:
+        ensure_state(opt.inner)
 
 
 def optimizer_tree(opt, names: Dict[int, str]) -> Tuple[Any, Optional[
@@ -289,10 +342,20 @@ def optimizer_step(opt) -> None:
     """`opt`'s step; with its state offloaded (`optimizers.leaf
     .offload_state`), leaf by leaf through the host hops."""
     hops = getattr(opt, "offload_hops", None)
-    if hops is None or isinstance(opt, LeafOptimizer):
+    if hops is None or getattr(opt, "steps_own_offload", False):
         opt.step()
     else:
         step_leaves(opt, hops)
+
+
+def by_kind(tensors) -> list:
+    """`tensors` split into its DTensors and its plain tensors (empty
+    lists dropped): a foreach kernel takes no mix of the two."""
+    from ..parallel.fsdp import is_dtensor
+
+    parts = [[t for t in tensors if is_dtensor(t)],
+             [t for t in tensors if not is_dtensor(t)]]
+    return [p for p in parts if p]
 
 
 def accumulate_grads(grad_fn: Callable[[Any], torch.Tensor],
@@ -310,7 +373,8 @@ def accumulate_grads(grad_fn: Callable[[Any], torch.Tensor],
         loss = grad_fn({k: v[i] for k, v in batch.items()}).detach().float()
         loss_sum = loss if loss_sum is None else loss_sum + loss
     grads = [p.grad for p in params.parameters() if p.grad is not None]
-    torch._foreach_div_(grads, float(accum_steps))
+    for part in by_kind(grads):
+        torch._foreach_div_(part, float(accum_steps))
     return loss_sum / accum_steps
 
 
@@ -343,6 +407,7 @@ def make_train_step(loss_fn: Callable[[torch.nn.Module, Dict], torch.Tensor],
     def train_step(state: TrainState, batch: Dict):
         model = state.params
         opt = state.opt_state
+        mesh = state.mesh_state
         opt.zero_grad(set_to_none=True)
         if accum_steps == 1:
             loss = loss_fn(model, batch)
@@ -356,7 +421,14 @@ def make_train_step(loss_fn: Callable[[torch.nn.Module, Dict], torch.Tensor],
 
             loss = accumulate_grads(grad_fn, model, batch, accum_steps)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
-        gnorm = global_norm(grads)
+        if mesh is not None:
+            mesh.reduce_replicated()
+            grads = [p.grad for p in model.parameters()
+                     if p.grad is not None]
+            gnorm = mesh.global_norm(grads)
+            loss = mesh.mean(loss)
+        else:
+            gnorm = global_norm(grads)
         optimizer_step(opt)
         state.step += 1
         return state, {"loss": loss, "grad_norm": gnorm}

@@ -336,10 +336,13 @@ class Trainer:
 
         from ..auto.accelerate import auto_accelerate
 
+        # the rank's own device: the Trainer over a mesh comes with the
+        # hot swap (ROADMAP queue 1 item 7b part 3), so a worker of a
+        # multi-node world trains its own state, as before
         self.res = auto_accelerate(
             model, optimizer=self.optimizer, strategy=args.strategy,
             loss_fn=loss_fn, accum_steps=args.grad_accum_steps,
-            device=device, seed=args.seed)
+            device=device, seed=args.seed, devices=[device])
         self.state = self.res.state
 
         from ..checkpoint.checkpointer import FlashCheckpointer

@@ -4,8 +4,11 @@
   ``StrategyContext.model_overrides`` gives for the same list and the
   same model family (dtypes mapped jnp -> torch), the same accumulation
   steps, and a rebuilt model that carries them.
-- Every JAX strategy name the port does not take yet (the mesh ones)
-  raises naming its ROADMAP item; the optimizer strategies resolve as
+- Every JAX strategy name the port does not take yet raises naming its
+  ROADMAP item (expert_parallel 8a part 2, sequence_parallel 8b,
+  pipeline_parallel, local_sgd and hsdp 8c); the mesh strategies of 8a
+  part 1 size the plan as JAX's do, and without a process group
+  auto_accelerate asks for one; the optimizer strategies resolve as
   JAX's do and build bf16 parameters or an offloaded state; an unknown
   name raises JAX's message word for word; a bad remat policy raises
   when the strategy is resolved.
@@ -96,11 +99,18 @@ def test_auto_accelerate_rebuilds_the_model_with_the_overrides():
     assert res.accum_steps == 3
 
 
-NOT_PORTED = {"fsdp": "8a", "zero2": "8a", "zero3": "8a",
-              "data_parallel": "8a", "ddp": "8a", "tensor_parallel": "8a",
-              "expert_parallel": "8a", "multi_slice": "8a",
+NOT_PORTED = {"expert_parallel": "8a part 2",
               "sequence_parallel": "8b", "pipeline_parallel": "8c",
               "local_sgd": "8c", "hsdp": "8c"}
+#: the mesh strategies of item 8a part 1 (a world of 8)
+MESH = {"fsdp": [("fsdp", {})], "zero2": [("zero2", {"size": 16})],
+        "zero3": [("zero3", {})], "data_parallel": [("data_parallel", {})],
+        "ddp": [("ddp", {"size": 8})],
+        "tp_only": [("tensor_parallel", {"size": 2})],
+        "tensor_parallel": [("tensor_parallel", {"size": 2}), ("fsdp", {})],
+        "tp_dp": [("tensor_parallel", {"size": 2}), ("data_parallel", {})],
+        "multi_slice": [("multi_slice", {"slices": 2, "tp": 2})],
+        "multi_slice_4": [("multi_slice", {"slices": 4})]}
 #: the optimizer strategies (ROADMAP item 9) and the context each sets
 OPTIMIZER_STRATEGIES = {
     "stable_bf16": ("stable_bf16", {"master": False}),
@@ -116,6 +126,34 @@ def test_unported_strategies_raise_with_their_item(name):
     with pytest.raises(ValueError, match="not ported yet"):
         tacc.auto_accelerate(tgpt.GPT(tgpt.GPTConfig.nano()), device="cpu",
                              strategy=[("amp", {}), (name, {})])
+
+
+@pytest.mark.parametrize("case", sorted(MESH))
+def test_mesh_strategies_plan_as_jax(case):
+    """Each part-1 mesh strategy resolves to JAX's plan over 8 devices;
+    without a process group auto_accelerate asks for one."""
+    def plan(acc):
+        try:
+            ctx = acc.resolve_strategy(MESH[case], 8)
+        except ValueError as e:  # a plan that needs another device count
+            return str(e)
+        return ctx.plan.sizes()
+
+    assert plan(tacc) == plan(jacc)
+    ctx = tacc.StrategyContext()
+    for name, cfg in MESH[case]:
+        tacc._STRATEGY_REGISTRY[name](ctx, cfg, 8)
+    assert ctx.extra["mesh"] is True
+    with pytest.raises(ValueError, match="process group"):
+        tacc.auto_accelerate(tgpt.GPT(tgpt.GPTConfig.nano()), device="cpu",
+                             strategy=MESH[case])
+
+
+def test_resolve_strategy_auto_plan_is_jax():
+    for n, params in ((1, None), (8, 124_000_000), (64, 70_000_000_000)):
+        t = tacc.resolve_strategy([], n, params, hbm_per_device=95 << 30)
+        j = jacc.resolve_strategy([], n, params, hbm_per_device=95 << 30)
+        assert t.plan.sizes() == j.plan.sizes()
 
 
 @pytest.mark.parametrize("name", sorted(OPTIMIZER_STRATEGIES))

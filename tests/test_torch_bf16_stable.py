@@ -22,7 +22,10 @@ host link guard.
   GPT-2 124M's stable_bf16 builds to).
 - ``("optimizer_offload", {})``: the state lives in host tensors between
   steps (pinned where the parameters are on CUDA; here the CPU) and a
-  step is bitwise the on-device step's, for adamw, adamw8bit and AGD.
+  step is bitwise the on-device step's, for adamw, adamw8bit and AGD,
+  and with stable_bf16 (the whole `StableBF16` state offloaded, as JAX
+  offloads the whole ``opt_state``), whose losses also stay within
+  ``STABLE_LOSS_RTOL`` of JAX's on the same combination.
 - The slow-link guard warns at 0.05 GB/s and stays silent at 50 GB/s
   (after tests/test_bf16_stable.py:119-151).
 """
@@ -225,8 +228,75 @@ def test_optimizer_offload_step_is_the_on_device_step(name):
 
 
 def test_stable_bf16_with_offload_raises():
-    with pytest.raises(ValueError, match="optimizer_offload"):
-        _gpt([("stable_bf16", {}), ("optimizer_offload", {})], steps=0)
+    """The combination no longer raises (it did until the whole
+    `StableBF16` state learned to offload): with optimizer_offload the
+    inner moments and the compensation or masters live in host tensors
+    between steps, and each step is bitwise the on-device stable_bf16
+    step, in both modes."""
+    for master in (False, True):
+        sb = ("stable_bf16", {"master": master})
+        dev, l_dev = _gpt([sb], steps=3)
+        off, l_off = _gpt([sb, ("optimizer_offload", {})], steps=3)
+        opt = off.state.opt_state
+        assert isinstance(opt, StableBF16) and opt.offload_hops is not None
+        assert np.array_equal(l_dev, l_off), master
+        for a, b in zip(dev.model.parameters(), off.model.parameters()):
+            assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        assert all(c.device.type == "cpu" for c in opt.comp)
+        for view in opt.views:
+            st = opt.inner.state[view]
+            assert all(v.device.type == "cpu" for k, v in st.items()
+                       if torch.is_tensor(v) and k != "step")
+        assert not opt.offload_hops._device
+        from dlrover_wuqiong_tpu_torch.checkpoint.shm_handler import (
+            flatten_state_dict,
+        )
+
+        fa = flatten_state_dict(dev.state.tree())
+        fb = flatten_state_dict(off.state.tree())
+        assert list(fa) == list(fb)
+        assert all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def test_stable_bf16_offload_losses_match_jax():
+    """GPT nano under [("stable_bf16", {}), ("optimizer_offload", {})] from
+    JAX's initial bf16 parameters: the port's losses stay within
+    ``STABLE_LOSS_RTOL`` of JAX's, step for step (the first step's, from
+    the same parameters, within 1e-5)."""
+    from dlrover_wuqiong_tpu.auto.accelerate import (
+        auto_accelerate as jax_auto_accelerate,
+    )
+    from dlrover_wuqiong_tpu.models import gpt as jgpt
+
+    strategy = [("stable_bf16", {}), ("optimizer_offload", {})]
+    jcfg = dataclasses.replace(jgpt.GPTConfig.nano(), dtype=jnp.float32,
+                               remat=False)
+    jres = jax_auto_accelerate(jgpt.GPT(jcfg), optimizer=optax.adamw(3e-3),
+                               devices=jax.devices()[:1], strategy=strategy)
+    params = jax.tree_util.tree_map(np.asarray, jres.state.params)
+    ids = np.random.default_rng(2).integers(0, 512, (4, 33))
+    hb = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    state, want = jres.state, []
+    for _ in range(5):
+        state, m = jres.train_step(state, jres.place_batch(hb))
+        want.append(float(m["loss"]))
+    cfg = dataclasses.replace(tgpt.GPTConfig.nano(), dtype=torch.float32,
+                              remat=False)
+    res = auto_accelerate(tgpt.GPT(cfg), optimizer=adamw(3e-3),
+                          device="cpu", seed=0, strategy=strategy)
+    flat = {}
+    for path, v in jax.tree_util.tree_flatten_with_path(params)[0]:
+        flat[".".join(str(p.key) for p in path)] = v
+    with torch.no_grad():
+        for n, p in res.model.named_parameters():
+            p.copy_(_to_torch(flat[n]))
+    b = res.place_batch(hb)
+    got = []
+    for _ in range(5):
+        res.state, m = res.train_step(res.state, b)
+        got.append(m["loss"].item())
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=STABLE_LOSS_RTOL)
 
 
 class TestSlowOffloadLinkGuard:

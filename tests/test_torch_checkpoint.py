@@ -1054,3 +1054,106 @@ def test_bf16_wire_contract(tmp_path):
         assert torch.equal(restored["bf16"], bf16)
         assert torch.equal(restored["ints"], ints)
     ck.close()
+
+
+# ------------------------------------------------- sharded states
+
+#: the mesh plans whose checkpoints are held against JAX's (4 devices)
+SHARDED = {"fsdp": [("fsdp", {})],
+           "tp_fsdp": [("tensor_parallel", {"size": 2}), ("fsdp", {})]}
+
+
+def _jax_mesh_state(strategy):
+    res = jax_auto_accelerate(
+        jgpt.GPT(jgpt.GPTConfig.nano()), optimizer=optax.adamw(1e-2),
+        devices=jax.devices()[:4],
+        strategy=list(strategy) + [("half", {"enabled": False})])
+    return res.state
+
+
+def _jax_refs(state):
+    return {(e, tuple(g), tuple(tuple(i) for i in idx))
+            for name, leaf in jshm.flatten_state_dict(state).items()
+            for e, _, g, idx in jshm._leaf_refs(name, leaf)}
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory):
+    """JAX's leaves for each plan on 4 host devices and a JAX fsdp
+    checkpoint; the port's world of 4 writing, resuming, and reading
+    JAX's; a world of 2 reading the port's fsdp checkpoint."""
+    import torch_world as tw
+
+    base = tmp_path_factory.mktemp("sharded")
+    jax_states = {k: _jax_mesh_state(s) for k, s in SHARDED.items()}
+    jax_dir = str(base / "jax_fsdp")
+    jsaver.AsyncCheckpointSaver.reset()
+    ck = jck.FlashCheckpointer(jax_dir, job_name=_job("jshw"),
+                               standalone=True)
+    ck.save_checkpoint(0, jax_states["fsdp"],
+                       storage_type=jck.StorageType.DISK)
+    assert ck.wait_latest_checkpoint(60)
+    ck.close()
+    jsaver.AsyncCheckpointSaver.reset()
+    dirs = {k: str(base / k) for k in SHARDED}
+    w4 = tw.run_world(4, tw.ckpt_write_world, list(SHARDED.items()), dirs,
+                      _job("w4"), jax_dir)
+    w2 = tw.run_world(2, tw.ckpt_read_world, SHARDED["fsdp"], dirs["fsdp"],
+                      _job("w2"))
+    return {"jax_refs": {k: _jax_refs(s) for k, s in jax_states.items()},
+            "jax_fsdp": {k: np.asarray(v) for k, v in
+                         jshm.flatten_state_dict(jax_states["fsdp"]).items()},
+            "w4": w4, "w2": w2, "dirs": dirs}
+
+
+@pytest.mark.parametrize("key", sorted(SHARDED))
+def test_sharded_leaves_are_jax_names_and_indices(sharded_runs, key):
+    """The #shardN names, global shapes and indices the port's 4 ranks
+    write together are those JAX writes for the same plan; a replicated
+    piece is written once."""
+    refs = [r[key]["refs"] for r in sharded_runs["w4"]]
+    union = [x for rank in refs for x in rank]
+    assert len(union) == len(set(union))
+    assert set(union) == sharded_runs["jax_refs"][key]
+    assert any("#shard3" in e for e, _, _ in union)
+
+
+@pytest.mark.parametrize("key", sorted(SHARDED))
+def test_sharded_checkpoint_resumes_bitwise_in_its_world(sharded_runs, key):
+    for r in sharded_runs["w4"]:
+        got = r[key]
+        assert got["tier"] == "storage" and got["step"] == 4
+        assert got["resumed"] == got["after"]
+        assert got["bitwise"]
+
+
+def test_sharded_checkpoint_resumes_in_smaller_worlds(sharded_runs):
+    """The fsdp-4 checkpoint from storage into a world of 2 (fsdp 2) and
+    into a world of 1 (the unsharded build): bitwise the saved state."""
+    import torch_world as tw
+
+    saved = sharded_runs["w4"][0]["fsdp"]["saved"]
+    got2 = sharded_runs["w2"][0]["restored"]
+    assert sorted(got2) == sorted(saved)
+    assert all(tw.np_equal(got2[n], saved[n]) for n in saved)
+    assert all(r["step"] == 3 and np.isfinite(r["loss"])
+               for r in sharded_runs["w2"])
+    one = tw._fresh([])
+    ck = FlashCheckpointer(sharded_runs["dirs"]["fsdp"], job_name=_job("w1"),
+                           standalone=True)
+    try:
+        assert ck.load_checkpoint(one.state.tree()) is not None
+    finally:
+        ck.close()
+    got1 = tw.restored_global(one)
+    assert all(tw.np_equal(got1[n], saved[n]) for n in saved)
+    assert int(one.state.step) == 2
+
+
+def test_jax_fsdp_checkpoint_resumes_in_port_world(sharded_runs):
+    """A checkpoint JAX wrote from fsdp over 4 host devices restores
+    into the port's fsdp build in a world of 4, bitwise."""
+    got = sharded_runs["w4"][0]["jax"]
+    want = sharded_runs["jax_fsdp"]
+    for n, v in got.items():
+        assert np.array_equal(v, want[n]), n

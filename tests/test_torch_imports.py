@@ -99,6 +99,10 @@ def _package_modules():
     return sorted(mods)
 
 
+#: the mesh strategies' modules (ROADMAP item 8a, part 1)
+PARALLEL = ("parallel.mesh", "parallel.sharding", "parallel.fsdp")
+
+
 def test_import_loads_no_jax_and_no_cuda():
     code = (
         "import importlib, json, sys, torch\n"
@@ -119,7 +123,8 @@ def test_import_loads_no_jax_and_no_cuda():
                 "models.llama", "models.attention", "models.fp8",
                 "models.moe", "ops.remat",
                 "trainer.train_step", "auto.accelerate") + CONTROL_PLANE \
-            + CHECKPOINT + ELASTIC + MASTER_JOURNAL + STANDBY + OPTIMIZERS:
+            + CHECKPOINT + ELASTIC + MASTER_JOURNAL + STANDBY + OPTIMIZERS \
+            + PARALLEL:
         assert f"dlrover_wuqiong_tpu_torch.{mod}" in rec["mods"]
 
 

@@ -331,6 +331,22 @@ def test_wsam_passes_draw_the_same_dropout_masks():
     assert any(s.abs().max() > 0 for s in sharp)
 
 
+
+def test_wsam_refuses_a_mesh_state():
+    """On a mesh the perturbation's norm and the loss would be each
+    rank's own: the step raises before it touches the state."""
+    model = tgpt.GPT(_gpt_cfg(False)).init_params(0, "cpu")
+    state = TrainState.create(model, adamw(3e-4))
+    state.mesh_state = object()
+    w0 = [p.detach().clone() for p in model.parameters()]
+    step = make_wsam_train_step(_port_loss(torch.Generator()), 3e-4)
+    b = {k: torch.from_numpy(v.astype(np.int64))
+         for k, v in _host_batch(0).items()}
+    with pytest.raises(NotImplementedError, match="WSAM over a mesh"):
+        step(state, b)
+    assert all(torch.equal(p, w) for p, w in zip(model.parameters(), w0))
+
+
 # ---------------------------------------------------------------- muP
 
 FAMILY = {

@@ -153,10 +153,12 @@ def test_auto_accelerate_trains_on_cpu():
 
 
 def test_auto_accelerate_rejects_strategies_and_devices():
-    with pytest.raises(ValueError, match="queue 1 item 8"):
+    """Without a process group a mesh strategy, or more than one device,
+    asks for one; the one-device strategies build."""
+    with pytest.raises(ValueError, match="process group"):
         auto_accelerate(tgpt.GPT(tgpt.GPTConfig.nano()), device="cpu",
                         strategy=[("fsdp", {})])
-    with pytest.raises(ValueError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="torch.distributed world of 2"):
         auto_accelerate(tgpt.GPT(tgpt.GPTConfig.nano()), device="cpu",
                         devices=["cuda:0", "cuda:1"])
     # the one-device strategies build

@@ -1,0 +1,451 @@
+"""Gloo worlds of CPU processes for the port's mesh tests.
+
+`run_world(n, fn, *args)` spawns `n` processes, joins them into a
+``torch.distributed`` world over gloo (a free localhost port), runs
+``fn(rank, n, *args)`` on every rank and returns the ranks' results in
+rank order.  A rank that raises ends the world and the call re-raises
+its traceback.  Every rank imports this module and `fn`'s, so neither
+may import JAX: the JAX side of a comparison runs in the test process.
+"""
+
+import datetime
+import os
+import socket
+import tempfile
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _entry(rank, world, port, outdir, fn, args):
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        result = fn(rank, world, *args)
+        torch.save(result, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(world: int, fn, *args):
+    """[fn(rank, world, *args) for each rank], run in a gloo world."""
+    with tempfile.TemporaryDirectory() as outdir:
+        mp.spawn(_entry, args=(world, free_port(), outdir, fn, args),
+                 nprocs=world, join=True)
+        return [torch.load(os.path.join(outdir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+
+# ------------------------------------------------------- training cases
+
+VOCAB, SEQ, BATCH, STEPS = 512, 32, 8, 4
+
+
+def host_batches(steps: int = STEPS, seed: int = 0):
+    """The global batches every build trains on (numpy, a fixed seed)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        x = rng.integers(0, VOCAB, (BATCH, SEQ + 1)).astype(np.int32)
+        out.append({"input_ids": x[:, :-1], "labels": x[:, 1:]})
+    return out
+
+
+def port_model(family: str):
+    import dataclasses
+
+    from dlrover_wuqiong_tpu_torch.models import gpt, llama
+
+    if family == "gpt":
+        return gpt.GPT(dataclasses.replace(gpt.GPTConfig.nano(),
+                                           dtype=torch.float32))
+    return llama.Llama(dataclasses.replace(llama.LlamaConfig.nano(),
+                                           dtype=torch.float32))
+
+
+def port_optimizer(name: str, lr: float = None):
+    """The port's optimizer `name` at `lr` (default: adamw 1e-2,
+    adamw8bit 1e-3, clip: the Trainer's clipped AdamW at a constant
+    1e-2)."""
+    from dlrover_wuqiong_tpu_torch.optimizers import adamw8bit
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import (
+        adamw,
+        clip_adamw,
+    )
+
+    if name == "adamw":
+        return adamw(lr or 1e-2)
+    if name == "adamw8bit":
+        return adamw8bit(lr or 1e-3)
+    rate = lr or 1e-2
+    assert name == "clip", name
+    return clip_adamw(lambda count: rate, 1e-4)
+
+
+def plant(state, fault: str, rank: int) -> None:
+    """A planted fault in a sharded build (a bound that passes a sound
+    build must refuse it): ``skip_last``, rank 3 leaves its pieces
+    unstepped at the last step; ``no_compensation``, stable_bf16's Kahan
+    compensation zeroed after every step; ``local_norm``, the clip reads
+    the norm of the rank's own pieces."""
+    opt = state.opt_state
+    if fault == "skip_last":
+        if rank == 3:
+            step, calls = opt.step, [0]
+
+            def skipping(*a, **k):
+                calls[0] += 1
+                return None if calls[0] == STEPS else step(*a, **k)
+            opt.step = skipping
+    elif fault == "no_compensation":
+        kahan = opt.inner
+        step = kahan.step
+
+        def dropping(*a, **k):
+            out = step(*a, **k)
+            for c in kahan.comp:
+                c.zero_()
+            return out
+        kahan.step = dropping
+    else:
+        assert fault == "local_norm", fault
+        opt.norm_fn = None
+
+
+def train(family, strategy, opt="adamw", init=None, steps=STEPS,
+          device="cpu", materialize=True, lr=None, fault=None, rank=0):
+    """`auto_accelerate` of a nano model in float32 (``half`` off) over
+    `strategy`, `init` (a flat global state) loaded through `load_tree`,
+    then `steps` steps on `host_batches`: (result, [(loss, grad_norm)]).
+    `fault` plants one of `plant`'s faults."""
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+
+    res = auto_accelerate(port_model(family),
+                          optimizer=port_optimizer(opt, lr),
+                          device=device, seed=0, materialize=materialize,
+                          strategy=list(strategy)
+                          + [("half", {"enabled": False})])
+    if init is not None:
+        res.state.load_tree(init)
+    if fault is not None:
+        plant(res.state, fault, rank)
+    metrics = []
+    for b in host_batches(steps):
+        res.state, m = res.train_step(res.state, res.place_batch(b))
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    return res, metrics
+
+
+def full_params(model):
+    """{dotted name: the global value as numpy} (a DTensor gathered)."""
+    from dlrover_wuqiong_tpu_torch.parallel.fsdp import is_dtensor
+
+    out = {}
+    for n, p in model.named_parameters():
+        t = p.full_tensor() if is_dtensor(p) else p
+        out[n] = t.detach().float().numpy().copy()
+    return out
+
+
+def parity_cases(rank, world, cases, inits):
+    """Each case (key, family, strategy, opt, lr): the metrics on every
+    rank and the final global parameters on rank 0."""
+    out = {}
+    for key, family, strategy, opt, lr in cases:
+        res, metrics = train(family, strategy, opt, inits.get(key), lr=lr)
+        params = full_params(res.model)
+        out[key] = {"metrics": metrics,
+                    "params": params if rank == 0 else None,
+                    "plan": res.strategy.plan.describe()}
+    return out
+
+
+def construction_checks(rank, world):
+    """GPT nano under fsdp 4 from the port's seeded init: the rank's
+    bytes, the moments' placements, its initial pieces against the
+    unsharded init, and the materialize=False build's local shapes."""
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models import gpt
+    from dlrover_wuqiong_tpu_torch.parallel.fsdp import (
+        is_dtensor,
+        local_piece,
+        state_bytes,
+    )
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    strategy = [("fsdp", {}), ("half", {"enabled": False})]
+    res = auto_accelerate(port_model("gpt"), optimizer=adamw(1e-2),
+                          device="cpu", seed=0, strategy=strategy)
+    full = dict(gpt.init_leaves(res.model.config, 0, "cpu"))
+    params = dict(res.model.named_parameters())
+    bitwise = all(torch.equal(
+        p.to_local() if is_dtensor(p) else p.detach(),
+        local_piece(p, full[n])) for n, p in params.items())
+    opt = res.state.opt_state
+    moments = [t for p in params.values() for k, t in opt.state[p].items()
+               if k != "step"]
+    placements_kept = all(
+        tuple(opt.state[p][k].placements) == tuple(p.placements)
+        for p in params.values() if is_dtensor(p)
+        for k in ("exp_avg", "exp_avg_sq"))
+    total = sum(3 * t.numel() * 4 for t in full.values())
+    mine = state_bytes(list(params.values()) + moments)
+    lazy = auto_accelerate(port_model("gpt"), optimizer=adamw(1e-2),
+                           device="cpu", seed=0, strategy=strategy,
+                           materialize=False)
+    lazy_params = dict(lazy.model.named_parameters())
+    lazy_opt = lazy.state.opt_state
+    lazy_moments = [t for p in lazy_params.values()
+                    for k, t in lazy_opt.state[p].items() if k != "step"]
+
+    def local(t):
+        return t.to_local() if is_dtensor(t) else t
+
+    return {
+        "bitwise_init": bitwise,
+        "placements_kept": placements_kept,
+        "n_sharded": sum(is_dtensor(p) for p in params.values()),
+        "fraction": mine / total,
+        "lazy_meta": all(local(t).is_meta for t in
+                         list(lazy_params.values()) + lazy_moments),
+        "lazy_shapes": {n: tuple(local(p).shape)
+                        for n, p in lazy_params.items()},
+        "shapes": {n: tuple(local(p).shape) for n, p in params.items()},
+        "lazy_bytes": state_bytes(list(lazy_params.values())
+                                  + lazy_moments),
+        "bytes": mine,
+    }
+
+
+def parallel_module(rank, world, cases, inits):
+    """The world-side cases of tests/test_torch_parallel_training.py."""
+    return {"parity": parity_cases(rank, world, cases, inits),
+            "construction": construction_checks(rank, world)}
+
+
+FSDP, BF16, OFFLOAD = (("fsdp", {}), ("stable_bf16", {}),
+                       ("optimizer_offload", {}))
+
+#: key -> (strategy, optimizer, planted fault or None)
+OPTIMIZER_CASES = {
+    "adamw8bit": ([FSDP], "adamw8bit", None),
+    "adamw8bit_skip_last": ([FSDP], "adamw8bit", "skip_last"),
+    "stable_bf16": ([FSDP, BF16], "adamw", None),
+    "stable_bf16_skip_last": ([FSDP, BF16], "adamw", "skip_last"),
+    "stable_bf16_no_compensation": ([FSDP, BF16], "adamw",
+                                    "no_compensation"),
+    "adamw": ([FSDP], "adamw", None),
+    "offload": ([FSDP, OFFLOAD], "adamw", None),
+    "clip": ([FSDP], "clip", None),
+    "clip_offload": ([FSDP, OFFLOAD], "clip", None),
+    "clip_offload_local_norm": ([FSDP, OFFLOAD], "clip", "local_norm"),
+    "clip_stable_bf16": ([FSDP, BF16], "clip", None),
+    "clip_stable_bf16_local_norm": ([FSDP, BF16], "clip", "local_norm"),
+}
+
+
+def optimizer_cases(rank, world):
+    """Every `OPTIMIZER_CASES` build of GPT nano from the port's seeded
+    init: the metrics, and on rank 0 the global parameters."""
+    out = {}
+    for key, (strategy, opt, fault) in OPTIMIZER_CASES.items():
+        res, metrics = train("gpt", strategy, opt, fault=fault, rank=rank)
+        params = full_params(res.model)  # a collective: every rank
+        out[key] = {"metrics": metrics,
+                    "params": params if rank == 0 else None}
+        if key == "offload":
+            opt = res.state.opt_state
+            out[key]["host_state"] = all(
+                v.device.type == "cpu" and not hasattr(v, "placements")
+                and v.shape == q.shape for q in opt.proxies
+                for k, v in opt.inner.state[q].items() if k != "step")
+    return out
+
+
+# ----------------------------------------------------------- comparisons
+
+
+def split_key_bias(params):
+    """(params with GPT's key bias taken out of each ``c_attn.bias``,
+    {name: the key bias}).  Its gradient is zero in exact arithmetic (a
+    key bias adds the same q.b to a query's every score, and softmax
+    ignores that), so each build's Adam moves it by rounding noise, up
+    to lr a step."""
+    import numpy as np
+
+    out, keys = dict(params), {}
+    for n, v in params.items():
+        if n.endswith("c_attn.bias"):
+            q, k, v_ = np.split(v, 3)
+            out[n] = np.concatenate([q, v_])
+            keys[n] = k
+    return out, keys
+
+
+def leaf_spread(got, want):
+    """The worst leaf's relative L2 distance (key bias apart):
+    (distance, name)."""
+    import numpy as np
+
+    (got, _), (want, _) = split_key_bias(got), split_key_bias(want)
+    return max((float(np.linalg.norm(got[n] - want[n])
+                      / np.linalg.norm(want[n])), n) for n in want)
+
+
+def off_share(got, want, lr, bf16=False):
+    """The worst leaf's share of entries (key bias apart) that sit more
+    than half an lr step, or 1.5 ulps of the parameter's dtype, away
+    from `want`: (share, name).  A sound build moves a few entries so
+    (a gradient at rounding size); a rank that skips an update moves a
+    quarter of a sharded leaf."""
+    import numpy as np
+
+    (got, _), (want, _) = split_key_bias(got), split_key_bias(want)
+    out = []
+    for n, w in want.items():
+        ulp = np.spacing(np.abs(w).astype(np.float32))
+        if bf16:
+            ulp = ulp * 2.0 ** 16  # 7 mantissa bits, not 23
+        limit = np.maximum(lr / 2, 1.5 * ulp)
+        out.append((float(np.mean(np.abs(got[n] - w) > limit)), n))
+    return max(out)
+
+
+# ---------------------------------------------------- checkpoint cases
+
+
+def checkpointer(ckdir, job, rank, world):
+    """A rank's `FlashCheckpointer`: its own saver (job ``<job>-r<rank>``,
+    node ``rank``), committed once all `world` ranks' shards landed."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import (
+        FlashCheckpointer,
+    )
+
+    return FlashCheckpointer(ckdir, job_name=f"{job}-r{rank}",
+                             node_rank=rank, world_shard_num=world)
+
+
+def leaf_refs(tree):
+    """[(name, global shape, index)] this rank writes of `tree`."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.shm_handler import (
+        _leaf_refs,
+        flatten_state_dict,
+    )
+
+    return [(e, tuple(g), tuple(tuple(i) for i in idx))
+            for name, leaf in flatten_state_dict(tree).items()
+            for e, _, g, idx in _leaf_refs(name, leaf)]
+
+
+def restored_global(res):
+    """{checkpoint name: global numpy value} of a state's params and
+    AdamW moments (DTensors gathered: a collective on every rank)."""
+    from dlrover_wuqiong_tpu_torch.parallel.fsdp import is_dtensor
+
+    names = {id(p): n.replace(".", "/")
+             for n, p in res.model.named_parameters()}
+    out = {}
+    opt = res.state.opt_state
+    for p in res.model.parameters():
+        for key, t in (("params", p), ("mu", opt.state[p]["exp_avg"]),
+                       ("nu", opt.state[p]["exp_avg_sq"])):
+            t = t.full_tensor() if is_dtensor(t) else t
+            name = (f"params/{names[id(p)]}" if key == "params"
+                    else f"opt_state/0/{key}/{names[id(p)]}")
+            out[name] = t.detach().numpy().copy()
+    return out
+
+
+def _stop_saver():
+    from dlrover_wuqiong_tpu_torch.checkpoint.ckpt_saver import (
+        AsyncCheckpointSaver,
+    )
+
+    AsyncCheckpointSaver.reset()
+
+
+def ckpt_write_world(rank, world, cases, ckdirs, job, jax_dir):
+    """Each case (key, strategy): 2 steps, the names this rank writes, a
+    save to storage, 2 more steps; then a fresh build (another seed)
+    restores the save and takes the same 2 steps (bitwise).  Then the
+    JAX-written checkpoint in `jax_dir` restores into an fsdp build."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import StorageType
+
+    out = {}
+    for key, strategy in cases:
+        res, _ = train("gpt", strategy, steps=2)
+        tree = res.state.tree()
+        refs = leaf_refs(tree)
+        ck = checkpointer(ckdirs[key], f"{job}-{key}", rank, world)
+        ck.save_checkpoint(2, tree, StorageType.DISK)
+        assert ck.wait_latest_checkpoint(120)
+        saved = restored_global(res)
+        after = []
+        for b in host_batches(4)[2:]:
+            res.state, m = res.train_step(res.state, res.place_batch(b))
+            after.append((m["loss"].item(), m["grad_norm"].item()))
+        want = full_params(res.model)
+        # a fresh build from another seed, restored from the save
+        fresh = _fresh(strategy)
+        assert ck.load_checkpoint(fresh.state.tree()) is not None
+        tier = ck.last_restore_report.get("tier")
+        resumed = []
+        for b in host_batches(4)[2:]:
+            fresh.state, m = fresh.train_step(fresh.state,
+                                              fresh.place_batch(b))
+            resumed.append((m["loss"].item(), m["grad_norm"].item()))
+        got = full_params(fresh.model)
+        ck.close()
+        _stop_saver()
+        out[key] = {"refs": refs, "after": after, "resumed": resumed,
+                    "tier": tier, "step": int(fresh.state.step),
+                    "bitwise": all(np_equal(got[n], want[n]) for n in want),
+                    "saved": saved if rank == 0 else None}
+    fresh = _fresh([("fsdp", {})])
+    ck = checkpointer(jax_dir, f"{job}-jax", rank, world)
+    assert ck.load_checkpoint(fresh.state.tree()) is not None
+    restored = restored_global(fresh)
+    ck.close()
+    _stop_saver()
+    out["jax"] = restored if rank == 0 else None
+    return out
+
+
+def ckpt_read_world(rank, world, strategy, ckdir, job):
+    """A build over `strategy` in this world restores `ckdir` from
+    storage: the global state it holds then (rank 0) and one step."""
+    fresh = _fresh(strategy)
+    ck = checkpointer(ckdir, job, rank, world)
+    assert ck.load_checkpoint(fresh.state.tree()) is not None
+    restored = restored_global(fresh)
+    b = host_batches(4)[2]
+    fresh.state, m = fresh.train_step(fresh.state, fresh.place_batch(b))
+    ck.close()
+    _stop_saver()
+    return {"restored": restored if rank == 0 else None,
+            "loss": m["loss"].item(), "step": int(fresh.state.step)}
+
+
+def _fresh(strategy, seed=1):
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+
+    return auto_accelerate(port_model("gpt"), optimizer=port_optimizer(
+        "adamw"), device="cpu", seed=seed,
+        strategy=list(strategy) + [("half", {"enabled": False})])
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.shape == b.shape and np.array_equal(a, b)
