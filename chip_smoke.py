@@ -148,13 +148,13 @@ Phases, in order; a failure in any of them exits non-zero:
    uninterrupted losses and grad norms, with 12 forward and 12 fused
    backward launches a step (counts set to 0 just before, read just
    after); then bf16 wire staging: float32 leaves the bf16 round trip,
-   int leaves exact.  7.2: 2 saves in turns with a step alone and a step
-   during the drain (blocked seconds, the snapshot's device time as
-   issued and back to back, drain, persist), one save chained behind
-   another, 1 timed restore a tier beside 7.1's (verified load and H2D
-   apart).  7.3:
-   the SIGKILL drill (``checkpoint.drill.sigkill_drill``): a trainer
-   subprocess saves to shm at step 5, takes step 6 and is SIGKILLed; a
+   int leaves exact.  7.2: `CKPT_SAVES` saves in turns with a step alone
+   and a step during the drain (blocked seconds, the snapshot's device
+   time as issued and back to back, drain, persist), one save chained
+   behind another, 1 timed restore a tier beside 7.1's (verified load
+   and H2D apart).  7.3: the SIGKILL drill
+   (``checkpoint.drill.sigkill_drill``): a trainer subprocess saves to
+   shm at step 5, takes step 6 and is SIGKILLed; a
    second one restores from its segment (tier ``shm``) and runs steps
    6-7, bitwise this process's; the seconds from the kill to the
    restored state and the part of them that is the second process's
@@ -169,16 +169,17 @@ Phases, in order; a failure in any of them exits non-zero:
    the replica fallback, fires the health hook, and its step too is
    bitwise.  One ``checkpoint:`` JSON line.
 8. The elastic trainer (``trainer.drill``).  8.1: ``Trainer(GPT(GPT-2
-   124M), TrainingArgs(max_steps=20, warmup_steps=5, cosine,
-   save_steps=10, flash_stage_steps=1, logging_steps=1), data_fn)`` in
-   this process at B = 24, T = 1024, the data function drawing each
-   step's tokens from (seed, step): every loss finite, the last below the
-   first, step 20 committed, 12 forward and 12 fused-backward launches a
-   step.  8.2: the same Trainer as the worker of ``python -m
-   dlrover_wuqiong_tpu_torch.run --standalone --max_restarts=3``, a
-   SIGKILL at one seeded step in [8, 17] (the worker waits out its
-   staging there).  Checks: the launcher exits 0 after exactly 1
-   restart, ``latest_checkpointed_iteration.txt`` reads 20, the killed
+   124M), TrainingArgs(max_steps=8, warmup_steps=4, cosine,
+   save_steps=4, flash_stage_steps=1, logging_steps=1), data_fn)``
+   (`ELASTIC`) in this process at B = 24, T = 1024, the data function
+   drawing each step's tokens from (seed, step): every loss finite, the
+   last below the first, step 8 committed, 12 forward and 12
+   fused-backward launches a step.  8.2: the same Trainer as the worker
+   of ``python -m dlrover_wuqiong_tpu_torch.run --standalone
+   --max_restarts=3``, a SIGKILL at one seeded step in [6, 7] (the worker
+   waits out its staging there).  Checks: the launcher exits 0 after
+   exactly 1 restart, ``latest_checkpointed_iteration.txt`` reads 8, the
+   killed
    generation's segment holds the step before its kill step and the next
    generation resumes there from tier ``shm`` and trains from the step
    after, every step's loss in every generation is bitwise 8.1's, and
@@ -189,19 +190,20 @@ Phases, in order; a failure in any of them exits non-zero:
    the first resumed step) and the goodput fractions.  Its directories
    and segments go whether it passes or fails.
 9. The node-loss drill (``trainer.drill.node_loss_drill``): each rank's
-   uninterrupted run in this process (GPT-2 124M at B = 8, T = 1024, 30
-   steps, warmup 5, tokens from (seed, step, rank)), then two ``python
+   uninterrupted run in this process (GPT-2 124M at B = 8, T = 1024, 16
+   steps, warmup 4, tokens from (seed, step, rank); `NODE_LOSS_KNOBS`),
+   then two ``python
    -m dlrover_wuqiong_tpu_torch.run --nnodes=2`` launchers against an
    in-process port master with ``DWT_CTX_CHECKPOINT_REPLICA=1``, their
    workers the same Trainers on the card in a gloo world (NCCL refuses
-   two ranks on one card), a shm stage every 5 steps and a disk save
-   (persist, then the ring backup) every 10.  After step 20 is committed
+   two ranks on one card), a shm stage every 4 steps and a disk save
+   (persist, then the ring backup) every 8.  After step 8 is committed
    and node 0's ReplicaServer holds node 1's segment of it, node 1's
    agent and worker are SIGKILLed, its segment unlinked, and a fresh
    node-1 launcher started.  Checks (`node_loss_checks`): both launchers
-   exit 0, step 30 committed, node 1's new agent spans and logs a ring
-   restore of step 20 from rank 0's holder, node 1's new worker resumes
-   from tier ``shm`` at step 20 with no storage read, node 0 from its own
+   exit 0, step 16 committed, node 1's new agent spans and logs a ring
+   restore of step 8 from rank 0's holder, node 1's new worker resumes
+   from tier ``shm`` at step 8 with no storage read, node 0 from its own
    shm, every loss of both ranks bitwise its uninterrupted run's, 12 + 12
    flash launches a step in every worker.  Prints node 1's time from the
    loss to its first resumed step by part, each ring backup, each
@@ -210,20 +212,20 @@ Phases, in order; a failure in any of them exits non-zero:
 10. The journaled master (``chaos.master_kill``, GPT-2 124M at full
    width and depth, bf16 compute over float32 masters, B = 8, T = 1024).
    10.1: ``auto_accelerate(GPT(cfg with remat=False), optimizer=adamw(
-   3e-4), seed=0)`` in this process over the sample ranges [0, 1024) in
+   3e-4), seed=0)`` in this process over the sample ranges [0, 768) in
    order, 8 samples a step (each sample a row of 1025 tokens from (seed,
-   sample index)): 128 reference losses, every one finite, the last
+   sample index)): 96 reference losses, every one finite, the last
    below the first, the median step, and 12 forward and 12
    fused-backward launches a step (counts set to 0 just before, read
    just after).  10.2: ``python -m dlrover_wuqiong_tpu_torch.master
    --journal-dir=...`` as a subprocess, ``python -m
    dlrover_wuqiong_tpu_torch.run --nnodes=1 --max_restarts=2`` dialing
    it, its worker the same trainer on the card fed by the master's
-   dataset shards (1024 samples, 32 minibatches a shard: 4 shards of 32
+   dataset shards (768 samples, 32 minibatches a shard: 3 shards of 32
    steps); after the 2nd fetch and 4 of its steps the master is
    SIGKILLed, and 1.5 s later a new one starts on the same journal and
    port.  Checks, every invariant of the drill: one worker generation,
-   the launcher exits 0, the 1024 samples tiled once (fetched ==
+   the launcher exits 0, the 768 samples tiled once (fetched ==
    completed), steps inside the outage, heartbeats buffered and drained,
    the epoch at 2 and the node re-registered, the worker's ledger
    degraded and productive both > 0, 0.5 <= goodput_wall <= 1 (the ideal
@@ -233,7 +235,7 @@ Phases, in order; a failure in any of them exits non-zero:
    the journal and the worker's flight dump, every journal event once in
    (epoch, seq) order over epochs [1, 2], its degraded seconds within
    0.05 s of the worker's ledger, and the offline CLI's hash equal to
-   the live bytes; every one of the 128 losses bitwise 10.1's; and the
+   the live bytes; every one of the 96 losses bitwise 10.1's; and the
    worker's own counters at 12 forward and 12 fused-backward launches a
    step and no int8 one.  Prints the outage, the restart gap, the frames
    and seconds of the replay, the journal's gauges, the steps in the
@@ -249,8 +251,8 @@ Phases, in order; a failure in any of them exits non-zero:
    journal; the worker dials ``PRIMARY,STANDBY``.  The primary is
    SIGKILLed; the standby promotes after 1.0 s of lease silence.  Checks,
    every invariant of the drill: one worker generation, the launcher
-   exits 0, the endpoint list rotated, the 1024 samples tiled once, all
-   128 losses bitwise 10.1's, the buffer drained, the promoted epoch 3
+   exits 0, the endpoint list rotated, the 768 samples tiled once, all
+   96 losses bitwise 10.1's, the buffer drained, the promoted epoch 3
    (old + 2) seen by the worker and the node re-registered, degraded and
    productive > 0, the standby fetched before the kill, the promotion
    gap below this run's restart baseline (the corpse revived, spawn to
@@ -335,14 +337,26 @@ Phases, in order; a failure in any of them exits non-zero:
    8B at full depth under fsdp in a fake world of 8, rank 0's bytes of
    parameters and AdamW moments within 1% of the total's eighth, and
    ``auto_plan``'s "does not fit" for one card of this card's memory.
+15. Sequence and expert parallel (``chip_smoke.long_context_phase``,
+   runnable alone).  15.1-15.2: ring, Ulysses and gathered ("gspmd")
+   attention at Llama-3 8B's widths (b 1, 32 heads, d 128, bf16,
+   causal) over 4 sp ranks emulated in this process (the gloo tests'
+   bodies with the transport swapped), S 32768 and 4096: o, lse, dq, dk
+   and dv against one whole-sequence kernel call, at 4096 against the
+   plain version too; launches and the forward and backward ms; the
+   ring at 32768 profiled once.  15.3: GPT-2 124M with 8 experts under
+   expert_parallel 1 + fsdp and Llama-3 8B at 4 layers under
+   sequence_parallel (ring, 1) + fsdp, in phase 14's NCCL world of one,
+   bitwise their plain builds (size 1 falls through, as in JAX).
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when CUDA is absent or when
 the package is not beside this script.  Profiler tables are written to
 ``chiprun_out/chip_smoke_profile.txt`` (serving),
-``chiprun_out/chip_smoke_train_profile.txt`` (GPT-2 training) and
-``chiprun_out/chip_smoke_llama_profile.txt`` (Llama training).
+``chiprun_out/chip_smoke_train_profile.txt`` (GPT-2 training),
+``chiprun_out/chip_smoke_llama_profile.txt`` (Llama training) and
+``chiprun_out/chip_smoke_ring_profile.txt`` (phase 15's ring).
 """
 
 import contextlib
@@ -1918,7 +1932,7 @@ def llama_reference(torch, np, tfa):
 
 # ------------------------------------------------------------ phase 7
 
-CKPT_SAVES = 2      # timed saves, each drained and committed before the next
+CKPT_SAVES = 1      # timed saves, each drained and committed before the next
 CKPT_RESTORES = 1   # timed restores a tier, beside phase 7.1's one
 RATE_BYTES = 256 << 20  # the rate probes' buffer
 
@@ -2537,12 +2551,13 @@ def ckpt_run(torch, tfa, ckpt_dir: str, opened: list) -> tuple:
 # ------------------------------------------------------------ phase 8
 
 #: the elastic drill's run: GPT-2 124M at phase 4b's batch, warmup then
-#: cosine, a disk save every 10 steps (and a shm stage every step), one
-#: SIGKILL at a seeded step in [8, 17] (14).  20 steps and one kill: the
+#: cosine, a disk save every 4 steps (and a shm stage every step), one
+#: SIGKILL at a seeded step in [6, 7].  8 steps and one kill: the
 #: script's wall on a slow host came within 10% of the 1200 s limit
-#: with 30 steps, and again with phase 14 beside two kills
-ELASTIC = dict(batch=TRAIN_B, seq=TRAIN_T, max_steps=20, warmup=5,
-               save_steps=10, kill_range=(8, 17), kills=1)
+#: with 30 steps, and again with phase 14 beside two kills; 20 steps
+#: until phase 15 came, 14 until it passed 900 s on a slow host
+ELASTIC = dict(batch=TRAIN_B, seq=TRAIN_T, max_steps=8, warmup=4,
+               save_steps=4, kill_range=(6, 7), kills=1)
 
 
 @contextlib.contextmanager
@@ -2697,6 +2712,11 @@ def elastic_phase(torch, tfa) -> tuple:
 
 #: the node-loss drill's batch: two GPT-2 124M trainers share the card
 NODE_LOSS_B = 8
+#: phase 9's drill, cut from `trainer.drill.NODE_LOSS` (30 steps, node 1
+#: lost after step 20) to 16 steps, node 1 lost after step 8, so the
+#: script stays under ~900 s
+NODE_LOSS_KNOBS = dict(max_steps=16, warmup=4, save_steps=8,
+                       stage_steps=4, lose_after=8)
 
 
 def node_loss_phase(torch, tfa) -> tuple:
@@ -2709,7 +2729,7 @@ def node_loss_phase(torch, tfa) -> tuple:
     from dlrover_wuqiong_tpu_torch.trainer import drill
 
     knobs = dict(model="gpt2", device="cuda", batch=NODE_LOSS_B,
-                 seq=TRAIN_T, **drill.NODE_LOSS)
+                 seq=TRAIN_T, **NODE_LOSS_KNOBS)
     ref = {}
     for rank in (0, 1):
         with elastic_workspace(f"dwt-nl-ref{rank}-") as (out_dir, _):
@@ -2919,7 +2939,7 @@ def print_master_kill(mk: dict, mk_ref: dict):
 
 #: the fp8 runs: 2 warm-up steps each, then turns of timed steps
 #: (fp8, bf16, bf16, fp8)
-FP8_TURNS = {"gpt2": (5, 5, 5, 5), "llama": (2, 2, 3, 3)}
+FP8_TURNS = {"gpt2": (3, 3, 3, 3), "llama": (2, 2, 3, 3)}
 #: an fp8 step's loss against the bf16 step's on the same batch, relative
 #: (tests/test_fp8_strategy.py:60's bound)
 FP8_LOSS_RTOL = 0.05
@@ -2930,7 +2950,7 @@ FP8_OP_RTOL = 1e-2
 #: the remat runs: GPT-2 124M at phase 4b's batch, 2 warm-up + 5 steps
 REMAT_POLICIES = (None, "full", "dots", "offload_dots", "save_names",
                   "offload_names")
-REMAT_WARMUP, REMAT_STEPS = 2, 5
+REMAT_WARMUP, REMAT_STEPS = 1, 3
 #: a later step's loss under any policy against "full"'s, relative
 REMAT_LOSS_RTOL = 1e-3
 #: GPT-2 124M with 8 experts, top-2, capacity factor 1.25, remat "full"
@@ -3447,7 +3467,11 @@ OPT_CODE_SHARE = 1e-4
 # step for step: tests/test_torch_bf16_stable.py's STABLE_LOSS_RTOL
 # (GPT nano there, 5 steps, read 4.0e-3 on the CPU)
 STABLE_LOSS_RTOL = 2e-2
-OPT_WARMUP, OPT_TIMED = 2, 5
+OPT_WARMUP, OPT_TIMED = 1, 3
+# 13.2's builds whose optimizer device ms a profiled step reads (the
+# others print "not profiled"): the script's wall stays under ~900 s
+OPT_PROFILED = ("adamw", "adamw8bit", "optimizer_offload",
+                "stable_bf16_offload")
 # 13.4: Llama-3 8B at 24 of its 32 layers under stable_bf16 + adamw8bit
 OPT_LLAMA_LAYERS, OPT_LLAMA_WARMUP, OPT_LLAMA_TIMED = 24, 1, 3
 
@@ -3739,7 +3763,9 @@ def opt_gpt2_builds(torch, tfa) -> tuple:
             check(same, "13.2 optimizer_offload: parameters after the timed "
                   "steps are not bitwise the adamw build's")
             row["params_bitwise_adamw"] = same
-        row["profile"] = opt_profile(torch, res, batch)
+        row["profile"] = (opt_profile(torch, res, batch)
+                          if name in OPT_PROFILED
+                          else {"optimizer_device_ms": "not profiled"})
         out[name] = row
         del res
     first = {n: r["losses"][0] for n, r in out.items()}
@@ -4021,7 +4047,7 @@ MESH_BUILDS = {
     # the tensor-parallel DTensor route and its redistributes, at tp 1
     "tp1_fsdp": [("tensor_parallel", {"size": 1}), ("fsdp", {})],
 }
-MESH_WARMUP, MESH_TIMED, MESH_PROFILED = 2, 5, 2
+MESH_WARMUP, MESH_TIMED, MESH_PROFILED = 1, 3, 1
 MESH_LLAMA_WARMUP, MESH_LLAMA_TIMED = 1, 3
 #: 14.4: the world Llama-3 8B's training state is sharded over, computed
 MESH_FIT_WORLD = 8
@@ -4281,10 +4307,30 @@ def mesh_checkpoint(torch, tfa, a) -> dict:
                 "loss_after_resume": la[0]}
 
 
+#: 14.4's child once started, until `mesh_fit_8b` collects it
+_FIT_CHILD: list = []
+
+
+def start_fit_child():
+    """Start 14.4's child, which uses the CPU and the meta device only,
+    so that it runs beside the phases before 14 (`main` starts it with
+    phase 12); killed at exit if it is still running."""
+    import atexit
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", FIT_CHILD, HERE,
+                             str(MESH_FIT_WORLD)], stdout=out, stderr=err,
+                            text=True, cwd=HERE)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    _FIT_CHILD.append((proc, out, err))
+
+
 def mesh_fit_8b(torch) -> dict:
     """14.4, computed on the meta device: Llama-3 8B at full depth under
-    fsdp over a fake world of MESH_FIT_WORLD (a child process), rank 0's
-    bytes of parameters and AdamW moments beside the total's share; and
+    fsdp over a fake world of MESH_FIT_WORLD (a child process, started
+    here unless `start_fit_child` did it before), rank 0's bytes of
+    parameters and AdamW moments beside the total's share; and
     auto_plan's refusal for one card of this one's memory."""
     from dlrover_wuqiong_tpu_torch.models.llama import LlamaConfig
     from dlrover_wuqiong_tpu_torch.parallel.mesh import (
@@ -4292,11 +4338,19 @@ def mesh_fit_8b(torch) -> dict:
         detect_hbm_per_device,
     )
 
-    r = subprocess.run([sys.executable, "-c", FIT_CHILD, HERE,
-                        str(MESH_FIT_WORLD)], capture_output=True,
-                       text=True, timeout=300, cwd=HERE)
-    check(r.returncode == 0, f"14.4 child failed: {r.stderr[-4000:]}")
-    fit = json.loads(r.stdout.strip().splitlines()[-1])
+    if not _FIT_CHILD:
+        start_fit_child()
+    proc, out, err = _FIT_CHILD.pop()
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed after 300 s"
+    out.seek(0)
+    err.seek(0)
+    check(rc == 0, f"14.4 child failed ({rc}): {err.read()[-4000:]}")
+    fit = json.loads(out.read().strip().splitlines()[-1])
     share = fit["total_state_bytes"] / MESH_FIT_WORLD
     check(fit["all_meta"] and fit["plan"] == f"fsdp{MESH_FIT_WORLD}",
           f"14.4: {fit}")
@@ -4383,6 +4437,292 @@ def print_parallel(pp: dict):
     print(f"parallel: phase wall {pp['phase_wall_s']:.1f} s (14.1 "
           f"{w['14.1']:.1f}, 14.3 {w['14.3']:.1f}, 14.2 {w['14.2']:.1f}, "
           f"14.4 {w['14.4']:.1f})")
+
+# ------------------------------------------------------------ phase 15
+
+#: 15.1-15.2: Llama-3 8B's attention widths (b, heads, head dim), causal,
+#: the sequence split over LONG_SP emulated ranks: 32768 (chunks of
+#: 8192, the split backward) and 4096 (chunks of 1024, the fused one)
+LONG_B, LONG_H, LONG_D, LONG_SP = 1, 32, 128, 4
+LONG_SEQS = (32768, 4096)
+LONG_IMPLS = ("ring", "ulysses", "gspmd")
+LONG_TIMED = 3  # timed forward and backward calls of each
+#: 15.3: the strategies at size 1, beside their plain builds
+LONG_STRATEGIES = {
+    "gpt2_moe8": [("expert_parallel", {"size": 1}), ("fsdp", {})],
+    "llama3_8b": [("sequence_parallel", {"size": 1, "impl": "ring"}),
+                  ("fsdp", {})],
+}
+LONG_WARMUP, LONG_STEPS = 1, 3
+
+
+def long_inputs(torch, s: int, seed: int):
+    """q, k, v and the output's cotangent, (1, 32, s, 128) bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((LONG_B, LONG_H, s, LONG_D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+            for _ in range(4)]
+
+
+def long_timed(torch, run) -> tuple:
+    """(forward ms, backward ms) of `run` (-> (outputs, backward fn)),
+    by CUDA events around each half, the mean of LONG_TIMED calls after
+    one warm-up."""
+    fwd, bwd = [], []
+    for i in range(LONG_TIMED + 1):
+        torch.cuda.synchronize()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        out, backward = run()
+        e[1].record()
+        backward(out)
+        e[2].record()
+        e[2].synchronize()
+        if i:
+            fwd.append(e[0].elapsed_time(e[1]))
+            bwd.append(e[1].elapsed_time(e[2]))
+    return sum(fwd) / len(fwd), sum(bwd) / len(bwd)
+
+
+def long_profile(torch, run) -> dict:
+    """One forward and backward of `run` under the profiler: the device
+    ms in the flash kernels and in everything else (the ring's merges,
+    its lse masks, the concatenations), and the busy share of the
+    profiled wall clock.  The table goes to
+    chiprun_out/chip_smoke_ring_profile.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out, backward = run()
+        backward(out)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    del out
+    kern = device_events(torch, prof)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out",
+                           "chip_smoke_ring_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=30))
+    if not kern:
+        return {"device_busy_ms": "not measured"}
+    flash = sum(e.time_range.elapsed_us() for e in kern
+                if "fa_fwd" in e.name or "fa_bwd" in e.name) / 1e3
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    return {"device_busy_ms": busy, "flash_kernel_ms": flash,
+            "other_device_ms": busy - flash, "profiled_wall_ms": wall_ms,
+            "busy_share": busy / wall_ms, "kernels": len(kern)}
+
+
+def long_attention(torch, tfa, s: int) -> dict:
+    """15.1-15.2 at sequence length `s`: each sp impl's forward and
+    backward over LONG_SP emulated ranks (`long_context.emulated`, the
+    gloo tests' bodies with the transport swapped) against one
+    whole-sequence kernel call, and at 4096 against the plain version
+    too: o, lse, dq, dk and dv per row at FA_TOL (lse at FA_LSE_TOL); the
+    launches of one forward and backward per kernel; the ms of each half
+    beside the whole-sequence call's."""
+    from dlrover_wuqiong_tpu_torch.parallel import long_context as tlc
+
+    q, k, v, do = long_inputs(torch, s, seed=s)
+
+    def whole():
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o, lse = tfa.flash_attention_with_lse(*leaves, True)
+        return (o, lse, leaves), lambda out: torch.autograd.backward(
+            out[0], do)
+
+    def sp_run(impl):
+        def run():
+            chunks = [[c.detach().clone().requires_grad_()
+                       for c in t.chunk(LONG_SP, 2)] for t in (q, k, v)]
+            outs = tlc.emulated(impl, *chunks, causal=True, with_lse=True)
+            o = torch.cat([x[0] for x in outs], 2)
+            lse = torch.cat([x[1] for x in outs], 2)
+            return (o, lse, chunks), lambda out: torch.autograd.backward(
+                out[0], do)
+        return run
+
+    def grads(leaves):
+        return [torch.cat([c.grad for c in t], 2) if isinstance(t, list)
+                else t.grad for t in leaves]
+
+    out, backward = whole()
+    backward(out)
+    ref = [out[0].detach(), out[1].detach()] + grads(out[2])
+    refs = {"whole-sequence kernel": ref}
+    if s == 4096:
+        scale = 1.0 / LONG_D ** 0.5
+        flat = [t.reshape(LONG_B * LONG_H, s, LONG_D) for t in (q, k, v, do)]
+        o_p, lse_p = tfa._fa_forward_plain(*flat[:3], True, scale)
+        dq, dk, dv = tfa._fa_backward_plain(*flat[:3], o_p, lse_p, flat[3],
+                                            True, scale)
+        shape = (LONG_B, LONG_H, s, LONG_D)
+        refs["plain"] = [o_p.reshape(shape), lse_p.reshape(shape[:3]),
+                         dq.reshape(shape), dk.reshape(shape),
+                         dv.reshape(shape)]
+        del o_p, lse_p, dq, dk, dv, flat
+    rows = {"whole": dict(zip(("fwd_ms", "bwd_ms"),
+                              long_timed(torch, whole)))}
+    for impl in LONG_IMPLS:
+        run = sp_run(impl)
+        torch.cuda.synchronize()
+        tfa.reset_launches()
+        out, backward = run()
+        backward(out)
+        torch.cuda.synchronize()
+        row = {"launches": dict(tfa.LAUNCHES)}
+        got = [out[0].detach(), out[1].detach()] + grads(out[2])
+        for against, want in refs.items():
+            errs = {name: _row_err(torch, g, w) for name, g, w in zip(
+                ("o", "dq", "dk", "dv"), got[:1] + got[2:],
+                want[:1] + want[2:])}
+            fin = torch.isfinite(want[1])
+            errs["lse"] = (got[1][fin] - want[1][fin]).abs().max().item()
+            check(all(errs[n] <= FA_TOL for n in ("o", "dq", "dk", "dv"))
+                  and errs["lse"] <= FA_LSE_TOL and bool(
+                      (torch.isfinite(got[1]) == fin).all()),
+                  f"15 {impl} at S={s} against the {against}: {errs} "
+                  f"(tolerance {FA_TOL}, lse {FA_LSE_TOL})")
+            row[f"err_vs_{against.split()[0]}"] = errs
+        del out, got
+        row["fwd_ms"], row["bwd_ms"] = long_timed(torch, run)
+        if impl == "ring" and s == LONG_SEQS[0]:
+            row["profile"] = long_profile(torch, run)
+        rows[impl] = row
+    check(sum(rows["ring"]["launches"].values()) > 0 and all(
+        sum(rows[i]["launches"].values()) > 0 for i in LONG_IMPLS),
+        f"15 S={s}: a schedule launched no kernel: {rows}")
+    return rows
+
+
+def long_build(torch, tfa, name: str, strategy) -> dict:
+    """One 15.3 build (plain with `strategy` None): warm-up and timed
+    steps, the losses, launches and a host copy of the parameters."""
+    import dataclasses
+    import gc
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.models.llama import Llama, LlamaConfig
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+
+    if name == "gpt2_moe8":
+        model = GPT(dataclasses.replace(GPTConfig.gpt2(), moe_experts=8,
+                                        moe_top_k=2,
+                                        moe_capacity_factor=1.25))
+        batch = train_batch(torch, 50257, b=MOE_B)
+    else:
+        model = Llama(dataclasses.replace(LlamaConfig.llama3_8b(),
+                                          num_layers=LLAMA_LAYERS))
+        batch = train_batch(torch, model.config.vocab_size, b=LLAMA_B,
+                            t=LLAMA_T)
+    res = auto_accelerate(model, optimizer=adamw(3e-4), seed=0,
+                          strategy=strategy)
+    warm, _, _, _ = run_steps(torch, tfa, res, batch, LONG_WARMUP)
+    losses, norms, ms, lc = run_steps(torch, tfa, res, batch, LONG_STEPS)
+    params = [_local(p).detach().cpu() for p in res.model.parameters()]
+    row = {"losses": warm + losses, "grad_norms": norms, "ms_per_step": ms,
+           "launches": lc, "plan": res.strategy.plan.describe(),
+           "attn_impl": getattr(res.model.config, "attn_impl", None)}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, params
+
+
+def long_strategies(torch, tfa) -> tuple:
+    """15.3, in phase 14's NCCL world of one: each strategy at size 1
+    beside its plain build, the losses and parameters bitwise; size 1
+    falls through (no ep placement, no sp rewrite), as in JAX."""
+    out, launches = {}, {}
+    with nccl_world():
+        for name, strategy in LONG_STRATEGIES.items():
+            plain, p_plain = long_build(torch, tfa, name, None)
+            built, p_built = long_build(torch, tfa, name, strategy)
+            same = len(p_plain) == len(p_built) and all(
+                torch.equal(a, b) for a, b in zip(p_plain, p_built))
+            del p_plain, p_built
+            check(built["losses"] == plain["losses"] and same,
+                  f"15.3 {name}: losses {built['losses']} against the "
+                  f"plain build's {plain['losses']}, parameters bitwise "
+                  f"{same}")
+            check(built["attn_impl"] == plain["attn_impl"],
+                  f"15.3 {name}: size 1 rewrote attn_impl to "
+                  f"{built['attn_impl']}")
+            out[name] = {"plain": plain, "strategy": built,
+                         "bitwise_plain": same}
+            launches[f"{name}_strategy"] = built["launches"]
+    return out, launches
+
+
+def long_context_phase(torch, tfa) -> tuple:
+    """Phase 15: sequence parallel attention on the card and the last two
+    mesh strategies.  NCCL puts no two ranks on one card, so 15.1-15.2
+    drive the sp schedules in this one process: `long_context.emulated`
+    hands each emulated rank's local body (the code the gloo tests run)
+    a rotation or a gather that reads rank (my - t) mod n's chunk, the
+    ranks' bodies in turn in one autograd graph (Ulysses' all-to-all
+    needs every rank's intermediate, so its body runs once over the
+    ranks stacked on the batch axis).  The ring at the longer length is
+    also profiled once (`long_profile`).  Returns (report, {run: flash
+    launches})."""
+    import gc
+
+    t0 = time.monotonic()
+    out, walls, launches = {}, {}, {}
+    for s in LONG_SEQS:
+        t = time.monotonic()
+        out[f"s{s}"] = long_attention(torch, tfa, s)
+        walls[f"15.1-2 S={s}"] = time.monotonic() - t
+        for impl in LONG_IMPLS:
+            launches[f"{impl}_s{s}"] = out[f"s{s}"][impl]["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    t = time.monotonic()
+    out["strategies"], more = long_strategies(torch, tfa)
+    launches.update(more)
+    walls["15.3"] = time.monotonic() - t
+    out["walls_s"] = walls
+    out["phase_wall_s"] = time.monotonic() - t0
+    return out, launches
+
+
+def print_long_context(lc: dict):
+    """Phase 15's lines: the report as JSON, then its numbers."""
+    print("long context: " + json.dumps(lc))
+    for s in LONG_SEQS:
+        rows = lc[f"s{s}"]
+        w = rows["whole"]
+        print(f"long context: S={s} (b {LONG_B}, {LONG_H} heads, d "
+              f"{LONG_D}, causal, sp {LONG_SP} emulated): whole-sequence "
+              f"kernel call fwd {w['fwd_ms']:.3f} ms, bwd "
+              f"{w['bwd_ms']:.3f} ms")
+        for impl in LONG_IMPLS:
+            r = rows[impl]
+            errs = "; ".join(
+                f"vs {k[7:]} " + ", ".join(f"{n} {v:.2e}"
+                                           for n, v in r[k].items())
+                for k in r if k.startswith("err_vs_"))
+            print(f"long context: S={s} {impl}: fwd {r['fwd_ms']:.3f} ms, "
+                  f"bwd {r['bwd_ms']:.3f} ms; launches {r['launches']}; "
+                  f"{errs}")
+            if "profile" in r:
+                print(f"long context: S={s} {impl}, one forward and "
+                      f"backward profiled: " + json.dumps(r["profile"]))
+    for name, r in lc["strategies"].items():
+        st, pl = r["strategy"], r["plain"]
+        print(f"long context: 15.3 {name} under {st['plan']} (size 1 falls "
+              f"through, as in JAX): {st['ms_per_step']:.2f} ms a step "
+              f"against the plain build's {pl['ms_per_step']:.2f}; losses "
+              f"and parameters bitwise the plain build's: "
+              f"{r['bitwise_plain']}")
+    w = lc["walls_s"]
+    print(f"long context: phase wall {lc['phase_wall_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in w.items()) + ")")
 
 
 def main():
@@ -4834,6 +5174,8 @@ def main():
     print_master_failover(fo)
 
     lap('11')
+    # 14.4's child (CPU and meta only) runs beside phases 12-13
+    start_fit_child()
     # phase 12 — the model knobs: fp8, the remat policies, experts
     gc.collect()
     torch.cuda.empty_cache()
@@ -4856,6 +5198,14 @@ def main():
     print_parallel(par)
 
     lap('14')
+    # phase 15 — sequence parallel attention (emulated ranks) and the
+    # expert/sequence parallel strategies at size 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    lctx, lc_launches = long_context_phase(torch, tfa)
+    print_long_context(lctx)
+
+    lap('15')
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -4925,6 +5275,8 @@ def main():
                 for run, counts in opt_launches.items()},
             "launches_mesh": {run: counts[name]
                               for run, counts in par_launches.items()},
+            "launches_long_context": {run: counts[name] for run, counts
+                                      in lc_launches.items()},
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {

@@ -55,6 +55,15 @@ and the mesh strategies (JAX :99-156), which size the dims of a
         at size 1)
     ("multi_slice", {"slices", "devices_per_slice", "tp", "sp"})
         dp over slices, fsdp (and tp) inside a slice
+    ("expert_parallel", {"size"})     ep: the expert stacks over ep
+        (`parallel.sharding.MOE_RULES`), tokens replicated over it
+    ("sequence_parallel", {"size", "impl"})
+        sp: each rank a chunk of the sequence, attention across them by
+        `parallel.long_context` ("ulysses", the default, "ring", or
+        "gspmd": keys and values gathered); the model config's
+        ``attn_impl`` is rewritten (JAX :523-541, which leaves "gspmd"
+        to XLA; the port names the route).  Under every mesh strategy
+        the config's ``mesh`` is the mesh
 
 The devices are the ranks of the default process group (`devices`, if
 given, must count them; a single device given is this rank alone);
@@ -68,9 +77,9 @@ of the global batch.  ``materialize=False`` stops before any allocation:
 the state is meta DTensors with their placements and local shapes (the
 port of JAX's AOT scale proof).
 
-"expert_parallel" raises until ROADMAP queue 1 item 8a part 2,
-"sequence_parallel" until 8b, and "pipeline_parallel", "local_sgd" and
-"hsdp" until 8c.
+"pipeline_parallel", "local_sgd" and "hsdp" raise until ROADMAP queue 1
+item 8c.  With sp or ep of size 1 the build is the one without them (the
+attention falls through to flash, as in JAX).
 """
 
 from __future__ import annotations
@@ -149,15 +158,16 @@ class StrategyContext:
 
 
 #: JAX strategy names whose port is still to come -> the ROADMAP item
-_NOT_PORTED = {
-    "expert_parallel": "8a part 2",
-    "sequence_parallel": "8b",
-    **dict.fromkeys(("pipeline_parallel", "local_sgd", "hsdp"), "8c"),
-}
+_NOT_PORTED = dict.fromkeys(("pipeline_parallel", "local_sgd", "hsdp"),
+                            "8c")
 
 #: the strategies that shard the state over a mesh
 MESH_STRATEGIES = ("fsdp", "zero2", "zero3", "data_parallel", "ddp",
-                   "tensor_parallel", "multi_slice")
+                   "tensor_parallel", "multi_slice", "expert_parallel",
+                   "sequence_parallel")
+
+#: sequence_parallel's impls (`parallel.long_context.SP_ATTENTION`)
+SP_IMPLS = ("ulysses", "ring", "gspmd")
 
 
 def _not_ported(name: str, item: str) -> Callable:
@@ -206,6 +216,26 @@ def _s_tp(ctx: StrategyContext, cfg: Dict, num_devices: int):
     ctx.plan.tp = cfg.get("size", 1)
     ctx.extra["mesh"] = True
     ctx.extra["tensor_parallel"] = True
+
+
+@register_strategy("sequence_parallel")
+def _s_sp(ctx: StrategyContext, cfg: Dict, num_devices: int):
+    """cfg: size (default 1), impl: "ulysses" (all-to-all head scatter,
+    the default) | "ring" (KV rotation, O(S/sp) memory) | "gspmd" (KV
+    all-gathered)."""
+    impl = cfg.get("impl", "ulysses")
+    if impl not in SP_IMPLS:
+        raise ValueError(f"sequence_parallel impl {impl!r}: one of "
+                         f"{SP_IMPLS}")
+    ctx.plan.sp = cfg.get("size", 1)
+    ctx.extra["sp_impl"] = impl
+    ctx.extra["mesh"] = True
+
+
+@register_strategy("expert_parallel")
+def _s_ep(ctx: StrategyContext, cfg: Dict, num_devices: int):
+    ctx.plan.ep = cfg.get("size", 1)
+    ctx.extra["mesh"] = True
 
 
 @register_strategy("multi_slice")
@@ -387,16 +417,20 @@ class AccelerateResult:
             self._fused_cache[k] = fn
         return fn
 
-    def place_batch(self, batch: Dict, batch_axis: Optional[int] = None
-                    ) -> Dict:
+    def place_batch(self, batch: Dict, seq_axis: Optional[int] = None,
+                    batch_axis: Optional[int] = None) -> Dict:
         """Host batch (numpy arrays or tensors) -> int64 tensors on the
         device.  Leading microbatch (and fused) axes pass through.  On a
         mesh the batch is the global one and the rank keeps its slice
-        of the batch dim over (dp, fsdp)."""
+        of the batch dim over (dp, fsdp) and, under sequence parallel, of
+        `seq_axis` (default: the dim after the batch dim) over sp."""
         if self.mesh_state is not None:
             if batch_axis is None:
                 batch_axis = 1 if self.accum_steps > 1 else 0
-            batch = self.mesh_state.planner.place_batch(batch, batch_axis)
+            if seq_axis is None:
+                seq_axis = batch_axis + 1
+            batch = self.mesh_state.planner.place_batch(batch, batch_axis,
+                                                        seq_axis)
 
         def put(x):
             if isinstance(x, np.ndarray):
@@ -408,8 +442,8 @@ class AccelerateResult:
 
     def place_fused_batch(self, batch: Dict) -> Dict:
         """`place_batch` for a fused batch (leading axis of size K)."""
-        return self.place_batch(batch, 1 + (1 if self.accum_steps > 1
-                                            else 0))
+        return self.place_batch(batch, batch_axis=1 + (
+            1 if self.accum_steps > 1 else 0))
 
 
 def _world(devices: Optional[Sequence]) -> int:
@@ -481,8 +515,8 @@ def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
     offload = bool(ctx.extra.get("optimizer_offload"))
     mesh_state = None
     if sharded:
-        mesh_state = _shard(model, ctx, device, seed, materialize,
-                            sb is not None)
+        model, mesh_state = _shard(model, ctx, device, seed, materialize,
+                                   sb is not None)
     elif materialize:
         model.init_params(seed, device)
     if sb is not None:
@@ -522,14 +556,19 @@ def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
 
 def _shard(model, ctx: StrategyContext, device, seed: int,
            materialize: bool, bf16: bool):
-    """Build the mesh, shard `model` (still on ``meta``) over it and,
-    with `materialize`, fill each rank's pieces from the seeded init
-    (JAX :676-711); `bf16` casts the parameters first (stable_bf16)."""
+    """Build the mesh, rebuild `model` (still on ``meta``) on it
+    (`_on_mesh`), shard it over the mesh and, with `materialize`, fill
+    each rank's pieces from the seeded init (JAX :676-711); `bf16` casts
+    the parameters first (stable_bf16).  Returns (model, its
+    MeshState)."""
     from ..parallel.fsdp import materialize as fill, shard_model
     from ..parallel.sharding import ShardingPlanner
 
     mesh = build_mesh(ctx.plan, device.type)
     planner = ShardingPlanner(mesh)
+    if ctx.plan.ep > 1:
+        planner.with_moe()
+    model = _on_mesh(model, ctx, mesh)
     if bf16:
         for p in model.parameters():
             if p.is_floating_point():
@@ -542,4 +581,30 @@ def _shard(model, ctx: StrategyContext, device, seed: int,
         fill(model, seed, device)
     logger.info("auto_accelerate: mesh=%s over %s", ctx.plan.describe(),
                 device.type)
-    return mesh_state
+    return model, mesh_state
+
+
+def _on_mesh(model, ctx: StrategyContext, mesh):
+    """`model` rebuilt with ``mesh`` the mesh, which the models read for
+    their positions, attention and experts, and under sequence parallel
+    over sp > 1 with ``attn_impl`` the strategy's impl (JAX :523-541);
+    Ulysses needs the heads to divide sp (JAX's message).  A model whose
+    config has no ``mesh`` is returned as it is."""
+    sp_impl = ctx.extra.get("sp_impl", "ulysses")  # auto_plan's sp too
+    cfg = getattr(model, "config", None)
+    if not dataclasses.is_dataclass(cfg) or \
+            not {"attn_impl", "mesh"} <= {f.name for f in
+                                          dataclasses.fields(cfg)}:
+        return model
+    if ctx.plan.sp == 1:
+        # size 1 falls through to flash, as in JAX
+        return type(model)(dataclasses.replace(cfg, mesh=mesh))
+    heads = getattr(cfg, "n_head", getattr(cfg, "num_heads", None))
+    if sp_impl == "ulysses" and heads and heads % ctx.plan.sp:
+        raise ValueError(
+            f"ulysses sequence parallel needs heads ({heads}) divisible "
+            f"by sp={ctx.plan.sp}; use impl='ring' or adjust sp")
+    logger.info("sequence parallel: %s attention over sp=%d", sp_impl,
+                ctx.plan.sp)
+    return type(model)(dataclasses.replace(cfg, attn_impl=sp_impl,
+                                           mesh=mesh))

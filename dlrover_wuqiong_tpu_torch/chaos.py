@@ -683,11 +683,12 @@ def ckpt_corrupt(timeout: float = 180.0, device: str = "cuda") -> Dict:
 # -------------------------------------------------------------- master kill
 
 #: the drill's dataset geometry by model: on the card GPT-2 124M at
-#: B = 8, T = 1024, 2048 samples in 8 shards of 32 minibatches; on the
+#: B = 8, T = 1024, 768 samples in 3 shards of 32 minibatches (the kill
+#: lands mid-shard 2, whose 28 steps left outlast the outage); on the
 #: CPU GPT nano at the JAX drill's 576 samples, B = 4 and 24 minibatches
 #: a shard
 MASTER_KILL = {
-    "gpt2": dict(dataset_size=1024, batch=8, minibatches=32, seq=1024),
+    "gpt2": dict(dataset_size=768, batch=8, minibatches=32, seq=1024),
     "nano": dict(dataset_size=576, batch=4, minibatches=24, seq=128),
 }
 #: the seed of every sample's tokens and of the model's weights

@@ -1,13 +1,14 @@
 """Attention dispatch for model modules (GPT, and Llama after its GQA
-repeat): the flash route.
+repeat): the flash route, or sequence parallel attention over a mesh.
 
 Parity: dlrover_wuqiong_tpu/models/attention.py — `attend` (:20).
 Under tensor parallel the models hand `attend` each rank's heads
-(`local_heads`).  The
-model config's ``attn_impl`` picks the implementation; only "flash" (the
-one-device route) is ported.  "ring" and "ulysses" with a mesh raise:
-context-parallel attention comes with `parallel/long_context.py`, ROADMAP
-queue 1 item 8.
+(`local_heads`).  The model config's ``attn_impl`` picks the
+implementation: "ring", "ulysses" or "gspmd" with a ``mesh`` whose
+``sp`` is above 1 take `parallel.long_context`'s attention over this
+rank's chunk of the sequence (JAX routes "ring" and "ulysses" so, and
+leaves "gspmd" to XLA's gathers); anything else, and sp 1, is the flash
+route.
 
 The dtype contract (``GPTConfig.dtype``, ``LlamaConfig.dtype``): the
 flash route's CUDA kernels compute in bfloat16, so on a CUDA device
@@ -49,12 +50,16 @@ def local_heads(*xs):
 
 def attend(q, k, v, cfg, causal: bool = True):
     """q/k/v in flax layout (b, T, h, d); returns (b, T, h, d)."""
-    impl = getattr(cfg, "attn_impl", "flash")
-    if impl in ("ring", "ulysses") and getattr(cfg, "mesh", None) is not None:
-        raise NotImplementedError(
-            f"attn_impl={impl!r} over a mesh is not ported yet: "
-            "context-parallel attention is ROADMAP queue 1 item 8")
     if q.is_cuda and q.dtype != torch.bfloat16:
         bf = torch.bfloat16
-        return mha(q.to(bf), k.to(bf), v.to(bf), causal=causal).to(q.dtype)
+        return attend(q.to(bf), k.to(bf), v.to(bf), cfg,
+                      causal=causal).to(q.dtype)
+    impl = getattr(cfg, "attn_impl", "flash")
+    mesh = getattr(cfg, "mesh", None)
+    if mesh is not None and impl in ("ring", "ulysses", "gspmd"):
+        from ..parallel.long_context import SP_ATTENTION
+
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return SP_ATTENTION[impl](qt, kt, vt, mesh,
+                                  causal=causal).transpose(1, 2)
     return mha(q, k, v, causal=causal)

@@ -35,7 +35,8 @@ path passes, as in the JAX package), and ``moe_experts`` with
 `models.moe.MoEMLP`, named ``moe_mlp``; its aux loss lands in
 `GPT.intermediates`, where `trainer.train_step.make_lm_loss` adds it).
 Without a mesh, "ring" and "ulysses" run the flash route, as in the JAX
-package.
+package; with one (sequence parallel, `parallel.long_context`) each rank
+holds chunk r of the sequence, so its positions start at r * T / sp.
 
 Dropout keeps flax's semantics (keep with probability ``1 - rate``, kept
 values scaled by ``1 / (1 - rate)``, zeros at rate 1), but its masks come
@@ -51,7 +52,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -80,7 +81,9 @@ class GPTConfig:
     # ("attn_out", "mlp_out")
     remat_names: tuple = ()
     use_flash_attention: bool = True
-    attn_impl: str = "flash"  # "flash" | "ring" | "ulysses"
+    # "flash" | "ring" | "ulysses" | "gspmd" (parallel/long_context.py)
+    attn_impl: str = "flash"
+    mesh: Any = None  # the DeviceMesh of a mesh strategy (auto_accelerate)
     # fp8 products on the name-filtered projections (models/fp8.py)
     fp8: bool = False
     fp8_filter: tuple = ("c_attn", "c_proj", "c_fc")
@@ -356,7 +359,7 @@ class Block(nn.Module):
             self.moe_mlp = MoEMLP(cfg.n_embd, 4 * cfg.n_embd, MoEConfig(
                 num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
                 capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype),
-                device)
+                device, mesh=cfg.mesh)
         else:
             self.mlp = MLP(cfg, device)
 
@@ -420,9 +423,12 @@ class GPT(nn.Module):
         """With ``dropout > 0`` and ``deterministic=False`` the masks come
         from `generator` (None: torch's default generator), one seed a
         block."""
+        from ..parallel.long_context import seq_offset
+
         cfg = self.config
         T = idx.shape[1]
-        x = self.wte(idx) + self.wpe.embedding[:T].to(cfg.dtype)[None]
+        t0 = seq_offset(cfg.mesh, T)
+        x = self.wte(idx) + self.wpe.embedding[t0:t0 + T].to(cfg.dtype)[None]
         blocks = [getattr(self, f"h_{i}") for i in range(cfg.n_layer)]
         if cfg.remat:
             from ..ops.remat import (

@@ -29,9 +29,10 @@ The model knobs of the JAX config: ``fp8`` with ``fp8_filter`` (the
 seven name-filtered projections as `models.fp8.Fp8Dense`; the lm head
 stays a `Dense`, as flax's), and the five remat policies with
 ``remat_names`` (`ops.remat`; each block anchors ``attn_out`` and
-``mlp_out`` as JAX's `LlamaBlock` does).  "ring" and "ulysses" over a
-mesh raise in `models.attention.attend`; without a mesh they run the
-flash route.
+``mlp_out`` as JAX's `LlamaBlock` does).  "ring", "ulysses" and "gspmd"
+over a mesh are sequence parallel (`parallel.long_context`): each rank
+holds chunk r of the sequence and rotates it from position r * T / sp;
+without a mesh they run the flash route.
 """
 
 from __future__ import annotations
@@ -68,8 +69,9 @@ class LlamaConfig:
     remat_policy: str = "full"  # ops/remat.py policy names
     remat_names: tuple = ()  # () = the models' ("attn_out", "mlp_out")
     use_flash_attention: bool = True
-    attn_impl: str = "flash"  # "flash" | "ring" | "ulysses"
-    mesh: Any = None
+    # "flash" | "ring" | "ulysses" | "gspmd" (parallel/long_context.py)
+    attn_impl: str = "flash"
+    mesh: Any = None  # the DeviceMesh of a mesh strategy (auto_accelerate)
     # fp8 products on the name-filtered projections (models/fp8.py)
     fp8: bool = False
     fp8_filter: tuple = ("q_proj", "k_proj", "v_proj", "o_proj",
@@ -317,10 +319,14 @@ class Llama(nn.Module):
                 for i in range(self.config.num_layers)]
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        from ..parallel.long_context import seq_offset
+
         cfg = self.config
         x = self.embed_tokens(idx)
         cos, sin = rope_freqs(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                               idx.device)
+        t0 = seq_offset(cfg.mesh, idx.shape[1])
+        cos, sin = cos[t0:], sin[t0:]
         blocks = [getattr(self, f"layers_{i}") for i in range(cfg.num_layers)]
         if cfg.remat:
             from ..ops.remat import (

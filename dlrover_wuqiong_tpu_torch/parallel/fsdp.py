@@ -17,13 +17,20 @@ GSPMD inserts the collectives.  Here:
   ``fsdp`` shards), each parameter on the dim of its spec's ``fsdp``
   entry.  A parameter whose spec has no ``fsdp`` stays replicated over
   the data dims, outside FSDP2 (``ignored_params``), and its gradient is
-  averaged over them by `MeshState.reduce_replicated`.
+  averaged over them by `MeshState.reduce_grads`.  With expert parallel
+  (``ep`` > 1) an expert stack first becomes a DTensor over ``ep``
+  (``Shard(0)``: E / ep experts a rank), which FSDP2 then also shards
+  over ``fsdp``; every `models.moe.MoEMLP` gets the mesh (its ``mesh``).
 - `materialize` allocates each rank's pieces and fills them one leaf at a
   time from the model's seeded flax-layout init (``init_leaves``), so a
   rank's shards are bitwise those of the unsharded build with the same
   seed and its peak is its own state plus one full leaf.
 - `MeshState` is what the train step asks of the mesh: the global mean
-  of the loss over the data ranks, optax's ``global_norm`` over the
+  of the loss over the token ranks (dp x fsdp x sp), the gradients
+  averaged over them (FSDP2 averages over dp x fsdp; `reduce_grads` the
+  rest, over ``sp``, and never over ``ep``, whose ranks hold the same
+  tokens and so each the whole gradient of every parameter but their
+  own experts), optax's ``global_norm`` over the
   sharded gradients (each distinct piece counted once), and the
   checkpoint's view of a leaf as this rank's piece of the global leaf
   (`MeshState.piece`), which `checkpoint.shm_handler._leaf_refs` writes
@@ -86,53 +93,68 @@ class MeshState:
         # names, not objects: materializing replaces the parameters
         self.replicated = replicated
         sizes = plan.sizes()
-        self.n_data = sizes["dp"] * sizes["fsdp"]
+        self.n_sp = sizes["sp"]
+        # the ranks that hold other tokens: the data dims and sp
+        self.n_tokens = sizes["dp"] * sizes["fsdp"] * self.n_sp
         self.data_groups = [mesh.get_group(a) for a in ("dp", "fsdp")
                             if sizes[a] > 1]
+        self.sp_groups = [mesh.get_group("sp")] if sizes["sp"] > 1 else []
         self.coord = dict(zip(AXIS_ORDER, mesh.get_coordinate()))
 
     # ---------------------------------------------------------------- step
 
-    def _all_reduce_data(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum `t` over the data ranks (dp x fsdp), in place."""
-        for group in self.data_groups:
-            dist.all_reduce(t, group=group)
-        return t
+    @staticmethod
+    def _mean_over(tensors, groups, n: int) -> None:
+        """Average `tensors` in place over the ranks of `groups` (n of
+        them), one all-reduce a tensor and group (a bf16 gradient is
+        summed in float32, as JAX sums the float32 cotangent before its
+        cast to the parameter's dtype).  Not one flat buffer: with one,
+        the clipped offload build and its on-device twin, which must
+        agree bitwise, parted in the last bits under gloo
+        (tests/test_torch_parallel_optimizers.py)."""
+        if not tensors or n == 1:
+            return
+        for t in tensors:
+            acc = t if t.dtype == torch.float32 else t.float()
+            for group in groups:
+                dist.all_reduce(acc, group=group)
+            acc.div_(n)
+            if acc is not t:
+                t.copy_(acc)
 
     @torch.no_grad()
-    def reduce_replicated(self) -> None:
-        """Average the replicated parameters' gradients over the data
-        ranks, in float32 (FSDP2 reduces the others).  A tensor-parallel
-        gradient is first laid out as its parameter (a Partial or Shard
-        gradient of a replicated parameter is reduced or gathered over
-        ``tp``)."""
+    def reduce_grads(self) -> None:
+        """Average the gradients over the token ranks that FSDP2 did not
+        reduce: a replicated parameter's over dp x fsdp x sp, every other
+        over sp.  A tensor-parallel gradient is first laid out as its
+        parameter (a Partial or Shard gradient of a replicated parameter
+        is reduced or gathered over ``tp``)."""
         params = dict(self.model.named_parameters())
-        for name in self.replicated:
-            p = params[name]
+        replicated, sharded = [], []
+        for name, p in params.items():
             g = p.grad
             if g is None:
                 continue
-            if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+            if name in self.replicated and is_dtensor(g) and \
+                    tuple(g.placements) != tuple(p.placements):
                 g = p.grad = g.redistribute(p.device_mesh, p.placements)
-            if self.n_data > 1:
-                local = g.to_local() if is_dtensor(g) else g
-                # a bf16 gradient is summed in float32, as JAX sums the
-                # float32 cotangent before its cast to the parameter's
-                # dtype
-                acc = local if local.dtype == torch.float32 else local.float()
-                self._all_reduce_data(acc)
-                acc.div_(self.n_data)
-                if acc is not local:
-                    local.copy_(acc)
+            local = g.to_local() if is_dtensor(g) else g
+            (replicated if name in self.replicated else sharded).append(
+                local)
+        self._mean_over(replicated, self.data_groups + self.sp_groups,
+                        self.n_tokens)
+        self._mean_over(sharded, self.sp_groups, self.n_sp)
 
     @torch.no_grad()
     def mean(self, loss: torch.Tensor) -> torch.Tensor:
-        """The mean of a per-rank scalar (the loss of the rank's slice)
-        over the data ranks: the global batch's mean for equal slices."""
-        if self.n_data == 1:
+        """The mean of a per-rank scalar (the loss of the rank's tokens)
+        over the token ranks: the global batch's mean for equal slices."""
+        if self.n_tokens == 1:
             return loss
         out = loss.detach().float().clone()
-        return self._all_reduce_data(out).div_(self.n_data)
+        for group in self.data_groups + self.sp_groups:
+            dist.all_reduce(out, group=group)
+        return out.div_(self.n_tokens)
 
     def _owner(self, t) -> bool:
         """Does this rank count `t`'s piece: coordinate 0 on every mesh
@@ -210,28 +232,23 @@ def shard_model(model: nn.Module, mesh, plan: MeshPlan,
     over ``tp`` (with `tensor_parallel`, or any ``tp`` size above 1),
     then FSDP2 on each block and on the root over the data dims."""
     from torch.distributed.fsdp import fully_shard
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import Shard
 
     specs = planner.param_specs(model)
     tp = tensor_parallel or plan.tp > 1
+    if plan.ep > 1 and tp:
+        raise NotImplementedError(
+            "expert_parallel with tensor_parallel is not ported: the expert "
+            "stacks would be DTensors over (ep, tp)")
     if tp:
-        tp_mesh = mesh["tp"]
-        n, c = plan.tp, tp_mesh.get_local_rank()
         for name, p in list(model.named_parameters()):
-            # the piece by hand (no collective: the tensor is on meta)
-            pl = placements(specs[name], tp_mesh)
-            local = p.data
-            if pl[0].is_shard():
-                local = local.chunk(n, dim=pl[0].dim)[c].contiguous()
-            dt = DTensor.from_local(local, tp_mesh, pl, run_check=False,
-                                    shape=p.shape, stride=p.stride())
-            _set_param(model, name, nn.Parameter(
-                dt, requires_grad=p.requires_grad))
+            _as_dtensor(model, name, p, mesh["tp"], specs[name])
+    elif plan.ep > 1:
+        for name, p in list(model.named_parameters()):
+            if "ep" in _spec_axes(specs[name]):
+                _as_dtensor(model, name, p, mesh["ep"], specs[name])
     by_id = {id(p): n for n, p in model.named_parameters()}
-    replicated = [n for n in specs
-                  if "fsdp" not in [a for part in specs[n] for a in
-                                    (part if isinstance(part, tuple)
-                                     else (part,))]]
+    replicated = [n for n in specs if "fsdp" not in _spec_axes(specs[n])]
     named = dict(model.named_parameters())
     ignored = {named[n] for n in replicated}
 
@@ -256,6 +273,27 @@ def shard_model(model: nn.Module, mesh, plan: MeshPlan,
                 len(specs), plan.describe(), len(replicated),
                 ", tensor parallel" if tp else "")
     return MeshState(model, mesh, plan, planner, replicated)
+
+
+def _spec_axes(spec) -> List[str]:
+    return [a for part in spec if part is not None
+            for a in (part if isinstance(part, tuple) else (part,))]
+
+
+def _as_dtensor(model: nn.Module, name: str, p, sub_mesh, spec) -> None:
+    """Make parameter `name` (on meta) a DTensor over the one-dim
+    `sub_mesh` with the spec's placement there: the piece by hand, no
+    collective."""
+    from torch.distributed.tensor import DTensor
+
+    pl = placements(spec, sub_mesh)
+    local = p.data
+    if pl[0].is_shard():
+        n, c = sub_mesh.size(), sub_mesh.get_local_rank()
+        local = local.chunk(n, dim=pl[0].dim)[c].contiguous()
+    dt = DTensor.from_local(local, sub_mesh, pl, run_check=False,
+                            shape=p.shape, stride=p.stride())
+    _set_param(model, name, nn.Parameter(dt, requires_grad=p.requires_grad))
 
 
 def local_piece(p, full: torch.Tensor) -> torch.Tensor:

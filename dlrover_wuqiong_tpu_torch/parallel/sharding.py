@@ -261,21 +261,19 @@ class ShardingPlanner:
 
     def batch_spec(self, ndim: int = 2, seq_axis: Optional[int] = None,
                    batch_axis: int = 0) -> Spec:
-        """Batch activations: batch dim over (dp, fsdp).  A sequence dim
-        over sp is sequence parallelism, which is not ported (ROADMAP
-        queue 1 item 8b)."""
+        """Batch activations: batch dim over (dp, fsdp), the sequence dim
+        `seq_axis` (if given) over sp."""
         parts: List[Any] = [None] * ndim
         parts[batch_axis] = ("dp", "fsdp")
         if seq_axis is not None and mesh_sizes(self.mesh).get("sp", 1) > 1:
-            raise NotImplementedError(
-                "a sequence dim over sp is sequence parallelism, not "
-                "ported yet (ROADMAP queue 1 item 8b)")
+            parts[seq_axis] = "sp"
         return tuple(parts)
 
     def place_batch(self, batch: Dict[str, Any], batch_axis: int = 0,
                     seq_axis: Optional[int] = None) -> Dict[str, Any]:
         """This rank's slice of every leaf of a global batch (numpy
-        arrays or tensors) along `batch_axis`; leaves without that axis
+        arrays or tensors) along `batch_axis`, and along `seq_axis` over
+        sp for a leaf that has that axis; leaves without the batch axis
         pass whole."""
         sizes, coord = mesh_sizes(self.mesh), self.coordinate()
         out = {}
@@ -283,10 +281,60 @@ class ShardingPlanner:
             if np.ndim(x) <= batch_axis:
                 out[k] = x
                 continue
+            seq = seq_axis if seq_axis is not None and \
+                np.ndim(x) > seq_axis else None
             idx = spec_index(x.shape, self.batch_spec(
-                np.ndim(x), seq_axis, batch_axis), sizes, coord)
+                np.ndim(x), seq, batch_axis), sizes, coord)
             out[k] = x[tuple(slice(a, b) for a, b in idx)]
         return out
+
+
+#: the dims that shard the tokens: the batch over (dp, fsdp), the
+#: sequence over sp
+TOKEN_AXES = ("dp", "fsdp", "sp")
+
+
+def tokens_sharded(mesh) -> bool:
+    """Does `mesh` (or None) split the tokens over more than one rank?"""
+    if mesh is None:
+        return False
+    sizes = mesh_sizes(mesh)
+    return any(sizes.get(a, 1) > 1 for a in TOKEN_AXES)
+
+
+@torch.no_grad()
+def gather_tokens(x: torch.Tensor, mesh) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """Every token rank's `x` (B_l, T_l, ...), this rank's block of the
+    global (B, T) tokens, assembled in the global order: returns (the
+    (B * T, ...) tensor with token b * T + t at row b * T + t, this rank's
+    rows of it).  Ranks of one block (ep, tp) hold the same tokens; every
+    block must have the same shape (the batch divides the data dims).
+    No gradient."""
+    import torch.distributed as dist
+
+    sizes = mesh_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    b, t = x.shape[:2]
+    out = x.contiguous()
+    for a in ("sp", "fsdp", "dp"):  # inner to outer: leading dims dp, fsdp, sp
+        n = sizes.get(a, 1)
+        if n > 1:
+            buf = torch.empty((n * out.shape[0], *out.shape[1:]),
+                              dtype=out.dtype, device=out.device)
+            dist.all_gather_into_tensor(buf, out, group=mesh.get_group(a))
+            out = buf.view(n, *out.shape)
+        else:
+            out = out[None]
+    n_data, sp = sizes.get("dp", 1) * sizes.get("fsdp", 1), sizes.get("sp", 1)
+    rest = x.shape[2:]
+    out = out.reshape(n_data, sp, b, t, *rest).transpose(1, 2)
+    out = out.reshape(n_data * b * sp * t, *rest)
+    block = coord.get("dp", 0) * sizes.get("fsdp", 1) + coord.get("fsdp", 0)
+    rows_b = block * b + torch.arange(b, device=x.device)
+    rows_t = coord.get("sp", 0) * t + torch.arange(t, device=x.device)
+    rows = (rows_b[:, None] * (sp * t) + rows_t[None, :]).reshape(-1)
+    return out, rows
 
 
 def redistribute(x, mesh, spec: Spec):

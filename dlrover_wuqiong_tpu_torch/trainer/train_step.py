@@ -422,7 +422,7 @@ def make_train_step(loss_fn: Callable[[torch.nn.Module, Dict], torch.Tensor],
             loss = accumulate_grads(grad_fn, model, batch, accum_steps)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if mesh is not None:
-            mesh.reduce_replicated()
+            mesh.reduce_grads()
             grads = [p.grad for p in model.parameters()
                      if p.grad is not None]
             gnorm = mesh.global_norm(grads)

@@ -5,9 +5,9 @@
   same model family (dtypes mapped jnp -> torch), the same accumulation
   steps, and a rebuilt model that carries them.
 - Every JAX strategy name the port does not take yet raises naming its
-  ROADMAP item (expert_parallel 8a part 2, sequence_parallel 8b,
-  pipeline_parallel, local_sgd and hsdp 8c); the mesh strategies of 8a
-  part 1 size the plan as JAX's do, and without a process group
+  ROADMAP item (pipeline_parallel, local_sgd and hsdp 8c); the mesh
+  strategies of item 8a (expert_parallel too) and 8b
+  (sequence_parallel) size the plan as JAX's do, and without a process group
   auto_accelerate asks for one; the optimizer strategies resolve as
   JAX's do and build bf16 parameters or an offloaded state; an unknown
   name raises JAX's message word for word; a bad remat policy raises
@@ -31,6 +31,7 @@ from dlrover_wuqiong_tpu_torch.models import fp8 as tfp8
 from dlrover_wuqiong_tpu_torch.models import gpt as tgpt
 from dlrover_wuqiong_tpu_torch.models import llama as tllama
 from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 FAMILIES = {"gpt": (jgpt.GPT, jgpt.GPTConfig, tgpt.GPT, tgpt.GPTConfig),
@@ -99,10 +100,8 @@ def test_auto_accelerate_rebuilds_the_model_with_the_overrides():
     assert res.accum_steps == 3
 
 
-NOT_PORTED = {"expert_parallel": "8a part 2",
-              "sequence_parallel": "8b", "pipeline_parallel": "8c",
-              "local_sgd": "8c", "hsdp": "8c"}
-#: the mesh strategies of item 8a part 1 (a world of 8)
+NOT_PORTED = {"pipeline_parallel": "8c", "local_sgd": "8c", "hsdp": "8c"}
+#: the mesh strategies of items 8a and 8b (a world of 8)
 MESH = {"fsdp": [("fsdp", {})], "zero2": [("zero2", {"size": 16})],
         "zero3": [("zero3", {})], "data_parallel": [("data_parallel", {})],
         "ddp": [("ddp", {"size": 8})],
@@ -110,7 +109,13 @@ MESH = {"fsdp": [("fsdp", {})], "zero2": [("zero2", {"size": 16})],
         "tensor_parallel": [("tensor_parallel", {"size": 2}), ("fsdp", {})],
         "tp_dp": [("tensor_parallel", {"size": 2}), ("data_parallel", {})],
         "multi_slice": [("multi_slice", {"slices": 2, "tp": 2})],
-        "multi_slice_4": [("multi_slice", {"slices": 4})]}
+        "multi_slice_4": [("multi_slice", {"slices": 4})],
+        # the last two mesh dims (items 8a part 2 and 8b)
+        "expert_parallel": [("expert_parallel", {"size": 4}),
+                            ("fsdp", {})],
+        "sequence_parallel": [("sequence_parallel", {"size": 4,
+                                                     "impl": "ring"}),
+                              ("fsdp", {})]}
 #: the optimizer strategies (ROADMAP item 9) and the context each sets
 OPTIMIZER_STRATEGIES = {
     "stable_bf16": ("stable_bf16", {"master": False}),

@@ -53,6 +53,7 @@ from dlrover_wuqiong_tpu_torch.optimizers import (
     reset_compensation,
 )
 from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+from torch_threads import one_torch_thread  # noqa: F401
 
 jbf = sys.modules["dlrover_wuqiong_tpu.optimizers.bf16_stable"]
 jlow = sys.modules["dlrover_wuqiong_tpu.optimizers.low_bit"]

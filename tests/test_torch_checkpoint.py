@@ -76,6 +76,7 @@ from dlrover_wuqiong_tpu_torch.trainer.train_step import (
     make_lm_loss,
     make_train_step,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB, SEQ, BATCH = 512, 32, 4
 RTOL = 1e-4  # tests/test_torch_train_step.py's, for adamw steps

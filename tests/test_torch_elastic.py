@@ -57,6 +57,7 @@ from dlrover_wuqiong_tpu_torch.master.master import JobMaster
 from dlrover_wuqiong_tpu_torch.master.rendezvous import (
     ElasticTrainingRendezvousManager,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOCK = os.path.join(REPO, "dlrover_wuqiong_tpu", "analysis",

@@ -9,6 +9,7 @@ minute alone.
 """
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: torch threads of a drill's processes on the CPU.  Under a parallel
 #: test run (several xdist workers on a few cores) a drill's trainer at

@@ -23,6 +23,7 @@ import torch
 
 from dlrover_wuqiong_tpu.ops import flash_attention as jfa
 from dlrover_wuqiong_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
 BWD_TOL = 5e-4

@@ -41,6 +41,7 @@ from dlrover_wuqiong_tpu_torch.models import fp8 as tfp8
 from dlrover_wuqiong_tpu_torch.models import gpt as tgpt
 from dlrover_wuqiong_tpu_torch.models import llama as tllama
 from dlrover_wuqiong_tpu_torch.ops import quantization as tq
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, T = 2, 32
 FP8 = {"e4m3": (jq.E4M3, tq.E4M3), "e5m2": (jq.E5M2, tq.E5M2)}

@@ -24,6 +24,7 @@ from dlrover_wuqiong_tpu.rl import generation as jgen
 from dlrover_wuqiong_tpu_torch.convert import params_from_jax
 from dlrover_wuqiong_tpu_torch.models.gpt import GPTConfig, init_params
 from dlrover_wuqiong_tpu_torch.rl import generation as tgen
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

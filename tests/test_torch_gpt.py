@@ -40,6 +40,7 @@ from dlrover_wuqiong_tpu_torch.serving import (
     ServeSpec,
     ServingEngine,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, T = 2, 32
 

@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from dlrover_wuqiong_tpu_torch import _build
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "dlrover_wuqiong_tpu_torch")
@@ -99,8 +100,9 @@ def _package_modules():
     return sorted(mods)
 
 
-#: the mesh strategies' modules (ROADMAP item 8a, part 1)
-PARALLEL = ("parallel.mesh", "parallel.sharding", "parallel.fsdp")
+#: the mesh strategies' modules (ROADMAP items 8a and 8b)
+PARALLEL = ("parallel.mesh", "parallel.sharding", "parallel.fsdp",
+            "parallel.long_context")
 
 
 def test_import_loads_no_jax_and_no_cuda():

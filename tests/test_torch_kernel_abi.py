@@ -20,6 +20,7 @@ import pytest
 from dlrover_wuqiong_tpu_torch import _build
 from dlrover_wuqiong_tpu_torch.ops import flash_attention as tfa
 from dlrover_wuqiong_tpu_torch.ops import quantization as tq
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKG = os.path.dirname(os.path.abspath(_build.__file__))
 TABLES = {"flash_attention": tfa._SIGNATURES,

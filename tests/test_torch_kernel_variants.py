@@ -15,6 +15,7 @@ import pytest
 import fa_bwd_variants
 import fa_fwd_variants
 import int8_variants
+from torch_threads import one_torch_thread  # noqa: F401
 
 SCRIPTS = {"fa_fwd_variants": fa_fwd_variants,
            "fa_bwd_variants": fa_bwd_variants,

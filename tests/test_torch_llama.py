@@ -51,6 +51,7 @@ from dlrover_wuqiong_tpu_torch.convert import (
 from dlrover_wuqiong_tpu_torch.models import gpt as tgpt
 from dlrover_wuqiong_tpu_torch.models import llama as tllama
 from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, T = 2, 32
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -320,15 +321,18 @@ def test_export_load_round_trip_is_bitwise(jparams):
 
 def test_unported_config_values_raise():
     """fp8 and every remat policy build (test_model_knobs_build_and_run);
-    an unknown remat policy and "ring" over a mesh still raise."""
+    an unknown remat policy still raises.  "ring" over a mesh is ported
+    (tests/test_torch_long_context.py): over a mesh whose sp is 1 it is
+    the flash route, bitwise."""
     with pytest.raises(ValueError, match="unknown remat policy"):
         tllama.Llama(dataclasses.replace(tllama.LlamaConfig.nano(),
                                          remat=True, remat_policy="dotz"))
     cfg = dataclasses.replace(tllama.LlamaConfig.nano(), attn_impl="ring",
-                              mesh=object())
+                              mesh={"sp": 1})
     model = tllama.Llama(cfg).init_params(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        model(torch.zeros((1, 8), dtype=torch.int64))
+    flash = tllama.Llama(tllama.LlamaConfig.nano()).init_params(device="cpu")
+    idx = torch.arange(8, dtype=torch.int64)[None]
+    assert torch.equal(model(idx), flash(idx))
 
 
 @pytest.mark.parametrize("knob", [

@@ -72,6 +72,7 @@ from dlrover_wuqiong_tpu_torch.master import journal as tjournal
 from dlrover_wuqiong_tpu_torch.master import task_manager as ttm
 from dlrover_wuqiong_tpu_torch.master.__main__ import main as master_main
 from dlrover_wuqiong_tpu_torch.master.master import JobMaster
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOCK = os.path.join(REPO, "dlrover_wuqiong_tpu", "analysis",

@@ -26,6 +26,7 @@ from dlrover_wuqiong_tpu_torch.models import gpt as tgpt
 from dlrover_wuqiong_tpu_torch.models import llama as tllama
 from dlrover_wuqiong_tpu_torch.parallel import mesh as tmesh
 from dlrover_wuqiong_tpu_torch.parallel import sharding as tsharding
+from torch_threads import one_torch_thread  # noqa: F401
 
 GIB = 1 << 30
 AUTO_CASES = {
@@ -175,7 +176,12 @@ def test_spec_index_is_jax_device_slices(spec):
 
 
 def test_batch_spec_raises_for_a_sequence_mesh():
+    """A sequence dim over sp no longer raises (ROADMAP item 8b is
+    ported): the batch specs of a mesh with sp 2 are JAX's."""
     planner = tsharding.ShardingPlanner({"sp": 2})
-    assert planner.batch_spec(2) == (("dp", "fsdp"), None)
-    with pytest.raises(NotImplementedError, match="8b"):
-        planner.batch_spec(2, seq_axis=1)
+    jm = jmesh.build_mesh(jmesh.MeshPlan(sp=2, fsdp=4))
+    jplanner = jsharding.ShardingPlanner(jm)
+    for args in ((2,), (2, 1), (3, 2, 1)):
+        want = tuple(jplanner.batch_spec(*args))
+        assert planner.batch_spec(*args) == want, args
+    assert planner.batch_spec(2, seq_axis=1) == (("dp", "fsdp"), "sp")

@@ -38,6 +38,7 @@ from dlrover_wuqiong_tpu_torch.convert import export_params, load_params
 from dlrover_wuqiong_tpu_torch.models import gpt as tgpt
 from dlrover_wuqiong_tpu_torch.models import moe as tmoe
 from dlrover_wuqiong_tpu_torch.trainer.train_step import adamw, make_lm_loss
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, T, E = 2, 32, 4
 

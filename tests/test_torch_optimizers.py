@@ -64,6 +64,7 @@ from dlrover_wuqiong_tpu_torch.trainer.train_step import (
     adamw,
     make_lm_loss,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 jlow = sys.modules["dlrover_wuqiong_tpu.optimizers.low_bit"]
 jmup = sys.modules["dlrover_wuqiong_tpu.optimizers.mup"]

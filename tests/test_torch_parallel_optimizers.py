@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import torch_world as tw
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 

@@ -30,6 +30,7 @@ from dlrover_wuqiong_tpu.checkpoint.shm_handler import (
 )
 from dlrover_wuqiong_tpu.models import gpt as jgpt
 from dlrover_wuqiong_tpu.models import llama as jllama
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 SMALL_LR = 1e-4

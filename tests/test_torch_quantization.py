@@ -22,6 +22,7 @@ from jax.experimental import pallas as pl
 
 from dlrover_wuqiong_tpu.ops import quantization as jq
 from dlrover_wuqiong_tpu_torch.ops import quantization as tq
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK = 256
 

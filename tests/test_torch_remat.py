@@ -41,6 +41,7 @@ from dlrover_wuqiong_tpu_torch.convert import load_params
 from dlrover_wuqiong_tpu_torch.models import gpt as tgpt
 from dlrover_wuqiong_tpu_torch.models import llama as tllama
 from dlrover_wuqiong_tpu_torch.ops import remat as tremat
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, T = 2, 32
 POLICIES = ["full", "dots", "offload_dots", "save_names", "offload_names"]

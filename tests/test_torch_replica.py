@@ -63,6 +63,7 @@ from dlrover_wuqiong_tpu_torch.trainer.train_step import (
     make_lm_loss,
     make_train_step,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 HEADER = 1 << 20
 VOCAB, SEQ, BATCH = 512, 32, 4

@@ -43,6 +43,7 @@ from dlrover_wuqiong_tpu_torch.serving import (
 )
 from dlrover_wuqiong_tpu_torch.telemetry import serving as ttel
 from dlrover_wuqiong_tpu_torch.telemetry import spans as tspans
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPEC = dict(max_slots=2, max_len=48, max_prompt_len=8, fused_tokens=4)
 

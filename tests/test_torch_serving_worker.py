@@ -75,6 +75,7 @@ from dlrover_wuqiong_tpu_torch.serving import (
 from dlrover_wuqiong_tpu_torch.telemetry import recorder as trec
 from dlrover_wuqiong_tpu_torch.telemetry import spans as tspans
 from dlrover_wuqiong_tpu_torch.telemetry.serving import ServeLedger
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOCK = os.path.join(REPO, "dlrover_wuqiong_tpu", "analysis",

@@ -63,6 +63,7 @@ from dlrover_wuqiong_tpu_torch.master.servicer import (
     NotLeaderError,
 )
 from dlrover_wuqiong_tpu_torch.telemetry import timeline as ttl
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TTL = 0.5

@@ -40,6 +40,7 @@ from dlrover_wuqiong_tpu_torch.master import journal as tjournal
 from dlrover_wuqiong_tpu_torch.master.master import JobMaster
 from dlrover_wuqiong_tpu_torch.telemetry import recorder as trec
 from dlrover_wuqiong_tpu_torch.telemetry import timeline as ttl
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOCK = os.path.join(REPO, "dlrover_wuqiong_tpu", "analysis",

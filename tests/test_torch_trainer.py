@@ -60,6 +60,7 @@ from dlrover_wuqiong_tpu_torch.trainer.trainer import (
     TrainingArgs,
     make_schedule,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB, SEQ, BATCH, STEPS = 512, 32, 8, 8
 RTOL = 1e-4

@@ -1,33 +1,32 @@
 """Gloo worlds of CPU processes for the port's mesh tests.
 
 `run_world(n, fn, *args)` spawns `n` processes, joins them into a
-``torch.distributed`` world over gloo (a free localhost port), runs
-``fn(rank, n, *args)`` on every rank and returns the ranks' results in
-rank order.  A rank that raises ends the world and the call re-raises
-its traceback.  Every rank imports this module and `fn`'s, so neither
-may import JAX: the JAX side of a comparison runs in the test process.
+``torch.distributed`` world over gloo (its store a file in the world's
+temporary directory: no port to race for), runs ``fn(rank, n, *args)`` on
+every rank and returns the ranks' results in rank order.  A rank that
+raises ends the world and the call re-raises its traceback; a world that
+has not finished by its deadline is killed and the call raises.  Every
+rank imports this module and `fn`'s, so neither may import JAX: the JAX
+side of a comparison runs in the test process.
 """
 
 import datetime
 import os
-import socket
 import tempfile
+import time
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+#: seconds a world may take before its ranks are killed
+WORLD_DEADLINE_S = 600
 
 
-def _entry(rank, world, port, outdir, fn, args):
+def _entry(rank, world, store_path, outdir, fn, args):
     torch.set_num_threads(1)
     dist.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        "gloo", store=dist.FileStore(store_path, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=120))
     try:
         result = fn(rank, world, *args)
@@ -36,11 +35,25 @@ def _entry(rank, world, port, outdir, fn, args):
         dist.destroy_process_group()
 
 
-def run_world(world: int, fn, *args):
-    """[fn(rank, world, *args) for each rank], run in a gloo world."""
+def run_world(world: int, fn, *args, deadline_s: float = WORLD_DEADLINE_S):
+    """[fn(rank, world, *args) for each rank], run in a gloo world that
+    must end within `deadline_s`."""
     with tempfile.TemporaryDirectory() as outdir:
-        mp.spawn(_entry, args=(world, free_port(), outdir, fn, args),
-                 nprocs=world, join=True)
+        ctx = mp.spawn(_entry, args=(world, os.path.join(outdir, "store"),
+                                     outdir, fn, args),
+                       nprocs=world, join=False)
+        end = time.monotonic() + deadline_s
+        try:
+            while not ctx.join(timeout=max(0.0, end - time.monotonic())):
+                if time.monotonic() >= end:
+                    raise TimeoutError(
+                        f"a gloo world of {world} running {fn.__name__} "
+                        f"did not end within {deadline_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
         return [torch.load(os.path.join(outdir, f"rank{r}.pt"),
                            weights_only=False) for r in range(world)]
 
@@ -62,16 +75,17 @@ def host_batches(steps: int = STEPS, seed: int = 0):
     return out
 
 
-def port_model(family: str):
+def port_model(family: str, **overrides):
+    """A nano model in float32, its config fields `overrides` replaced."""
     import dataclasses
 
     from dlrover_wuqiong_tpu_torch.models import gpt, llama
 
     if family == "gpt":
         return gpt.GPT(dataclasses.replace(gpt.GPTConfig.nano(),
-                                           dtype=torch.float32))
+                                           dtype=torch.float32, **overrides))
     return llama.Llama(dataclasses.replace(llama.LlamaConfig.nano(),
-                                           dtype=torch.float32))
+                                           dtype=torch.float32, **overrides))
 
 
 def port_optimizer(name: str, lr: float = None):
@@ -124,14 +138,15 @@ def plant(state, fault: str, rank: int) -> None:
 
 
 def train(family, strategy, opt="adamw", init=None, steps=STEPS,
-          device="cpu", materialize=True, lr=None, fault=None, rank=0):
-    """`auto_accelerate` of a nano model in float32 (``half`` off) over
-    `strategy`, `init` (a flat global state) loaded through `load_tree`,
-    then `steps` steps on `host_batches`: (result, [(loss, grad_norm)]).
-    `fault` plants one of `plant`'s faults."""
+          device="cpu", materialize=True, lr=None, fault=None, rank=0,
+          overrides=None):
+    """`auto_accelerate` of a nano model in float32 (``half`` off, config
+    `overrides`) over `strategy`, `init` (a flat global state) loaded
+    through `load_tree`, then `steps` steps on `host_batches`: (result,
+    [(loss, grad_norm)]).  `fault` plants one of `plant`'s faults."""
     from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
 
-    res = auto_accelerate(port_model(family),
+    res = auto_accelerate(port_model(family, **(overrides or {})),
                           optimizer=port_optimizer(opt, lr),
                           device=device, seed=0, materialize=materialize,
                           strategy=list(strategy)
@@ -158,12 +173,21 @@ def full_params(model):
     return out
 
 
-def parity_cases(rank, world, cases, inits):
-    """Each case (key, family, strategy, opt, lr): the metrics on every
-    rank and the final global parameters on rank 0."""
+def aux_loss(model) -> float:
+    """The MoE aux loss of the model's last forward (0 without experts)."""
+    from dlrover_wuqiong_tpu_torch.models.moe import collect_moe_aux_loss
+
+    return float(collect_moe_aux_loss(getattr(model, "intermediates", {})))
+
+
+def parity_cases(rank, world, cases, inits, overrides=None):
+    """Each case (key, family, strategy, opt, lr), its model config
+    `overrides[key]` if any: the metrics on every rank and the final
+    global parameters on rank 0."""
     out = {}
     for key, family, strategy, opt, lr in cases:
-        res, metrics = train(family, strategy, opt, inits.get(key), lr=lr)
+        res, metrics = train(family, strategy, opt, inits.get(key), lr=lr,
+                             overrides=(overrides or {}).get(key))
         params = full_params(res.model)
         out[key] = {"metrics": metrics,
                     "params": params if rank == 0 else None,
@@ -437,15 +461,111 @@ def ckpt_read_world(rank, world, strategy, ckdir, job):
             "loss": m["loss"].item(), "step": int(fresh.state.step)}
 
 
-def _fresh(strategy, seed=1):
+def _fresh(strategy, seed=1, overrides=None):
     from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
 
-    return auto_accelerate(port_model("gpt"), optimizer=port_optimizer(
-        "adamw"), device="cpu", seed=seed,
-        strategy=list(strategy) + [("half", {"enabled": False})])
+    return auto_accelerate(port_model("gpt", **(overrides or {})),
+                           optimizer=port_optimizer("adamw"), device="cpu",
+                           seed=seed, strategy=list(strategy)
+                           + [("half", {"enabled": False})])
 
 
 def np_equal(a, b) -> bool:
     import numpy as np
 
     return a.shape == b.shape and np.array_equal(a, b)
+
+
+# ------------------------------------------------- expert parallel cases
+
+
+def expert_cases(rank, world, cases, inits, ckdir, job):
+    """Each case (key, strategy, overrides, lr): GPT nano with experts
+    from `inits[key]`: the metrics and the first forward's aux loss on
+    every rank, the final global parameters on rank 0, and the global
+    index of this rank's piece of every expert stack.  Then the
+    ``ckpt`` build (ep 4 + fsdp): 2 steps, the names this rank writes, a
+    save to storage, 2 more steps; a fresh build (another seed)
+    restores the save and takes the same 2 steps."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import StorageType
+    from dlrover_wuqiong_tpu_torch.parallel.fsdp import is_dtensor
+    from dlrover_wuqiong_tpu_torch.parallel.sharding import dtensor_layout
+
+    out = {}
+    for key, strategy, overrides, lr in cases:
+        res, metrics = train("gpt", strategy, init=inits.get(key), lr=lr,
+                             steps=1, overrides=overrides)
+        aux = aux_loss(res.model)
+        for b in host_batches()[1:]:
+            res.state, m = res.train_step(res.state, res.place_batch(b))
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        layout = {n: dtensor_layout(p)[0] if is_dtensor(p) else None
+                  for n, p in res.model.named_parameters()
+                  if "experts_" in n}
+        params = full_params(res.model)
+        out[key] = {"metrics": metrics, "aux": aux, "layout": layout,
+                    "params": params if rank == 0 else None,
+                    "plan": res.strategy.plan.describe()}
+    strategy, overrides = EP_CKPT
+    res, _ = train("gpt", strategy, steps=2, overrides=overrides)
+    tree = res.state.tree()
+    refs = leaf_refs(tree)
+    ck = checkpointer(ckdir, job, rank, world)
+    ck.save_checkpoint(2, tree, StorageType.DISK)
+    assert ck.wait_latest_checkpoint(120)
+    after = []
+    for b in host_batches(4)[2:]:
+        res.state, m = res.train_step(res.state, res.place_batch(b))
+        after.append((m["loss"].item(), m["grad_norm"].item()))
+    want = full_params(res.model)
+    fresh = _fresh(strategy, overrides=overrides)
+    assert ck.load_checkpoint(fresh.state.tree()) is not None
+    tier = ck.last_restore_report.get("tier")
+    resumed = []
+    for b in host_batches(4)[2:]:
+        fresh.state, m = fresh.train_step(fresh.state, fresh.place_batch(b))
+        resumed.append((m["loss"].item(), m["grad_norm"].item()))
+    got = full_params(fresh.model)
+    ck.close()
+    _stop_saver()
+    out["ckpt"] = {"refs": refs, "after": after, "resumed": resumed,
+                   "tier": tier, "step": int(fresh.state.step),
+                   "bitwise": all(np_equal(got[n], want[n]) for n in want)}
+    return out
+
+
+#: GPT nano with 4 experts (a capacity factor of 1: tokens overflow)
+MOE = {"moe_experts": 4, "moe_capacity_factor": 1.0}
+#: the checkpoint's build: its pieces' names against JAX's, its resume
+EP_CKPT = ([("expert_parallel", {"size": 4}), ("fsdp", {})], MOE)
+
+
+# ------------------------------------------------- sequence parallel cases
+
+
+def sp_attention(rank, world, q, k, v, impls):
+    """Each impl of `impls`, causal and full, over an sp world of `world`
+    (this rank's chunk of the global numpy q, k, v (b, h, S, d)): this
+    rank's output and its chunk of the gradients of the global sum of
+    squares."""
+    from dlrover_wuqiong_tpu_torch.parallel.long_context import SP_ATTENTION
+    from dlrover_wuqiong_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+
+    mesh = build_mesh(MeshPlan(sp=world), "cpu")
+    out = {}
+    for impl in impls:
+        for causal in (True, False):
+            qkv = [torch.from_numpy(x).chunk(world, 2)[rank].clone()
+                   .requires_grad_() for x in (q, k, v)]
+            o = SP_ATTENTION[impl](*qkv, mesh, causal=causal)
+            (o ** 2).sum().backward()
+            out[impl, causal] = [o.detach().numpy()] + [
+                t.grad.numpy() for t in qkv]
+    return out
+
+
+def long_context_world(rank, world, q, k, v, impls, cases, inits,
+                       overrides):
+    """The world-side cases of tests/test_torch_long_context.py."""
+    return {"attention": sp_attention(rank, world, q, k, v, impls),
+            "training": parity_cases(rank, world, cases, inits, overrides)}
