@@ -190,20 +190,20 @@ Phases, in order; a failure in any of them exits non-zero:
    the first resumed step) and the goodput fractions.  Its directories
    and segments go whether it passes or fails.
 9. The node-loss drill (``trainer.drill.node_loss_drill``): each rank's
-   uninterrupted run in this process (GPT-2 124M at B = 8, T = 1024, 16
+   uninterrupted run in this process (GPT-2 124M at B = 8, T = 1024, 12
    steps, warmup 4, tokens from (seed, step, rank); `NODE_LOSS_KNOBS`),
    then two ``python
    -m dlrover_wuqiong_tpu_torch.run --nnodes=2`` launchers against an
    in-process port master with ``DWT_CTX_CHECKPOINT_REPLICA=1``, their
    workers the same Trainers on the card in a gloo world (NCCL refuses
-   two ranks on one card), a shm stage every 4 steps and a disk save
-   (persist, then the ring backup) every 8.  After step 8 is committed
+   two ranks on one card), a shm stage every 3 steps and a disk save
+   (persist, then the ring backup) every 6.  After step 6 is committed
    and node 0's ReplicaServer holds node 1's segment of it, node 1's
    agent and worker are SIGKILLed, its segment unlinked, and a fresh
    node-1 launcher started.  Checks (`node_loss_checks`): both launchers
-   exit 0, step 16 committed, node 1's new agent spans and logs a ring
-   restore of step 8 from rank 0's holder, node 1's new worker resumes
-   from tier ``shm`` at step 8 with no storage read, node 0 from its own
+   exit 0, step 12 committed, node 1's new agent spans and logs a ring
+   restore of step 6 from rank 0's holder, node 1's new worker resumes
+   from tier ``shm`` at step 6 with no storage read, node 0 from its own
    shm, every loss of both ranks bitwise its uninterrupted run's, 12 + 12
    flash launches a step in every worker.  Prints node 1's time from the
    loss to its first resumed step by part, each ring backup, each
@@ -326,7 +326,8 @@ Phases, in order; a failure in any of them exits non-zero:
    a time, 2 warm-up and 5 timed steps: every mesh build's parameters
    DTensors on the card, its losses and final parameters bitwise the
    plain build's, 12 + 12 flash launches a step; ms a step, tokens/s,
-   peak and the device ms in NCCL kernels (profiler, 2 steps).  14.3:
+   peak and the device ms in NCCL kernels (profiler, one step of the
+   fsdp and tensor_parallel builds).  14.3:
    the fsdp build's state saved to shm through FlashCheckpointer (its
    leaf names the plain build's: whole pieces in a world of one) and
    restored into an fsdp build from another seed; the next step's loss
@@ -348,6 +349,22 @@ Phases, in order; a failure in any of them exits non-zero:
    expert_parallel 1 + fsdp and Llama-3 8B at 4 layers under
    sequence_parallel (ring, 1) + fsdp, in phase 14's NCCL world of one,
    bitwise their plain builds (size 1 falls through, as in JAX).
+16. Checkpoint interop and local SGD (``chip_smoke.interop_phase``,
+   runnable alone).  16.1: GPT-2 124M at phase 4b's build under fsdp
+   with adamw8bit in an NCCL world of one of its own, 3 steps, a flash
+   save to disk, `export_dcp` of it, `load_dcp` into a fresh build
+   (every leaf of the checkpoint tree bitwise), a timed `save_dcp` and
+   `load_dcp` (wall and bytes), then 2 steps of the trained and the
+   loaded builds, bitwise.  16.2: local SGD (DiLoCo) on GPT-2 124M,
+   two replica groups emulated in this process (the gloo tests' body,
+   the sum over the groups a sum of tensors), B = 8 a group, a sync
+   every 4 of 12 steps, mean and then GTA: the groups bitwise equal
+   after every sync, the rounds' mean losses falling, 12 + 12 flash
+   launches a group and step; an inner and a sync step's ms beside a
+   plain GPT-2 step at B = 8.  16.3: the CPU path's streamed attention
+   scans, called on CUDA tensors at Llama-3 8B's (32, 4096, 4096, 128)
+   causal, within `FA_TOL` of kernels 1, 3 and 4 (lse within
+   `FA_LSE_TOL`), their peak memory beside the dense plain version's.
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2713,10 +2730,10 @@ def elastic_phase(torch, tfa) -> tuple:
 #: the node-loss drill's batch: two GPT-2 124M trainers share the card
 NODE_LOSS_B = 8
 #: phase 9's drill, cut from `trainer.drill.NODE_LOSS` (30 steps, node 1
-#: lost after step 20) to 16 steps, node 1 lost after step 8, so the
-#: script stays under ~900 s
-NODE_LOSS_KNOBS = dict(max_steps=16, warmup=4, save_steps=8,
-                       stage_steps=4, lose_after=8)
+#: lost after step 20) to 12 steps, node 1 lost after step 6 (a stage
+#: every 3 steps, a save every 6), so the script stays under ~900 s
+NODE_LOSS_KNOBS = dict(max_steps=12, warmup=4, save_steps=6,
+                       stage_steps=3, lose_after=6)
 
 
 def node_loss_phase(torch, tfa) -> tuple:
@@ -3470,8 +3487,7 @@ STABLE_LOSS_RTOL = 2e-2
 OPT_WARMUP, OPT_TIMED = 1, 3
 # 13.2's builds whose optimizer device ms a profiled step reads (the
 # others print "not profiled"): the script's wall stays under ~900 s
-OPT_PROFILED = ("adamw", "adamw8bit", "optimizer_offload",
-                "stable_bf16_offload")
+OPT_PROFILED = ("adamw8bit", "stable_bf16_offload")
 # 13.4: Llama-3 8B at 24 of its 32 layers under stable_bf16 + adamw8bit
 OPT_LLAMA_LAYERS, OPT_LLAMA_WARMUP, OPT_LLAMA_TIMED = 24, 1, 3
 
@@ -4048,6 +4064,9 @@ MESH_BUILDS = {
     "tp1_fsdp": [("tensor_parallel", {"size": 1}), ("fsdp", {})],
 }
 MESH_WARMUP, MESH_TIMED, MESH_PROFILED = 1, 3, 1
+#: 14.1's builds profiled (NCCL and busy device ms; the others print
+#: "not profiled"): the DTensor routes, so the script stays near 900 s
+MESH_PROFILED_BUILDS = ("fsdp", "tp1_fsdp")
 MESH_LLAMA_WARMUP, MESH_LLAMA_TIMED = 1, 3
 #: 14.4: the world Llama-3 8B's training state is sharded over, computed
 MESH_FIT_WORLD = 8
@@ -4136,11 +4155,12 @@ def _local(t):
 def mesh_gpt2(torch, tfa) -> tuple:
     """14.1: GPT-2 124M (phase 4b's build) plain, then under each of
     `MESH_BUILDS`, then plain again, one build at a time from one seed on
-    one batch: MESH_WARMUP + MESH_TIMED steps, their peak, then
-    MESH_PROFILED profiled steps.  Every mesh build's parameters are
-    DTensors on the card, its losses and final parameters bitwise the
-    plain build's, 12 + 12 flash launches a step.  Returns (report,
-    timed launches, the fsdp build kept for 14.3)."""
+    one batch: MESH_WARMUP + MESH_TIMED steps, their peak, then (for
+    `MESH_PROFILED_BUILDS`) MESH_PROFILED profiled steps.  Every mesh
+    build's parameters are DTensors on the card, its losses and its
+    parameters after the timed steps bitwise the plain build's, 12 + 12
+    flash launches a step.  Returns (report, timed launches, the fsdp
+    build kept for 14.3)."""
     import dataclasses
     import gc
 
@@ -4172,7 +4192,6 @@ def mesh_gpt2(torch, tfa) -> tuple:
                "ms_per_step": ms, "tokens_per_s": TRAIN_B * TRAIN_T / ms
                * 1e3, "peak_bytes": peak,
                "plan": res.strategy.plan.describe()}
-        row.update(nccl_profile(torch, res, batch, MESH_PROFILED))
         params = [p for _, p in res.model.named_parameters()]
         dtensors = sum(is_dtensor(p) for p in params)
         row["dtensor_params"] = dtensors
@@ -4195,6 +4214,11 @@ def mesh_gpt2(torch, tfa) -> tuple:
             check(same_l and same_p, f"14.1 {name}: losses {row['losses']}"
                   f" against the plain build's {plain[0]}, parameters "
                   f"bitwise {same_p}")
+        # after the comparison: a profiled step moves the parameters
+        row.update(nccl_profile(torch, res, batch, MESH_PROFILED)
+                   if name in MESH_PROFILED_BUILDS else
+                   {"nccl_ms_per_step": "not profiled",
+                    "device_busy_ms_per_step": "not profiled"})
         out[name] = row
         if name == "fsdp":
             kept = res
@@ -4725,6 +4749,322 @@ def print_long_context(lc: dict):
           + ", ".join(f"{k} {v:.1f}" for k, v in w.items()) + ")")
 
 
+# ------------------------------------------------------------- phase 16
+
+#: 16.1: steps before the flash save, and after the restore
+INTEROP_BEFORE, INTEROP_AFTER = 3, 2
+#: 16.2: DiLoCo over two emulated replica groups of GPT-2 124M, each on
+#: its own batch of DILOCO_B rows; a sync every DILOCO_SYNC steps
+DILOCO_B, DILOCO_SYNC, DILOCO_STEPS, DILOCO_GROUPS = 8, 4, 12, 2
+#: 16.2: timed plain steps of one group's build (its inner step alone)
+DILOCO_PLAIN = 3
+
+
+def tree_locals(tree) -> dict:
+    """{checkpoint name: the local tensor} of a state's checkpoint tree
+    (a MeshPiece's local piece)."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.shm_handler import (
+        MeshPiece,
+        flatten_state_dict,
+    )
+
+    return {n: (v.local if isinstance(v, MeshPiece) else v)
+            for n, v in flatten_state_dict(tree).items()}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def interop_dcp(torch, tfa) -> tuple:
+    """16.1: GPT-2 124M (phase 4b's build) under fsdp in phase 14's NCCL
+    world of one with adamw8bit: INTEROP_BEFORE steps, a flash save to
+    disk, `export_dcp` of it (a fresh build as the template), `load_dcp`
+    into another fresh build (every leaf of its checkpoint tree bitwise
+    the trained state's), a timed `save_dcp` and `load_dcp` of the state
+    (wall and bytes), then INTEROP_AFTER steps of the trained and the
+    loaded builds: losses and parameters bitwise.  Returns (report,
+    flash launches of its steps)."""
+    import dataclasses
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.optimizers import adamw8bit
+
+    cfg = dataclasses.replace(GPTConfig.gpt2(), remat=False)
+    batch = train_batch(torch, 50257)
+
+    def build(seed):
+        return auto_accelerate(GPT(cfg), seed=seed,
+                               optimizer=adamw8bit(3e-4, weight_decay=1e-4),
+                               strategy=[("fsdp", {})])
+
+    launches = {k: 0 for k in tfa.LAUNCHES}
+
+    def steps(res, n):
+        out = run_steps(torch, tfa, res, batch, n)
+        for k, v in out[3].items():
+            launches[k] += v
+        return out
+
+    with elastic_workspace("dwt-dcp-") as (out_dir, opened):
+        from dlrover_wuqiong_tpu_torch.checkpoint import dcp_compat
+        from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import (
+            FlashCheckpointer,
+            StorageType,
+        )
+        from dlrover_wuqiong_tpu_torch.checkpoint.ckpt_saver import (
+            AsyncCheckpointSaver,
+        )
+
+        a = build(0)
+        before, _, ms, _ = steps(a, INTEROP_BEFORE)
+        flash_dir = os.path.join(out_dir, "flash")
+        ck = FlashCheckpointer(flash_dir, job_name=os.environ["DWT_JOB_NAME"],
+                               standalone=True)
+        t0 = time.monotonic()
+        ck.save_checkpoint(INTEROP_BEFORE, a.state.tree(), StorageType.DISK)
+        check(ck.wait_latest_checkpoint(300), "16.1: the flash save did "
+              "not commit")
+        flash_s = time.monotonic() - t0
+        ck.close()
+        AsyncCheckpointSaver.reset()
+        b = build(1)
+        t0 = time.monotonic()
+        dcp_compat.export_dcp(flash_dir, os.path.join(out_dir, "dcp"),
+                              b.state, job_name=os.environ["DWT_JOB_NAME"]
+                              + "-export")
+        torch.cuda.synchronize()
+        export_s = time.monotonic() - t0
+        del b
+        c = build(2)
+        t0 = time.monotonic()
+        dcp_compat.load_dcp(os.path.join(out_dir, "dcp"), c.state)
+        torch.cuda.synchronize()
+        export_load_s = time.monotonic() - t0
+        want, got = tree_locals(a.state.tree()), tree_locals(c.state.tree())
+        same = sorted(want) == sorted(got) and all(
+            torch.equal(want[n], got[n]) for n in want)
+        check(same, "16.1: the state loaded from the DCP export is not "
+              "bitwise the trained one")
+        quant = sum(n.endswith("/0") and "/mu/" in n for n in want)
+        check(quant > 0, "16.1: no adamw8bit codes in the checkpoint tree")
+        t0 = time.monotonic()
+        dcp_compat.save_dcp(os.path.join(out_dir, "dcp2"), a.state)
+        save_s = time.monotonic() - t0
+        dcp_bytes = dir_bytes(os.path.join(out_dir, "dcp2"))
+        t0 = time.monotonic()
+        dcp_compat.load_dcp(os.path.join(out_dir, "dcp2"), c.state)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        la, _, _, _ = steps(a, INTEROP_AFTER)
+        lc_, _, _, _ = steps(c, INTEROP_AFTER)
+        check(la == lc_, f"16.1: losses after the DCP round trip {lc_} "
+              f"against the uninterrupted run's {la}")
+        params = all(torch.equal(_local(p), _local(q)) for p, q in zip(
+            a.model.parameters(), c.model.parameters()))
+        check(params, "16.1: parameters after the DCP round trip are not "
+              "bitwise the uninterrupted run's")
+        check(before[-1] < before[0], f"16.1: loss did not fall: {before}")
+        return {"losses": before + la, "ms_per_step": ms,
+                "flash_save_s": flash_s, "export_s": export_s,
+                "export_load_s": export_load_s, "dcp_save_s": save_s,
+                "dcp_load_s": load_s, "dcp_bytes": dcp_bytes,
+                "dcp_save_bytes_per_s": dcp_bytes / save_s,
+                "dcp_load_bytes_per_s": dcp_bytes / load_s,
+                "leaves": len(want), "quantized_code_leaves": quant,
+                "bitwise_after_load": same,
+                "bitwise_after_steps": params}, launches
+
+
+def diloco_emulated(torch, tfa) -> tuple:
+    """16.2: local SGD (DiLoCo) on GPT-2 124M (remat off, adamw(3e-4)),
+    DILOCO_GROUPS replica groups emulated in this process: each group a
+    one-device build from one seed on its own batch (B = DILOCO_B,
+    T = 1024), stepped by `parallel.local_sgd.emulated_step` (the gloo
+    tests' body, the sum over the groups a sum of tensors), a sync every
+    DILOCO_SYNC of DILOCO_STEPS steps, with the mean and then with GTA:
+    the groups apart after the first step and bitwise equal after every
+    sync; the mean loss of each round of DILOCO_SYNC steps below the
+    round before; 12 + 12 flash launches a group and step.  The ms of an
+    inner step and a sync step (both groups) beside DILOCO_PLAIN timed
+    steps of one group's build alone (a plain GPT-2 step at the same B).
+    Returns (report, flash launches)."""
+    import dataclasses
+    import gc
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.parallel import local_sgd as tls
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import (
+        adamw,
+        make_train_step,
+    )
+
+    cfg = dataclasses.replace(GPTConfig.gpt2(), remat=False)
+    batches = [train_batch(torch, 50257, seed=16 + g, b=DILOCO_B)
+               for g in range(DILOCO_GROUPS)]
+    out, launches = {}, {}
+    for reduce in ("mean", "gta"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ls = tls.LocalSGDConfig(sync_every=DILOCO_SYNC, reduce=reduce)
+        builds = [auto_accelerate(GPT(cfg), optimizer=adamw(3e-4), seed=0)
+                  for _ in range(DILOCO_GROUPS)]
+        states = [tls.init_diloco_state(r.state, ls) for r in builds]
+        inner = make_train_step(builds[0].loss_fn)
+        torch.cuda.synchronize()
+        tfa.reset_launches()
+        losses, ms = [], []
+        for step in range(1, DILOCO_STEPS + 1):
+            t0 = time.monotonic()
+            _, loss = tls.emulated_step(states, batches, inner, ls)
+            losses.append(loss.item())
+            ms.append((time.monotonic() - t0) * 1e3)
+            groups = [list(s.inner_params.parameters()) for s in states]
+            equal = all(torch.equal(p, q)
+                        for p, q in zip(groups[0], groups[1]))
+            synced = step % DILOCO_SYNC == 0
+            check(equal == synced or step > 1 and not synced,
+                  f"16.2 {reduce}: step {step}: groups bitwise equal "
+                  f"{equal}, a sync step {synced}")
+        launches[reduce] = dict(tfa.LAUNCHES)
+        expect_launches(launches[reduce], DILOCO_STEPS * DILOCO_GROUPS,
+                        cfg.n_layer, 1, "fused", f"16.2 {reduce}")
+        rounds = [sum(losses[i:i + DILOCO_SYNC]) / DILOCO_SYNC
+                  for i in range(0, DILOCO_STEPS, DILOCO_SYNC)]
+        check(all(x == x for x in losses) and all(
+            b < a for a, b in zip(rounds, rounds[1:])),
+            f"16.2 {reduce}: the rounds' mean losses {rounds} do not fall")
+        sync = [m for i, m in enumerate(ms, 1) if i % DILOCO_SYNC == 0]
+        plain = [m for i, m in enumerate(ms, 1)
+                 if i % DILOCO_SYNC and i > 1]
+        _, _, plain_ms, _ = run_steps(torch, tfa, types.SimpleNamespace(
+            state=states[0].inner_state(), train_step=inner), batches[0],
+            DILOCO_PLAIN)
+        out[reduce] = {"losses": losses, "round_mean_losses": rounds,
+                       "inner_step_ms": sum(plain) / len(plain),
+                       "sync_step_ms": sum(sync) / len(sync),
+                       "plain_step_ms": plain_ms, "step_ms": ms}
+        del builds, states
+    return out, launches
+
+
+def streamed_scan(torch, tfa) -> dict:
+    """16.3: the streamed scans (`_fa_forward_streamed` over key blocks,
+    `_fa_backward_streamed` over query blocks), called directly on CUDA
+    tensors as phase 3b calls the plain versions, at Llama-3 8B's (32,
+    4096, 4096, 128) causal, bf16, against kernels 1 (forward), 3 and 4
+    (the split dq and dk/dv): every row of o, dq, dk and dv within
+    `FA_TOL`, lse within `FA_LSE_TOL`; and the peak memory a forward and
+    backward allocates beyond its inputs, streamed against the dense
+    plain version's.  The kernel calls here compare: they count in no
+    run."""
+    s = LLAMA_SHAPE
+    bh, n, d = s["b"] * s["h"], s["s"], s["d"]
+    scale = 1.0 / d ** 0.5
+    q, k, v, do = fa_inputs(torch, bh, n, n, d, seed=1600)
+    o_k, lse_k = tfa._fa_forward_kernel(q, k, v, True, scale)
+    g_k = tfa._fa_backward_kernel(q, k, v, o_k, lse_k, do, True, scale,
+                                  None, "split")
+    out = {"shape": [bh, n, n, d]}
+    for name, fwd, bwd in (
+            ("streamed", tfa._fa_forward_streamed,
+             tfa._fa_backward_streamed),
+            ("dense", tfa._fa_forward_plain, tfa._fa_backward_plain)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        o, lse = fwd(q, k, v, True, scale)
+        g = bwd(q, k, v, o, lse, do, True, scale)
+        torch.cuda.synchronize()
+        row = {"ms": (time.monotonic() - t0) * 1e3,
+               "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        if name == "streamed":
+            errs = {"o": _row_err(torch, o, o_k)}
+            errs.update({w: _row_err(torch, a, b)
+                         for w, a, b in zip(("dq", "dk", "dv"), g, g_k)})
+            lse_err = (lse - lse_k).abs().max().item()
+            for w, e in errs.items():
+                check(e <= FA_TOL, f"16.3: streamed {w} against the "
+                      f"kernel: row err {e} (FA_TOL {FA_TOL})")
+            check(lse_err <= FA_LSE_TOL, f"16.3: streamed lse against the "
+                  f"kernel: {lse_err} (FA_LSE_TOL {FA_LSE_TOL})")
+            row.update(row_err=errs, lse_err=lse_err)
+        out[name] = row
+        del o, lse, g
+    check(out["streamed"]["peak_bytes"] < out["dense"]["peak_bytes"],
+          f"16.3: the streamed peak {out['streamed']['peak_bytes']} is not "
+          f"below the dense {out['dense']['peak_bytes']}")
+    return out
+
+
+def interop_phase(torch, tfa) -> tuple:
+    """Phase 16: checkpoint interop and local SGD.  16.1 in an NCCL world
+    of one of its own, destroyed at the end; 16.2 and 16.3 in this
+    process.  Returns (report, {run: flash launches})."""
+    import gc
+
+    t0 = time.monotonic()
+    out, walls, launches = {}, {}, {}
+    with nccl_world():
+        out["dcp"], launches["dcp"] = interop_dcp(torch, tfa)
+    walls["16.1"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    out["diloco"], more = diloco_emulated(torch, tfa)
+    launches.update({f"diloco_{k}": v for k, v in more.items()})
+    walls["16.2"] = time.monotonic() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    out["streamed"] = streamed_scan(torch, tfa)
+    walls["16.3"] = time.monotonic() - t
+    out["walls_s"] = walls
+    out["phase_wall_s"] = time.monotonic() - t0
+    return out, launches
+
+
+def print_interop(ip: dict):
+    """Phase 16's lines: the report as JSON, then its numbers."""
+    print("interop: " + json.dumps(ip))
+    r = ip["dcp"]
+    print(f"interop: 16.1 GPT-2 124M under fsdp (a world of one) with "
+          f"adamw8bit, {r['ms_per_step']:.2f} ms a step; flash save to "
+          f"disk {r['flash_save_s']:.3f} s; export_dcp (flash load + DCP "
+          f"save) {r['export_s']:.3f} s, load_dcp of it "
+          f"{r['export_load_s']:.3f} s, {r['leaves']} leaves bitwise; "
+          f"save_dcp {r['dcp_save_s']:.3f} s, load_dcp "
+          f"{r['dcp_load_s']:.3f} s of {r['dcp_bytes']} bytes "
+          f"({r['dcp_save_bytes_per_s'] / 1e9:.3f} / "
+          f"{r['dcp_load_bytes_per_s'] / 1e9:.3f} GB/s); "
+          f"{INTEROP_AFTER} steps after it bitwise the uninterrupted run")
+    for reduce, d in ip["diloco"].items():
+        print(f"interop: 16.2 DiLoCo {reduce}, {DILOCO_GROUPS} groups "
+              f"emulated, B = {DILOCO_B} a group, sync every "
+              f"{DILOCO_SYNC}: rounds' mean losses "
+              + ", ".join(f"{x:.4f}" for x in d["round_mean_losses"])
+              + f"; an inner step {d['inner_step_ms']:.2f} ms, a sync step "
+              f"{d['sync_step_ms']:.2f} ms (both groups), a plain GPT-2 "
+              f"step at B = {DILOCO_B} {d['plain_step_ms']:.2f} ms; groups "
+              f"bitwise equal after every sync")
+    st = ip["streamed"]
+    print(f"interop: 16.3 streamed scan at {st['shape']} causal: row errs "
+          "against kernels 1, 3, 4 " + ", ".join(
+              f"{w} {e:.2e}" for w, e in st["streamed"]["row_err"].items())
+          + f", lse {st['streamed']['lse_err']:.2e}; forward + backward "
+          f"peak {st['streamed']['peak_bytes'] / 1e9:.3f} GB "
+          f"({st['streamed']['ms']:.1f} ms) against the dense plain "
+          f"version's {st['dense']['peak_bytes'] / 1e9:.3f} GB "
+          f"({st['dense']['ms']:.1f} ms)")
+    w = ip["walls_s"]
+    print(f"interop: phase wall {ip['phase_wall_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in w.items()) + ")")
+
+
 def main():
     t_start = time.monotonic()
     # each phase's wall, printed before the kernels line
@@ -5206,6 +5546,16 @@ def main():
     print_long_context(lctx)
 
     lap('15')
+    # phase 16 — checkpoint interop (DCP, adamw8bit's sharded layout),
+    # local SGD over emulated replica groups, the streamed scan
+    gc.collect()
+    torch.cuda.empty_cache()
+    inter, inter_launches = interop_phase(torch, tfa)
+    print_interop(inter)
+    print("interop: flash launches by run (16.1's 7 steps, 16.2's 12 "
+          "steps of 2 groups): " + json.dumps(inter_launches))
+
+    lap('16')
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -5277,6 +5627,8 @@ def main():
                               for run, counts in par_launches.items()},
             "launches_long_context": {run: counts[name] for run, counts
                                       in lc_launches.items()},
+            "launches_interop": {run: counts[name] for run, counts
+                                 in inter_launches.items()},
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {

@@ -77,9 +77,24 @@ of the global batch.  ``materialize=False`` stops before any allocation:
 the state is meta DTensors with their placements and local shapes (the
 port of JAX's AOT scale proof).
 
-"pipeline_parallel", "local_sgd" and "hsdp" raise until ROADMAP queue 1
-item 8c.  With sp or ep of size 1 the build is the one without them (the
-attention falls through to flash, as in JAX).
+and DiLoCo two-level training (JAX :191-196, :600-662):
+
+    ("local_sgd" | "hsdp", {"sync_every", "outer_lr", "outer_momentum",
+                            "nesterov", "reduce", "gta_threshold"})
+        the dp dim holds replica groups that train apart, fsdp inside
+        each group, and sync every `sync_every` steps through an outer
+        Nesterov step (`parallel.local_sgd`); needs ("data_parallel",
+        {"size": R >= 2}).  `AccelerateResult.state` is then a
+        `parallel.local_sgd.DiLoCoState`.  It composes with grad_accum
+        (accumulation inside the group), stable_bf16 (the outer sync
+        re-anchors the compensation or masters) and optimizer_offload
+        (the inner optimizer state in pinned host memory between steps,
+        the outer trees on the device); it refuses fused_steps > 1,
+        materialize=False, and tp, sp or ep above 1.
+
+"pipeline_parallel" raises until ROADMAP queue 1 item 8c.  With sp or ep
+of size 1 the build is the one without them (the attention falls
+through to flash, as in JAX).
 """
 
 from __future__ import annotations
@@ -158,13 +173,12 @@ class StrategyContext:
 
 
 #: JAX strategy names whose port is still to come -> the ROADMAP item
-_NOT_PORTED = dict.fromkeys(("pipeline_parallel", "local_sgd", "hsdp"),
-                            "8c")
+_NOT_PORTED = {"pipeline_parallel": "8c"}
 
 #: the strategies that shard the state over a mesh
 MESH_STRATEGIES = ("fsdp", "zero2", "zero3", "data_parallel", "ddp",
                    "tensor_parallel", "multi_slice", "expert_parallel",
-                   "sequence_parallel")
+                   "sequence_parallel", "local_sgd", "hsdp")
 
 #: sequence_parallel's impls (`parallel.long_context.SP_ATTENTION`)
 SP_IMPLS = ("ulysses", "ring", "gspmd")
@@ -172,10 +186,11 @@ SP_IMPLS = ("ulysses", "ring", "gspmd")
 
 def _not_ported(name: str, item: str) -> Callable:
     def handler(ctx: StrategyContext, cfg: Dict, num_devices: int):
+        ported = sorted(n for n in _STRATEGY_REGISTRY
+                        if n not in _NOT_PORTED)
         raise ValueError(f"strategy {name!r} is not ported yet (ROADMAP "
-                         f"queue 1 item {item}); the port trains with fsdp, "
-                         "zero2/zero3, data_parallel/ddp, tensor_parallel, "
-                         "multi_slice and the one-device strategies")
+                         f"queue 1 item {item}); the port trains with "
+                         f"{', '.join(ported)}")
     return handler
 
 
@@ -262,6 +277,15 @@ def _s_multi_slice(ctx: StrategyContext, cfg: Dict, num_devices: int):
     ctx.extra["mesh"] = True
     if tp > 1:
         ctx.extra["tensor_parallel"] = True
+
+
+@register_strategy("local_sgd")
+@register_strategy("hsdp")
+def _s_local_sgd(ctx: StrategyContext, cfg: Dict, num_devices: int):
+    """DiLoCo two-level training over the dp dim (parallel/local_sgd.py).
+    cfg: `parallel.local_sgd.LocalSGDConfig`'s fields."""
+    ctx.extra["local_sgd"] = dict(cfg)
+    ctx.extra["mesh"] = True
 
 
 @register_strategy("amp")
@@ -411,6 +435,8 @@ class AccelerateResult:
         k = max(int(fused_steps), 1)
         if k == self.fused_steps:
             return self.train_step
+        if self.strategy.extra.get("local_sgd") is not None:
+            raise ValueError(_NO_FUSED_LOCAL_SGD)
         fn = self._fused_cache.get(k)
         if fn is None:
             fn = make_train_step(self.loss_fn, self.accum_steps, k)
@@ -444,6 +470,35 @@ class AccelerateResult:
         """`place_batch` for a fused batch (leading axis of size K)."""
         return self.place_batch(batch, batch_axis=1 + (
             1 if self.accum_steps > 1 else 0))
+
+
+_NO_FUSED_LOCAL_SGD = (
+    "fused_steps > 1 does not compose with local_sgd — the DiLoCo step's "
+    "outer sync counts dispatches, and a K-step fusion would scan across "
+    "sync boundaries; run unfused (fused_steps=1)")
+
+
+def _check_local_sgd(ctx: StrategyContext, fused_steps: int,
+                     materialize: bool) -> None:
+    """JAX's refusals of a local_sgd build (:501-505, :607-612,
+    :638-645), before any parameter is made, and the port's own: no tp,
+    sp or ep inside a group."""
+    if fused_steps > 1:
+        raise ValueError(_NO_FUSED_LOCAL_SGD)
+    if not materialize:
+        raise ValueError("materialize=False (AOT scale-proof) does not "
+                         "support local_sgd — its outer and inner trees "
+                         "are copies of materialized params")
+    if ctx.plan.dp < 2:
+        raise ValueError(
+            "local_sgd needs ('data_parallel', {'size': R>=2}) — the dp "
+            "axis carries the locally-training replica groups")
+    inside = {a: getattr(ctx.plan, a) for a in ("tp", "sp", "ep")
+              if getattr(ctx.plan, a) > 1}
+    if inside:
+        raise NotImplementedError(
+            f"local_sgd with {inside} is not ported: a replica group is "
+            "fsdp over its ranks (dp x fsdp)")
 
 
 def _world(devices: Optional[Sequence]) -> int:
@@ -507,6 +562,9 @@ def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
                            hbm_per_device=detect_hbm_per_device(device))
     if accum_steps:
         ctx.accum_steps = accum_steps
+    local_sgd = ctx.extra.get("local_sgd")
+    if local_sgd is not None:
+        _check_local_sgd(ctx, fused_steps, materialize)
     overrides = ctx.model_overrides(model)
     if overrides:
         model = type(model)(dataclasses.replace(model.config, **overrides))
@@ -546,7 +604,10 @@ def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
         offload_state(state.opt_state, ensure_state)
     elif mesh_state is not None:
         ensure_state(state.opt_state)  # the moments' placements, now
-    step = make_train_step(loss, ctx.accum_steps, fused_steps)
+    if local_sgd is not None:
+        state, step = _diloco(state, loss, ctx, local_sgd, sb)
+    else:
+        step = make_train_step(loss, ctx.accum_steps, fused_steps)
     return AccelerateResult(train_step=step, state=state, loss_fn=loss,
                             model=model, device=device, strategy=ctx,
                             accum_steps=ctx.accum_steps,
@@ -576,12 +637,40 @@ def _shard(model, ctx: StrategyContext, device, seed: int,
     mesh_state = shard_model(
         model, mesh, ctx.plan, planner,
         tensor_parallel=bool(ctx.extra.get("tensor_parallel")),
-        reshard_after_forward=ctx.extra.get("reshard_after_forward", True))
+        reshard_after_forward=ctx.extra.get("reshard_after_forward", True),
+        replica_dim="dp" if "local_sgd" in ctx.extra else None)
     if materialize:
         fill(model, seed, device)
     logger.info("auto_accelerate: mesh=%s over %s", ctx.plan.describe(),
                 device.type)
     return model, mesh_state
+
+
+def _diloco(state: TrainState, loss: Callable, ctx: StrategyContext,
+            cfg: Dict, sb: Optional[Dict]):
+    """(the `DiLoCoState` over the group's `state`, its train step), JAX
+    :614-662; with stable_bf16 the outer sync re-anchors the
+    compensation or masters (`reset_compensation`)."""
+    from ..parallel.local_sgd import (
+        LocalSGDConfig,
+        init_diloco_state,
+        make_diloco_train_step,
+    )
+
+    ls_cfg = LocalSGDConfig(**cfg)
+    reset = None
+    if sb is not None:
+        from ..optimizers.bf16_stable import reset_compensation
+
+        def reset(opt):
+            return reset_compensation(getattr(opt, "inner", opt))
+    step = make_diloco_train_step(loss, ls_cfg, ctx.accum_steps, reset)
+    logger.info("local_sgd (DiLoCo): dp=%d groups, sync every %d steps, "
+                "reduce=%s%s%s", ctx.plan.dp, ls_cfg.sync_every,
+                ls_cfg.reduce, ", stable_bf16" if sb is not None else "",
+                ", optimizer_offload" if ctx.extra.get("optimizer_offload")
+                else "")
+    return init_diloco_state(state, ls_cfg), step
 
 
 def _on_mesh(model, ctx: StrategyContext, mesh):

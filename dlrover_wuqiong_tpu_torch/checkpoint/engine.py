@@ -1062,11 +1062,15 @@ def copy_into(template: Any, flat: Dict[str, Any]):
     before the copy."""
     cuda: List[Tuple[torch.Tensor, Any]] = []
     for name, leaf in flatten_state_dict(template).items():
-        if name not in flat:
-            raise KeyError(f"checkpoint missing tensor {name!r}")
         if is_dtensor(leaf):
             leaf = mesh_piece(leaf)
-        value = flat[name]
+        if isinstance(leaf, MeshPiece) and leaf.restore is not None:
+            # a piece that reads its value off the checkpoint itself
+            leaf, value = leaf.restore(name, flat)
+        elif name not in flat:
+            raise KeyError(f"checkpoint missing tensor {name!r}")
+        else:
+            value = flat[name]
         if isinstance(leaf, MeshPiece):
             # a sharded leaf keeps this rank's slice of the global array
             if tuple(value.shape) != tuple(leaf.global_shape):

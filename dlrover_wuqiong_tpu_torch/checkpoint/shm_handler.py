@@ -128,15 +128,22 @@ class TensorMeta:
 class MeshPiece:
     """A rank's piece of a sharded leaf: its `local` tensor, the global
     shape, the ``[start, stop)`` index per dim, its number among the
-    leaf's distinct pieces, and whether this rank writes it (`owner`)."""
+    leaf's distinct pieces, and whether this rank writes it (`owner`).
+
+    `restore`, if set, is how a restore fills the piece: ``restore(name,
+    flat) -> (target tensor, its value)`` from the checkpoint's flat
+    name→global array map (a quantized state's piece, `parallel.fsdp`,
+    reads its sibling leaves there and names the tensor it fills);
+    without it `local` gets the global array's slice at `index`."""
 
     def __init__(self, local, global_shape, index, number: int = 0,
-                 owner: bool = True):
+                 owner: bool = True, restore=None):
         self.local = local
         self.global_shape = [int(s) for s in global_shape]
         self.index = [[int(a), int(b)] for a, b in index]
         self.number = number
         self.owner = owner
+        self.restore = restore
 
     @property
     def whole(self) -> bool:
@@ -145,7 +152,38 @@ class MeshPiece:
     def with_local(self, local) -> "MeshPiece":
         """The same piece over another copy of its values."""
         return MeshPiece(local, self.global_shape, self.index,
-                         self.number, self.owner)
+                         self.number, self.owner, self.restore)
+
+    def stacked(self, r: int, replicas: int, numbers: int) -> "MeshPiece":
+        """This piece as replica `r`'s of a leaf stacked over `replicas`
+        on a new leading dim (local ``(1, ...)``, index ``[r, r + 1)``
+        there, number ``r * numbers + number`` where each replica has
+        `numbers` pieces); a restore hook reads the replica's slice of
+        every global array it asks for."""
+        restore = None
+        if self.restore is not None:
+            inner = self.restore
+
+            def restore(name, flat, _r=r):
+                return inner(name, _Replica(flat, _r))
+        return MeshPiece(self.local.unsqueeze(0),
+                         [replicas] + self.global_shape,
+                         [[r, r + 1]] + self.index,
+                         r * numbers + self.number, self.owner, restore)
+
+
+class _Replica:
+    """A flat name→array map seen through replica `r` of stacked leaves:
+    ``m[name]`` is ``flat[name][r]``."""
+
+    def __init__(self, flat, r: int):
+        self.flat, self.r = flat, r
+
+    def __contains__(self, name) -> bool:
+        return name in self.flat
+
+    def __getitem__(self, name):
+        return self.flat[name][self.r]
 
 
 def mesh_piece(value) -> MeshPiece:

@@ -50,7 +50,11 @@ Each step is a wrapper over two versions of one computation:
 - the plain PyTorch versions `_fa_forward_plain` and `_fa_backward_plain`:
   a dense float32 recompute with the same masking and empty-row rules,
   taken only for CPU tensors (and by ``chip_smoke.py`` as the kernels'
-  reference).
+  reference).  From a per-head score matrix of 2048² on (`use_streamed`,
+  JAX `_use_streamed`), the CPU takes their streamed scans instead,
+  `_fa_forward_streamed` over key blocks and `_fa_backward_streamed`
+  over query blocks, whose temporaries are a block's, not the whole
+  score matrix's.
 
 A CUDA tensor launches the kernels or raises; nothing falls back.
 `LAUNCHES` counts kernel launches per kernel.
@@ -194,6 +198,95 @@ def _fa_backward_plain(q, k, v, o, lse, do, causal: bool, scale: float,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# ------------------------------------------------------------ streamed scan
+
+
+def use_streamed(sq: int, sk: int) -> bool:
+    """Does the CPU path take the streamed scan (JAX `_use_streamed`
+    `:620-634`): from a per-head score matrix of 2048² on, or as
+    ``DWT_FA_STREAMED`` (1/0) says.  CUDA tensors never do: the kernels
+    are their only route."""
+    env = os.getenv("DWT_FA_STREAMED")
+    if env is not None:
+        return env == "1"
+    return sq * sk >= 2048 * 2048
+
+
+def _fa_forward_streamed(q, k, v, causal: bool, scale: float,
+                         block_k: int = 512):
+    """`_fa_forward_plain` as an online-softmax scan over key blocks of
+    `block_k` (JAX `_streamed_with_lse` `:700-747`): the same pre-scaled
+    q, log2 scores, masking and empty-row rules, with float32 temporaries
+    of O(bh * sq * block_k) where the dense version holds O(bh * sq * sk).
+    q (bh, sq, d), k/v (bh, sk, d) -> (o like q, lse (bh, sq) f32)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    bk = _fit_block(sk, min(block_k, 512)) or sk
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+    rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    acc = torch.zeros((bh, sq, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((bh, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((bh, sq), dtype=torch.float32, device=q.device)
+    for j in range(0, sk, bk):
+        s = qs @ k[:, j:j + bk].float().transpose(1, 2)
+        if causal:
+            cols = torch.arange(j, j + bk, device=q.device)[None, :]
+            s = s.masked_fill(~(cols <= rows), NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        # a masked score gives p = 0, so a row that sees no key keeps l = 0
+        p = torch.where(s <= NEG_INF, 0.0, torch.exp2(s - m_new[..., None]))
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + (p.to(v.dtype).float()
+                                        @ v[:, j:j + bk].float())
+        m = m_new
+    l_safe = torch.where(l > 0, l, 1.0)
+    o = acc / l_safe[..., None]
+    lse = torch.where(l > 0, m * (1.0 / LOG2E) + torch.log(l_safe),
+                      -math.inf)
+    return o.to(q.dtype), lse
+
+
+def _fa_backward_streamed(q, k, v, o, lse, do, causal: bool, scale: float,
+                          glse: Optional[torch.Tensor] = None,
+                          block_q: int = 512):
+    """`_fa_backward_plain` as a recompute scan over query blocks of
+    `block_q` (JAX `_streamed_bwd` `:750-792`): each block re-derives its
+    p from lse (the lse cotangent folded into delta), writes its dq and
+    adds into dk and dv, with float32 temporaries of O(bh * block_q *
+    sk).  Returns (dq, dk, dv) in the input dtypes."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    bq = _fit_block(sq, min(block_q, 512)) or sq
+    fin = torch.isfinite(lse)
+    lse2 = torch.where(fin, lse * LOG2E, 0.0)
+    delta = _delta(o, do, glse)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(q)
+    dk = torch.zeros((bh, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((bh, sk, v.shape[-1]), dtype=torch.float32,
+                     device=q.device)
+    cols = torch.arange(sk, device=q.device)[None, :]
+    for i in range(0, sq, bq):
+        qb, dob = q[:, i:i + bq], do[:, i:i + bq].float()
+        s = (qb.float() * (scale * LOG2E)).to(q.dtype).float() \
+            @ kf.transpose(1, 2)
+        if causal:
+            rows = torch.arange(i, i + bq, device=q.device)[:, None] \
+                + (sk - sq)
+            s = s.masked_fill(~(cols <= rows), NEG_INF)
+        p = torch.where(fin[:, i:i + bq, None],
+                        torch.exp2(s - lse2[:, i:i + bq, None]), 0.0)
+        dp = dob @ vf.transpose(1, 2)
+        ds = (p * (dp - delta[:, i:i + bq, None]) * scale).to(
+            q.dtype).float()
+        dq[:, i:i + bq] = (ds @ kf).to(q.dtype)
+        dk += ds.transpose(1, 2) @ qb.float()
+        dv += p.to(q.dtype).float().transpose(1, 2) @ dob
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ------------------------------------------------------------ kernels
 
 
@@ -289,8 +382,12 @@ def _fa_backward_kernel(q, k, v, o, lse, do, causal: bool, scale: float,
 
 
 def _fa_forward(q, k, v, causal: bool, scale: float):
-    """Flat (bh, s, d) forward: the kernel for CUDA, plain for the CPU."""
+    """Flat (bh, s, d) forward: the kernel for CUDA; for the CPU the
+    streamed scan from 2048² scores on (`use_streamed`), else the dense
+    plain version."""
     if q.device.type == "cpu":
+        if use_streamed(q.shape[1], k.shape[1]):
+            return _fa_forward_streamed(q, k, v, causal, scale)
         return _fa_forward_plain(q, k, v, causal, scale)
     return _fa_forward_kernel(q, k, v, causal, scale)
 
@@ -298,6 +395,9 @@ def _fa_forward(q, k, v, causal: bool, scale: float):
 def _fa_backward(q, k, v, o, lse, do, causal: bool, scale: float, glse,
                  route: str):
     if q.device.type == "cpu":
+        if use_streamed(q.shape[1], k.shape[1]):
+            return _fa_backward_streamed(q, k, v, o, lse, do, causal,
+                                         scale, glse)
         return _fa_backward_plain(q, k, v, o, lse, do, causal, scale, glse)
     return _fa_backward_kernel(q, k, v, o, lse, do, causal, scale, glse,
                                route)

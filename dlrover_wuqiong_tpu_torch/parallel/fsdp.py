@@ -39,11 +39,41 @@ GSPMD inserts the collectives.  Here:
 Pure ``dp`` (``ddp``, or ``data_parallel`` without ``fsdp``) runs as the
 2-D FSDP2 mesh with an ``fsdp`` size of 1: every piece is the whole
 tensor and the gradients are all-reduced over ``dp``.
+
+A quantized state (adamw8bit's codes ``.../0``, (rows, 256) int8, and
+scales ``.../1``, (rows,) float32, of a parameter's piece,
+optimizers/low_bit.py) is laid out in one of two ways, chosen for each
+parameter from all its pieces (`quantized_piece`):
+
+- Layout A, when every piece is a run of the leaf's row-major
+  flattening that starts on a 256-element boundary and is a multiple of
+  256 long (or ends the leaf): a ``Shard(0)`` piece of a leaf whose rows
+  are 256-aligned.  Such a piece quantizes into exactly the leaf's own
+  blocks, so its codes and scales are rows ``[start / 256, ...)`` of
+  the leaf's codes ``(ceil(N / 256), 256)`` and scales: JAX's whole-leaf
+  `QTensor` children, written as ``#shardN`` pieces.  A JAX adamw8bit
+  checkpoint assembles onto such pieces bitwise, and the reverse.
+- Layout B, for every other parameter (a ``Shard(1)`` piece, pieces that
+  are not aligned, an uneven tail): each piece keeps blocks of its own.
+  The codes are written as an int8 leaf of the parameter's shape, each
+  element's code at the element's place (a block's zero padding is
+  dropped: it always codes 0), sharded as the parameter.  The scales
+  leaf is ``(pieces, 2 * ndim + rows_max)`` float32: row N is piece N's
+  index (start and stop per dim, exact in float32 up to 2^24) and then
+  its block scales, padded with 1.  JAX has no such leaf; only the port
+  reads it.
+
+A restore takes the rows of a layout-A checkpoint, or the codes and
+scales of a layout-B piece with this piece's index, as they are
+(bitwise).  Any other restore (another mesh, the other layout)
+dequantizes the checkpoint into the leaf's float32 moment and quantizes
+this piece's region of it in this piece's blocks: each value then moves
+by at most 1/127 of its new block's absmax (tests/test_torch_dcp.py).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -86,7 +116,8 @@ class MeshState:
     """The mesh side of a sharded `trainer.train_step.TrainState`."""
 
     def __init__(self, model: nn.Module, mesh, plan: MeshPlan,
-                 planner: ShardingPlanner, replicated: List[str]):
+                 planner: ShardingPlanner, replicated: List[str],
+                 replica_dim: Optional[str] = None):
         self.model = model
         self.mesh = mesh
         self.planner = planner
@@ -94,12 +125,23 @@ class MeshState:
         self.replicated = replicated
         sizes = plan.sizes()
         self.n_sp = sizes["sp"]
-        # the ranks that hold other tokens: the data dims and sp
-        self.n_tokens = sizes["dp"] * sizes["fsdp"] * self.n_sp
-        self.data_groups = [mesh.get_group(a) for a in ("dp", "fsdp")
-                            if sizes[a] > 1]
-        self.sp_groups = [mesh.get_group("sp")] if sizes["sp"] > 1 else []
         self.coord = dict(zip(AXIS_ORDER, mesh.get_coordinate()))
+        # local SGD: the mesh dim whose ranks hold replicas that train
+        # apart (parallel/local_sgd.py); the step reduces nothing over it
+        self.replica_dim = replica_dim
+        self.replicas = sizes[replica_dim] if replica_dim else 1
+        self.replica = self.coord[replica_dim] if replica_dim else 0
+        data = [a for a in ("dp", "fsdp") if a != replica_dim]
+        # the ranks that hold other tokens: the data dims and sp
+        self.n_tokens = self.n_sp
+        for a in data:
+            self.n_tokens *= sizes[a]
+        self.data_groups = [mesh.get_group(a) for a in data if sizes[a] > 1]
+        self.sp_groups = [mesh.get_group("sp")] if sizes["sp"] > 1 else []
+        # the ranks whose pieces make up one state: the world, or one
+        # replica's (a local SGD mesh is dp x fsdp)
+        self.norm_groups = None if replica_dim is None else \
+            self.data_groups
 
     # ---------------------------------------------------------------- step
 
@@ -159,11 +201,11 @@ class MeshState:
     def _owner(self, t) -> bool:
         """Does this rank count `t`'s piece: coordinate 0 on every mesh
         dim that does not shard it?"""
-        sharded = set()
+        sharded = {self.replica_dim}
         if is_dtensor(t):
             names = t.device_mesh.mesh_dim_names
-            sharded = {names[i] for i, p in enumerate(t.placements)
-                       if p.is_shard()}
+            sharded |= {names[i] for i, p in enumerate(t.placements)
+                        if p.is_shard()}
         return all(c == 0 for a, c in self.coord.items() if a not in sharded)
 
     @torch.no_grad()
@@ -180,7 +222,10 @@ class MeshState:
         dev = norms[0].device
         total = (torch.stack(keep).square().sum() if keep
                  else torch.zeros((), dtype=torch.float32, device=dev))
-        dist.all_reduce(total)
+        if self.norm_groups is None:
+            dist.all_reduce(total)
+        for group in self.norm_groups or ():
+            dist.all_reduce(total, group=group)
         return total.sqrt()
 
     # ---------------------------------------------------------- checkpoint
@@ -196,41 +241,210 @@ class MeshState:
                 self._owner(t))
 
     def piece(self, path: str, t, params: Dict[str, Any]):
-        """The checkpoint's view of the leaf `t` at `path` (no copy): a
-        `checkpoint.shm_handler.MeshPiece`.  A leaf whose path ends with
-        a parameter's flax path and which has the shape of that
-        parameter's piece (a moment, a compensation, a master) is laid
-        out as that parameter; any other leaf (a count, the step) is
-        replicated."""
+        """The checkpoint's view of the leaf `t` at `path` (no copy but a
+        layout-B scales row): a `checkpoint.shm_handler.MeshPiece`.  A
+        leaf whose path ends with a parameter's flax path and which has
+        the shape of that parameter's piece (a moment, a compensation, a
+        master) is laid out as that parameter; a quantized child of a
+        parameter (``<param path>/0`` codes, ``/1`` scales) by
+        `quantized_piece`, whose restore reads either layout; any other
+        leaf (a count, the step) is replicated."""
         from ..checkpoint.shm_handler import MeshPiece
 
         parts = path.split("/")
-        param = None
+        param, child = None, None
         for k in range(len(parts)):
             param = params.get("/".join(parts[k:]))
             if param is not None:
                 break
+        if param is None and parts[-1] in ("0", "1"):
+            for k in range(len(parts) - 1):
+                param = params.get("/".join(parts[k:-1]))
+                if param is not None:
+                    child = int(parts[-1])
+                    break
         local = t.to_local() if is_dtensor(t) else t
         if param is not None and not is_dtensor(t):
             p_local = param.to_local() if is_dtensor(param) else param
             shape, index, number, owner = self._layout(param)
             if tuple(local.shape) == tuple(p_local.shape):
                 return MeshPiece(local, shape, index, number, owner)
+            if child is not None and _is_quantized(child, local,
+                                                   p_local.numel()):
+                return quantized_piece(child, local, param,
+                                       (shape, index, number, owner))
             if index != [[0, s] for s in shape]:
                 raise NotImplementedError(
                     f"{path}: a state leaf of shape {tuple(local.shape)} "
                     f"beside the {tuple(p_local.shape)} piece of its "
-                    "parameter (a quantized state) has no sharded "
-                    "checkpoint layout yet")
+                    "parameter is neither laid out as the parameter nor "
+                    "an adamw8bit child (codes (rows, 256) int8, scales "
+                    "(rows,) float32, 256 elements a row): no checkpoint "
+                    "layout names its elements")
         return MeshPiece(local, *self._layout(t))
+
+
+# ------------------------------------------------------- quantized state
+
+
+def _is_quantized(child: int, local: torch.Tensor, n: int) -> bool:
+    """Is `local` adamw8bit's codes (`child` 0) or scales (1) of an
+    `n`-element piece?"""
+    from ..optimizers.low_bit import BLOCK
+
+    rows = -(-n // BLOCK)
+    if child == 0:
+        return local.dtype == torch.int8 and \
+            tuple(local.shape) == (rows, BLOCK)
+    return local.dtype == torch.float32 and tuple(local.shape) == (rows,)
+
+
+def _numel(index) -> int:
+    n = 1
+    for a, b in index:
+        n *= max(0, b - a)
+    return n
+
+
+def _aligned_rows(index, shape) -> Optional[int]:
+    """The first row of the leaf's blocks where piece `index` of a
+    `shape` leaf starts, if the piece is a run of the leaf's flattening
+    on a block boundary, a whole number of blocks long or ending the
+    leaf (layout A); else None.  An empty piece fits anywhere."""
+    from ..optimizers.leaf import _aligned_run
+    from ..optimizers.low_bit import BLOCK
+
+    n = _numel(index)
+    total = _numel([[0, s] for s in shape])
+    if n == 0:
+        return -(-total // BLOCK)
+    if not _aligned_run(index, list(shape), BLOCK):
+        return None
+    cut = [d for d, (r, s) in enumerate(zip(index, shape)) if r != [0, s]]
+    start = 0
+    if cut:
+        inner = _numel([[0, s] for s in shape[cut[0] + 1:]])
+        start = index[cut[0]][0] * inner
+    if n % BLOCK and start + n != total:
+        return None
+    return start // BLOCK
+
+
+def _pieces(param, layout) -> List:
+    """[(number, index)] of every distinct piece of `param` (one, whole,
+    for a plain tensor)."""
+    from .sharding import dtensor_pieces
+
+    if is_dtensor(param):
+        return dtensor_pieces(param)
+    return [(layout[2], layout[1])]
+
+
+def quantized_piece(child: int, local: torch.Tensor, param, layout):
+    """The `MeshPiece` of adamw8bit's codes (`child` 0) or scales (1) of
+    a parameter's piece, in layout A or B (module docstring; a whole
+    piece is A);
+    `layout` is the parameter piece's (global shape, index, number,
+    owner).  Its restore hook reads both children of the checkpoint."""
+    from ..checkpoint.shm_handler import MeshPiece
+    from ..optimizers.low_bit import BLOCK
+
+    shape, index, number, owner = layout
+    pieces = _pieces(param, layout)
+    firsts = {num: _aligned_rows(idx, shape) for num, idx in pieces}
+    n, total = _numel(index), _numel([[0, s] for s in shape])
+    rows = -(-n // BLOCK)
+    hook = _QuantRestore(child, shape, index, n, local)
+    if all(r is not None for r in firsts.values()):
+        r0 = firsts[number]
+        g_rows = -(-total // BLOCK)
+        if child == 0:
+            return MeshPiece(local, [g_rows, BLOCK],
+                             [[r0, r0 + rows], [0, BLOCK]], number, owner,
+                             hook)
+        return MeshPiece(local, [g_rows], [[r0, r0 + rows]], number, owner,
+                         hook)
+    if child == 0:
+        codes = local.reshape(-1)[:n].view([b - a for a, b in index])
+        return MeshPiece(codes, shape, index, number, owner, hook)
+    head = 2 * len(shape)
+    width = head + max(-(-_numel(idx) // BLOCK) for _, idx in pieces)
+    row = torch.ones((1, width), dtype=torch.float32, device=local.device)
+    row[0, :head] = torch.tensor([x for ab in index for x in ab],
+                                 dtype=torch.float32)
+    row[0, head:head + rows] = local
+    return MeshPiece(row, [len(pieces), width],
+                     [[number, number + 1], [0, width]], number, owner, hook)
+
+
+class _QuantRestore:
+    """A quantized piece's restore hook: (`target`, its value), the
+    piece's codes (`child` 0) or scales (1) from the checkpoint's
+    ``<base>/0`` and ``<base>/1``, whatever layout wrote them (module
+    docstring)."""
+
+    def __init__(self, child: int, shape, index, n: int,
+                 target: torch.Tensor):
+        self.child, self.shape, self.index, self.n = child, shape, index, n
+        self.target = target
+
+    def __call__(self, name: str, flat):
+        return self.target, self._value(name, flat)
+
+    def _value(self, name: str, flat) -> torch.Tensor:
+        from ..checkpoint.engine import _host_tensor
+        from ..optimizers.low_bit import (
+            BLOCK,
+            dequantize_rows,
+            quantize_blockwise,
+        )
+
+        base = name.rsplit("/", 1)[0]
+        for k in (f"{base}/0", f"{base}/1"):
+            if k not in flat:
+                raise KeyError(f"checkpoint missing tensor {k!r}")
+        codes = _host_tensor(flat[f"{base}/0"])
+        scales = _host_tensor(flat[f"{base}/1"])
+        rows = -(-self.n // BLOCK)
+        region = tuple(slice(a, b) for a, b in self.index)
+        first = _aligned_rows(self.index, self.shape)
+        if scales.dim() == 1:  # layout A: the leaf's own blocks
+            if first is not None:
+                got = (codes[first:first + rows], scales[first:first + rows])
+                return got[self.child]
+            total = _numel([[0, s] for s in self.shape])
+            moment = dequantize_rows(codes, scales, total).reshape(
+                self.shape)
+        else:  # layout B: each piece's blocks, after its index
+            head = 2 * len(self.shape)
+            mine = torch.tensor([x for ab in self.index for x in ab],
+                                dtype=torch.float32)
+            moment = torch.zeros(self.shape, dtype=torch.float32)
+            for row in scales:
+                idx = row[:head].long().reshape(-1, 2).tolist()
+                cut = tuple(slice(a, b) for a, b in idx)
+                m = _numel(idx)
+                q = torch.zeros((-(-m // BLOCK)) * BLOCK, dtype=torch.int8)
+                q[:m] = codes[cut].reshape(-1)
+                q = q.reshape(-1, BLOCK)
+                s = row[head:head + q.shape[0]]
+                if torch.equal(row[:head], mine):
+                    return (q, s)[self.child]
+                moment[cut] = dequantize_rows(q, s, m).reshape(
+                    [b - a for a, b in idx])
+        qt = quantize_blockwise(moment[region].contiguous())
+        return (qt.q, qt.scale)[self.child]
 
 
 def shard_model(model: nn.Module, mesh, plan: MeshPlan,
                 planner: ShardingPlanner, tensor_parallel: bool = False,
-                reshard_after_forward: bool = True) -> MeshState:
+                reshard_after_forward: bool = True,
+                replica_dim: Optional[str] = None) -> MeshState:
     """Shard `model` (parameters on ``meta``) in place: tensor parallel
     over ``tp`` (with `tensor_parallel`, or any ``tp`` size above 1),
-    then FSDP2 on each block and on the root over the data dims."""
+    then FSDP2 on each block and on the root over the data dims, or,
+    with `replica_dim` (local SGD's ``dp``), over ``fsdp`` alone: each
+    coordinate on `replica_dim` then holds a replica of its own."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -260,7 +474,8 @@ def shard_model(model: nn.Module, mesh, plan: MeshPlan,
                 return Shard(d)
         raise AssertionError(f"{by_id[id(p)]}: no fsdp dim in {spec}")
 
-    data_mesh = mesh["dp", "fsdp"] if plan.dp > 1 else mesh["fsdp"]
+    data_mesh = mesh["dp", "fsdp"] if plan.dp > 1 and replica_dim is None \
+        else mesh["fsdp"]
     for unit in _units(model):
         if any(p not in ignored for p in unit.parameters()):
             fully_shard(unit, mesh=data_mesh,
@@ -272,7 +487,7 @@ def shard_model(model: nn.Module, mesh, plan: MeshPlan,
     logger.info("sharded %d parameters over %s (%d replicated%s)",
                 len(specs), plan.describe(), len(replicated),
                 ", tensor parallel" if tp else "")
-    return MeshState(model, mesh, plan, planner, replicated)
+    return MeshState(model, mesh, plan, planner, replicated, replica_dim)
 
 
 def _spec_axes(spec) -> List[str]:

@@ -184,15 +184,17 @@ def spec_index(shape: Sequence[int], spec: Spec, sizes: Dict[str, int],
     return index
 
 
-def dtensor_layout(t) -> Tuple[List[List[int]], int, bool]:
+def dtensor_layout(t, coord: Sequence[int] = None
+                   ) -> Tuple[List[List[int]], int, bool]:
     """(index, shard number, owner) of this rank's local piece of DTensor
-    `t`: the [start, stop) per dim within the global tensor; the piece's
-    number among the distinct pieces, counted row-major over the mesh
-    dims that shard it (the order in which JAX's device-ordered shards
-    first show each piece); and whether this rank writes it (coordinate
-    0 on every mesh dim that replicates it)."""
+    `t` (or of the piece at mesh coordinates `coord`): the [start, stop)
+    per dim within the global tensor; the piece's number among the
+    distinct pieces, counted row-major over the mesh dims that shard it
+    (the order in which JAX's device-ordered shards first show each
+    piece); and whether this rank writes it (coordinate 0 on every mesh
+    dim that replicates it)."""
     mesh = t.device_mesh
-    coord = mesh.get_coordinate()
+    coord = mesh.get_coordinate() if coord is None else list(coord)
     index = [[0, s] for s in t.shape]
     number, owner = 0, True
     for i, p in enumerate(t.placements):
@@ -204,6 +206,20 @@ def dtensor_layout(t) -> Tuple[List[List[int]], int, bool]:
         elif coord[i] != 0:
             owner = False
     return index, number, owner
+
+
+def dtensor_pieces(t) -> List[Tuple[int, List[List[int]]]]:
+    """Every distinct piece of DTensor `t` over its mesh, as (shard
+    number, index), in number order."""
+    import itertools
+
+    mesh = t.device_mesh
+    out = {}
+    for coord in itertools.product(*(range(n) for n in mesh.shape)):
+        index, number, owner = dtensor_layout(t, coord)
+        if owner:
+            out[number] = index
+    return sorted(out.items())
 
 
 @dataclass

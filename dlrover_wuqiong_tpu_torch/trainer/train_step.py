@@ -221,23 +221,25 @@ class TrainState:
         return self
 
 
-def _map_leaves(fn: Callable, node: Any, path: str = "") -> Any:
-    """`node` with ``fn(path, leaf)`` applied to every tensor leaf, its
-    path "/"-joined as the checkpoint names it (dicts, NamedTuples,
-    lists and tuples rebuilt around them)."""
+def _map_leaves(fn: Callable, node: Any, path: str = "",
+                is_leaf: Callable[[Any], bool] = torch.is_tensor) -> Any:
+    """`node` with ``fn(path, leaf)`` applied to every leaf (a tensor, or
+    what `is_leaf` says), its path "/"-joined as the checkpoint names it
+    (dicts, NamedTuples, lists and tuples rebuilt around them)."""
     def sub(k):
         return f"{path}/{k}" if path else str(k)
 
-    if torch.is_tensor(node):
+    if is_leaf(node):
         return fn(path, node)
     if isinstance(node, dict):
-        return type(node)((k, _map_leaves(fn, v, sub(k)))
+        return type(node)((k, _map_leaves(fn, v, sub(k), is_leaf))
                           for k, v in node.items())
     if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return type(node)(*(_map_leaves(fn, getattr(node, f), sub(f))
+        return type(node)(*(_map_leaves(fn, getattr(node, f), sub(f),
+                                        is_leaf)
                             for f in node._fields))
     if isinstance(node, (list, tuple)):
-        return type(node)(_map_leaves(fn, v, sub(i))
+        return type(node)(_map_leaves(fn, v, sub(i), is_leaf)
                           for i, v in enumerate(node))
     return node
 

@@ -100,7 +100,7 @@ def test_auto_accelerate_rebuilds_the_model_with_the_overrides():
     assert res.accum_steps == 3
 
 
-NOT_PORTED = {"pipeline_parallel": "8c", "local_sgd": "8c", "hsdp": "8c"}
+NOT_PORTED = {"pipeline_parallel": "8c"}
 #: the mesh strategies of items 8a and 8b (a world of 8)
 MESH = {"fsdp": [("fsdp", {})], "zero2": [("zero2", {"size": 16})],
         "zero3": [("zero3", {})], "data_parallel": [("data_parallel", {})],
@@ -131,6 +131,19 @@ def test_unported_strategies_raise_with_their_item(name):
     with pytest.raises(ValueError, match="not ported yet"):
         tacc.auto_accelerate(tgpt.GPT(tgpt.GPTConfig.nano()), device="cpu",
                              strategy=[("amp", {}), (name, {})])
+
+
+def test_unported_message_names_every_ported_strategy():
+    """The refusal lists the strategies the port has, from its registry:
+    the mesh strategies (expert and sequence parallel, local_sgd and
+    hsdp among them) and the one-device ones, and no unported one."""
+    with pytest.raises(ValueError) as err:
+        tacc.resolve_strategy([("pipeline_parallel", {})])
+    listed = str(err.value).split("trains with ")[1].split(", ")
+    assert set(tacc.MESH_STRATEGIES) <= set(listed)
+    assert {"amp", "checkpoint", "grad_accum", "stable_bf16",
+            "optimizer_offload"} <= set(listed)
+    assert "pipeline_parallel" not in listed
 
 
 @pytest.mark.parametrize("case", sorted(MESH))

@@ -207,3 +207,89 @@ def test_cuda_wrapper_raises_on_what_the_kernels_do_not_take():
     assert tfa._kernel_head_dim(48, torch.device("cuda")) == 64
     assert tfa._kernel_head_dim(96, torch.device("cuda")) == 128
     assert tfa._kernel_head_dim(48, torch.device("cpu")) == 48
+
+
+# ------------------------------------------------- the streamed scan
+#
+# The port's streamed scans (`_fa_forward_streamed` over key blocks,
+# `_fa_backward_streamed` over query blocks) against JAX's
+# `_streamed_with_lse` and `_streamed_bwd`, called directly on the same
+# float32 inputs with blocks of 64 (several blocks a sequence), at the
+# file's tolerances.  JAX computes in natural-log units from an unrounded
+# q; the port in log2 units from q pre-scaled and rounded to its dtype
+# (float32 here), as its kernels do.
+
+STREAMED = [(True, 256, 256), (False, 256, 256), (True, 128, 256),
+            (True, 256, 128), (False, 128, 256)]
+
+
+@pytest.mark.parametrize("causal,sq,sk", STREAMED)
+@pytest.mark.parametrize("with_glse", [False, True])
+def test_streamed_scan_matches_jax(causal, sq, sk, with_glse):
+    d, block = 32, 64
+    q, k, v, g = _inputs(11, 2, sq, sk, d)
+    glse = (np.random.default_rng(12).standard_normal((2, sq))
+            .astype(np.float32) if with_glse else None)
+    scale = 1.0 / np.sqrt(d)
+    q4, k4, v4, g4 = (x[None] for x in (q, k, v, g))
+    jo, jl = jax.jit(functools.partial(
+        jfa._streamed_with_lse, causal=causal, scale=scale,
+        block_k=block))(q4, k4, v4)
+    jd = jax.jit(functools.partial(
+        jfa._streamed_bwd, causal=causal, scale=scale, block_q=block))(
+        q4, k4, v4, jo, jl, g4,
+        glse=None if glse is None else glse[None])
+    tq, tk, tv, tg = _t(q, k, v, g)
+    to, tl = tfa._fa_forward_streamed(tq, tk, tv, causal, scale,
+                                      block_k=block)
+    _check_forward(to, tl, np.asarray(jo)[0], np.asarray(jl)[0][:, None],
+                   causal, sq, sk)
+    td = tfa._fa_backward_streamed(
+        tq, tk, tv, to, tl, tg, causal, scale,
+        None if glse is None else torch.from_numpy(glse), block_q=block)
+    for t, j in zip(td, jd):
+        _close(t, np.asarray(j)[0], BWD_TOL)
+    # and the port's dense plain versions on the same inputs
+    po, pl = tfa._fa_forward_plain(tq, tk, tv, causal, scale)
+    _close(to, po, FWD_TOL)
+    pd = tfa._fa_backward_plain(
+        tq, tk, tv, to, tl, tg, causal, scale,
+        None if glse is None else torch.from_numpy(glse))
+    for t, p in zip(td, pd):
+        _close(t, p, BWD_TOL)
+
+
+def test_public_api_takes_the_streamed_scan_at_the_threshold(monkeypatch):
+    """b·h = 1, S = 2048, d = 16: the CPU path reaches 2048² scores and
+    takes the streamed scans, forward and backward (the lse cotangent
+    folded in), against JAX's `flash_attention_with_lse`, which takes its
+    own streamed scan there."""
+    assert tfa.use_streamed(2048, 2048) and not tfa.use_streamed(2047, 2048)
+    taken = []
+    for name in ("_fa_forward_streamed", "_fa_backward_streamed"):
+        fn = getattr(tfa, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            taken.append(_name)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tfa, name, spy)
+    rng = np.random.default_rng(13)
+    q, k, v, g = (rng.standard_normal((1, 1, 2048, 16)).astype(np.float32)
+                  for _ in range(4))
+    gl = rng.standard_normal((1, 1, 2048)).astype(np.float32)
+
+    def jloss(q, k, v):
+        o, lse = jfa.flash_attention_with_lse(q, k, v, True)
+        return (o * g).sum() + (lse * gl).sum(), (o, lse)
+
+    (_, (jo, jl)), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(q, k, v)
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    to, tl = tfa.flash_attention_with_lse(*ts, causal=True)
+    ((to * torch.from_numpy(g)).sum()
+     + (tl * torch.from_numpy(gl)).sum()).backward()
+    assert taken == ["_fa_forward_streamed", "_fa_backward_streamed"]
+    _close(to.detach(), jo, FWD_TOL)
+    _close(tl.detach(), jl, FWD_TOL)
+    for t, j in zip(ts, jg):
+        _close(t.grad, j, BWD_TOL)

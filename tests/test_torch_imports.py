@@ -100,9 +100,11 @@ def _package_modules():
     return sorted(mods)
 
 
-#: the mesh strategies' modules (ROADMAP items 8a and 8b)
+#: the mesh strategies' modules (ROADMAP items 8a, 8b and 8c's local
+#: SGD) and the DCP interop of their checkpoints (item 6c)
 PARALLEL = ("parallel.mesh", "parallel.sharding", "parallel.fsdp",
-            "parallel.long_context")
+            "parallel.long_context", "parallel.local_sgd",
+            "checkpoint.dcp_compat", "common.storage")
 
 
 def test_import_loads_no_jax_and_no_cuda():

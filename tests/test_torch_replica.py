@@ -551,30 +551,38 @@ def test_restored_segment_owner_survives_another_jobs_sweep(servers, jobs):
     port's restore stamps the restoring process (the agent) as the
     owner, so the segment survives another job's sweep of dead
     creators' segments; the JAX manager's restore, which writes the blob
-    as it is, leaves one the sweep reaps."""
+    as it is, leaves one the sweep reaps.
+
+    The staging process is a live subprocess until both restores are
+    done, and dies just before this test's sweep: no segment in
+    /dev/shm names a dead pid while another test's saver, starting
+    beside this one, may sweep."""
     import subprocess
     import sys
 
-    dead = subprocess.run([sys.executable, "-c", "import os; "
-                           "print(os.getpid())"], capture_output=True,
-                          text=True, check=True)
-    dead_pid = int(dead.stdout)
-    (holder,) = servers("t")
-    kept, reaped = jobs("keep"), jobs("reap")
-    for job, restorer in ((kept, trep), (reaped, jrep)):
-        SharedMemoryHandler(0, job).save_state_dict(
-            _state(), step=6, extra_meta={"_pid": dead_pid})
-        m = trep.CkptReplicaManager(0, {1: _addr(holder)}, job_name=job,
-                                    lock_timeout=LOCK_S)
-        assert m.backup() == 1
-        m.close()
-        SharedMemoryHandler(0, job).unlink()
-        r = restorer.CkptReplicaManager(0, {1: _addr(holder)},
+    stager = subprocess.Popen([sys.executable, "-c",
+                               "import time; time.sleep(600)"])
+    try:
+        (holder,) = servers("t")
+        kept, reaped = jobs("keep"), jobs("reap")
+        for job, restorer in ((kept, trep), (reaped, jrep)):
+            SharedMemoryHandler(0, job).save_state_dict(
+                _state(), step=6, extra_meta={"_pid": stager.pid})
+            m = trep.CkptReplicaManager(0, {1: _addr(holder)},
                                         job_name=job, lock_timeout=LOCK_S)
-        assert r.restore() == 6
-        r.close()
-        with holder._lock:
-            holder._store.clear()
+            assert m.backup() == 1
+            m.close()
+            SharedMemoryHandler(0, job).unlink()
+            r = restorer.CkptReplicaManager(0, {1: _addr(holder)},
+                                            job_name=job,
+                                            lock_timeout=LOCK_S)
+            assert r.restore() == 6
+            r.close()
+            with holder._lock:
+                holder._store.clear()
+    finally:
+        stager.kill()
+        stager.wait()
     header = SharedMemoryHandler(0, kept).load_header()
     assert header["extra"]["_pid"] == os.getpid()
     assert SharedMemoryHandler(0, kept).verify() == (True, "")

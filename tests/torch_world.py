@@ -100,6 +100,8 @@ def port_optimizer(name: str, lr: float = None):
 
     if name == "adamw":
         return adamw(lr or 1e-2)
+    if name == "adam":  # optax.adam: AdamW without decay
+        return adamw(lr or 1e-2, weight_decay=0.0)
     if name == "adamw8bit":
         return adamw8bit(lr or 1e-3)
     rate = lr or 1e-2
@@ -569,3 +571,350 @@ def long_context_world(rank, world, q, k, v, impls, cases, inits,
     """The world-side cases of tests/test_torch_long_context.py."""
     return {"attention": sp_attention(rank, world, q, k, v, impls),
             "training": parity_cases(rank, world, cases, inits, overrides)}
+
+
+# --------------------------------------------------------- local SGD cases
+
+
+def diloco_batches(steps: int, accum: int = 1):
+    """The global batches of a DiLoCo run: `host_batches`, or with
+    `accum` > 1 each step's rows as `accum` microbatches (a leading
+    axis), every group keeping its own rows of each."""
+    import numpy as np
+
+    out = []
+    for b in host_batches(steps * accum):
+        out.append(b)
+    if accum == 1:
+        return out
+    return [{k: np.stack([out[i * accum + j][k] for j in range(accum)])
+             for k in out[0]} for i in range(steps)]
+
+
+def digest(params) -> str:
+    """A hash of a {name: numpy} state (the group's parameters)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for n in sorted(params):
+        h.update(n.encode())
+        h.update(params[n].tobytes())
+    return h.hexdigest()
+
+
+def diloco(strategy, opt, lr, seed=0, overrides=None):
+    """`auto_accelerate` of GPT nano in float32 over a local SGD
+    `strategy` (its `DiLoCoState` in ``res.state``)."""
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+
+    return auto_accelerate(port_model("gpt", **(overrides or {})),
+                           optimizer=port_optimizer(opt, lr), device="cpu",
+                           seed=seed, strategy=list(strategy)
+                           + [("half", {"enabled": False})])
+
+
+def diloco_run(res, batches):
+    """Steps of `res` over `batches`: [(loss, digest of the group's
+    parameters)] (a gather over the group on every rank)."""
+    out = []
+    for b in batches:
+        res.state, m = res.train_step(res.state, res.place_batch(b))
+        out.append((m["loss"].item(), digest(full_params(res.model))))
+    return out
+
+
+def diloco_world(rank, world, cases, inits, ckcase, ckdirs, job):
+    """The world side of tests/test_torch_local_sgd.py.
+
+    Each case (key, strategy, opt, lr, steps, accum) from JAX's initial
+    DiLoCo state `inits[key]` (`DiLoCoState.load_tree`): every step's
+    loss and group digest, and the group's final parameters on each
+    group's first rank; ``host_state`` under optimizer_offload.  Then
+    `ckcase` (key, strategy, opt, lr): 3 steps, a flash save and a DCP
+    save, 3 more steps; fresh builds (another seed) restore each and
+    take the same 3 steps; a fresh build restores JAX's DiLoCo flash
+    checkpoint (``ckdirs["jax"]``) and takes 3 steps.  The refusals
+    last."""
+    from dlrover_wuqiong_tpu_torch.checkpoint import dcp_compat
+    from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import StorageType
+
+    out = {}
+    for key, strategy, opt, lr, steps, accum in cases:
+        res = diloco(strategy, opt, lr)
+        res.state.load_tree(inits[key])
+        runs = diloco_run(res, diloco_batches(steps, accum))
+        params = full_params(res.model)
+        first = res.mesh_state.coord["fsdp"] == 0
+        out[key] = {"runs": runs, "params": params if first else None,
+                    "group": res.mesh_state.replica}
+        if "offload" in key:
+            opt_ = res.state.inner_opt_state
+            out[key]["host_state"] = all(
+                v.device.type == "cpu" and not hasattr(v, "placements")
+                and v.shape == q.shape for q in opt_.proxies
+                for k, v in opt_.inner.state[q].items() if k != "step")
+    key, strategy, opt, lr = ckcase
+    batches = diloco_batches(6)
+    res = diloco(strategy, opt, lr)
+    res.state.load_tree(inits[key])
+    before = diloco_run(res, batches[:3])
+    ck = checkpointer(ckdirs["port"], f"{job}-port", rank, world)
+    ck.save_checkpoint(3, res.state.tree(), StorageType.DISK)
+    assert ck.wait_latest_checkpoint(120)
+    dcp_compat.save_dcp(ckdirs["dcp"], res.state)
+    after = diloco_run(res, batches[3:])
+    resumed = {}
+    for via in ("flash", "dcp"):
+        fresh = diloco(strategy, opt, lr, seed=1)
+        if via == "flash":
+            assert ck.load_checkpoint(fresh.state) is not None
+        else:
+            dcp_compat.load_dcp(ckdirs["dcp"], fresh.state)
+        resumed[via] = diloco_run(fresh, batches[3:])
+        resumed[via + "_step"] = int(fresh.state.step)
+    ck.close()
+    _stop_saver()
+    fresh = diloco(strategy, opt, lr, seed=1)
+    wait_for_step(ckdirs["jax"], 3)
+    ck = checkpointer(ckdirs["jax"], f"{job}-jax", rank, world)
+    assert ck.load_checkpoint(fresh.state) is not None
+    ck.close()
+    _stop_saver()
+    restored = digest(full_params(fresh.model))
+    jax_resumed = diloco_run(fresh, batches[3:])
+    out["ckpt"] = {"before": before, "after": after, "resumed": resumed,
+                   "jax_restored": restored, "jax_resumed": jax_resumed,
+                   "group": fresh.mesh_state.replica,
+                   "refs": leaf_refs(res.state.tree())}
+    out["refusals"] = diloco_refusals()
+    return out
+
+
+def wait_for_step(ckdir, step, timeout=300.0):
+    """Block until `ckdir` has committed `step` (a checkpoint another
+    process writes meanwhile)."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.ckpt_saver import (
+        read_last_step,
+    )
+
+    end = time.monotonic() + timeout
+    while read_last_step(ckdir) < step:
+        if time.monotonic() > end:
+            raise TimeoutError(f"{ckdir}: step {step} not committed")
+        time.sleep(0.1)
+
+
+def diloco_refusals():
+    """{case: the message each refused local_sgd build raises}."""
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+
+    base = [("local_sgd", {}), ("data_parallel", {"size": 2}), ("fsdp", {})]
+    cases = {
+        "no_dp": ([("local_sgd", {}), ("fsdp", {})], {}),
+        "fused": (base, {"fused_steps": 2}),
+        "abstract": (base, {"materialize": False}),
+        "pipeline": (base + [("pipeline_parallel", {"size": 2})], {}),
+        "tp": ([("hsdp", {}), ("data_parallel", {"size": 2}),
+                ("tensor_parallel", {"size": 2})], {}),
+    }
+    out = {}
+    for key, (strategy, kw) in cases.items():
+        try:
+            auto_accelerate(port_model("gpt"), device="cpu",
+                            strategy=strategy, **kw)
+        except (ValueError, NotImplementedError) as e:
+            out[key] = f"{type(e).__name__}: {e}"
+        else:
+            out[key] = None
+    return out
+
+
+# ------------------------------------------------------------ DCP cases
+
+#: GPT nano 80 wide: its attention kernels' Shard(0) pieces are not
+#: 256-aligned runs (20 rows of 240 over fsdp 4, 40 over fsdp 2), so
+#: adamw8bit lays them out B; its MLP kernels' stay A
+UNALIGNED = {"n_embd": 80}
+#: the adamw8bit builds of tests/test_torch_dcp.py
+QUANT = (("nano", None), ("n_embd80", UNALIGNED))
+
+
+def quant_moments(res):
+    """{param name: (index, mu, nu)}: this rank's piece of each
+    adamw8bit moment, dequantized (float32 numpy), with the piece's
+    index in the parameter; and {name: "A" | "B"}, the layout its
+    checkpoint tree gives each sharded parameter's state."""
+    from dlrover_wuqiong_tpu_torch.checkpoint.shm_handler import (
+        MeshPiece,
+        flatten_state_dict,
+    )
+    from dlrover_wuqiong_tpu_torch.optimizers.low_bit import (
+        dequantize_blockwise,
+    )
+    from dlrover_wuqiong_tpu_torch.parallel.fsdp import is_dtensor
+    from dlrover_wuqiong_tpu_torch.parallel.sharding import dtensor_layout
+
+    opt = res.state.opt_state
+    out = {}
+    for (n, p), q in zip(res.model.named_parameters(), opt.proxies):
+        index = (dtensor_layout(p)[0] if is_dtensor(p)
+                 else [[0, s] for s in p.shape])
+        mu, nu = opt.inner.qtensors(q)
+        out[n] = (index, dequantize_blockwise(mu).numpy().copy(),
+                  dequantize_blockwise(nu).numpy().copy())
+    layouts = {}
+    for name, leaf in flatten_state_dict(res.state.tree()).items():
+        if isinstance(leaf, MeshPiece) and name.endswith("/1") and \
+                leaf.restore is not None:
+            path = name.split("/", 3)[3].rsplit("/", 1)[0]
+            layouts[path.replace("/", ".")] = \
+                "B" if len(leaf.global_shape) == 2 else "A"
+    return out, layouts
+
+
+def local_quant_digest(res) -> str:
+    """A hash of this rank's adamw8bit codes and scales, as they are."""
+    import numpy as np
+
+    opt = res.state.opt_state
+    arrays = {}
+    for i, q in enumerate(opt.proxies):
+        for k, v in opt.inner.state[q].items():
+            arrays[f"{i}/{k}"] = np.asarray(v.numpy())
+    return digest(arrays)
+
+
+def quant_build(overrides=None, seed=0, strategy=(("fsdp", {}),)):
+    """GPT nano over `strategy` with adamw8bit (the optimizer's state
+    is its pieces', `LocalShards`)."""
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+
+    return auto_accelerate(port_model("gpt", **(overrides or {})),
+                           optimizer=port_optimizer("adamw8bit"),
+                           device="cpu", seed=seed,
+                           strategy=list(strategy)
+                           + [("half", {"enabled": False})])
+
+
+def dcp_write_world(rank, world, jax_dirs, dirs, job):
+    """The world of 4 of tests/test_torch_dcp.py.
+
+    - JAX's fsdp flash checkpoint exported to DCP (`export_dcp`) from a
+      fresh fsdp build; `import_dcp` of that into a new flash dir, which
+      a fresh build resumes; the DCP-loaded and the flash-resumed builds
+      each take a step.
+    - adamw8bit over fsdp 4 (`QUANT`: both layouts): 2 steps, flash
+      and DCP saves, the moments; fresh builds restore each save (codes
+      and scales, then a step, against the original's).
+    - distinct codes planted on each rank, saved to DCP, read back.
+    - JAX's adamw8bit fsdp checkpoint restored onto the port's pieces."""
+    from dlrover_wuqiong_tpu_torch.checkpoint import dcp_compat
+    from dlrover_wuqiong_tpu_torch.checkpoint.checkpointer import StorageType
+    from dlrover_wuqiong_tpu_torch.checkpoint.shm_handler import (
+        flatten_state_dict,
+    )
+
+    out = {}
+    fsdp = [("fsdp", {})]
+    exported = _fresh(fsdp)
+    dcp_compat.export_dcp(jax_dirs["fsdp"], dirs["jax_dcp"],
+                          exported.state, job_name=f"{job}-exp")
+    out["exported"] = restored_global(exported)
+    imp = _fresh(fsdp, seed=2)
+    dcp_compat.load_dcp(dirs["jax_dcp"], imp.state)
+    dcp_compat.import_dcp(dirs["jax_dcp"], dirs["imported"], _fresh(
+        fsdp, seed=3).state, step=5, job_name=f"{job}-imp")
+    back = _fresh(fsdp, seed=4)
+    ck = checkpointer(dirs["imported"], f"{job}-back", rank, world)
+    assert ck.load_checkpoint(back.state) is not None
+    ck.close()
+    _stop_saver()
+    out["imported"] = restored_global(back)
+    out["imported_step"] = int(back.state.step)
+    b = host_batches(1)[0]
+    metrics = []
+    for res in (imp, back):
+        res.state, m = res.train_step(res.state, res.place_batch(b))
+        metrics.append((m["loss"].item(), m["grad_norm"].item(),
+                        digest(full_params(res.model))))
+    out["resumed"] = metrics
+
+    for key, overrides in QUANT:
+        res = quant_build(overrides)
+        for b in host_batches(2):
+            res.state, m = res.train_step(res.state, res.place_batch(b))
+        ck = checkpointer(dirs[f"flash_{key}"], f"{job}-{key}", rank, world)
+        ck.save_checkpoint(2, res.state.tree(), StorageType.DISK)
+        assert ck.wait_latest_checkpoint(120)
+        dcp_compat.save_dcp(dirs[f"dcp_{key}"], res.state)
+        moments, layouts = quant_moments(res)
+        saved = local_quant_digest(res)
+        nxt = host_batches(3)[2]
+        res.state, m = res.train_step(res.state, res.place_batch(nxt))
+        want = (m["loss"].item(), digest(full_params(res.model)))
+        got = {}
+        for via in ("flash", "dcp"):
+            fresh = quant_build(overrides, seed=1)
+            if via == "flash":
+                assert ck.load_checkpoint(fresh.state) is not None
+            else:
+                dcp_compat.load_dcp(dirs[f"dcp_{key}"], fresh.state)
+            digest_ = local_quant_digest(fresh)
+            fresh.state, m = fresh.train_step(fresh.state,
+                                              fresh.place_batch(nxt))
+            got[via] = (digest_, m["loss"].item(),
+                        digest(full_params(fresh.model)))
+        ck.close()
+        _stop_saver()
+        out[f"quant_{key}"] = {"moments": moments, "layouts": layouts,
+                               "saved": saved, "next": want,
+                               "restored": got}
+
+    # distinct codes on each rank: every rank's rows come back
+    res = quant_build()
+    opt = res.state.opt_state
+    for q in opt.proxies:
+        opt.inner.state[q]["mu_q"].fill_(rank + 1)
+    dcp_compat.save_dcp(dirs["plant"], res.state)
+    names = list(dcp_compat.dcp_state_dict(res.state))
+    codes = [n for n in flatten_state_dict(res.state.tree())
+             if "/mu/" in n and n.endswith("/0")]
+    out["planted"] = dcp_compat.read_dcp(dirs["plant"], codes)
+    out["planted_index"] = {
+        n.split("#")[0]: dcp_compat._parse_piece(n)[1]
+        for n in names if "#shard" in n and "/mu/" in n
+        and n.split("#")[0].endswith("/0")}
+
+    # JAX's adamw8bit fsdp checkpoint onto the port's pieces
+    res = quant_build(seed=1)
+    ck = checkpointer(jax_dirs["adamw8bit"], f"{job}-j8", rank, world)
+    assert ck.load_checkpoint(res.state) is not None
+    ck.close()
+    _stop_saver()
+    out["jax8"] = quant_moments(res)
+    return out
+
+
+def dcp_read_world(rank, world, dirs, job):
+    """The world of 2 of tests/test_torch_dcp.py: JAX's fsdp state from
+    the DCP export into fsdp 2, and the adamw8bit saves of the world of
+    4 (flash and DCP) into fsdp 2: the moments and the layouts."""
+    from dlrover_wuqiong_tpu_torch.checkpoint import dcp_compat
+
+    out = {}
+    fresh = _fresh([("fsdp", {})])
+    dcp_compat.load_dcp(dirs["jax_dcp"], fresh.state)
+    out["exported"] = restored_global(fresh)
+    for key, overrides in QUANT:
+        for via in ("flash", "dcp"):
+            res = quant_build(overrides, seed=1)
+            if via == "flash":
+                ck = checkpointer(dirs[f"flash_{key}"], f"{job}-{key}",
+                                  rank, world)
+                assert ck.load_checkpoint(res.state) is not None
+                ck.close()
+                _stop_saver()
+            else:
+                dcp_compat.load_dcp(dirs[f"dcp_{key}"], res.state)
+            out[f"quant_{key}_{via}"] = quant_moments(res)
+    return out
