@@ -365,6 +365,24 @@ Phases, in order; a failure in any of them exits non-zero:
    scans, called on CUDA tensors at Llama-3 8B's (32, 4096, 4096, 128)
    causal, within `FA_TOL` of kernels 1, 3 and 4 (lse within
    `FA_LSE_TOL`), their peak memory beside the dense plain version's.
+17. Pipeline parallelism and the RL hybrid engine
+   (``chip_smoke.pipeline_phase``, runnable alone).  pp 4 stages
+   emulated in this process (`parallel.pipeline.EmulatedPipeline`: the
+   gloo tests' schedule bodies, the hop between stages a hand-over of
+   tensors).  17.1: GPT-2 124M, B = 16 in 8 microbatches, T = 1024,
+   under gpipe, 1F1B and interleaved (v = 3, one layer a chunk); 17.2:
+   Llama-3 8B's widths at 4 layers, B = 4 in 4 microbatches, T = 4096,
+   under 1F1B and gpipe.  From one seeded init, each schedule's first
+   step against the plain one-device step on the same batch (loss, grad
+   norm, each leaf's gradient, the updated leaves; the PIPE_*
+   tolerances), then timed steps of each: median ms and spread, the
+   host's time for a step and a tick (until the step returns, before
+   its loss is read), peak memory (and above the
+   state), the ticks a step against `schedule_ticks`, flash launches a
+   step (``pipeline_phase(..., profiled=...)`` adds a profiled GPT-2
+   step: device busy share, kernels).  17.3: `rl.hybrid
+   .HybridEngine` in an NCCL world of one, GPT-2 124M synced to the
+   decode placement twice, bitwise; the second sync's wall.
 6. One JSON line of the six kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -5065,6 +5083,361 @@ def print_interop(ip: dict):
           + ", ".join(f"{k} {v:.1f}" for k, v in w.items()) + ")")
 
 
+# ------------------------------------------------------------ phase 17
+
+#: 17.1: GPT-2 124M, pp 4 emulated, B 16 in M 8 microbatches, T 1024;
+#: interleaved with v 3 (one layer a chunk)
+PIPE_PP, PIPE_B, PIPE_M, PIPE_V, PIPE_TIMED = 4, 16, 8, 3, 3
+#: 17.2: Llama-3 8B widths at 4 layers, B 4 in M 4 microbatches, T 4096
+PIPE_LLAMA = dict(layers=4, b=4, t=4096, m=4, timed=2)
+#: a schedule's first step against the plain step on the same batch and
+#: init, bf16 compute: the loss, the grad norm, each leaf's gradient in
+#: relative L2, and the share of each leaf's entries that the update
+#: puts more than half an lr step from the plain update's (Adam's first
+#: step is sign-like: an entry whose gradient sits at rounding size may
+#: take the other sign)
+PIPE_LOSS_RTOL, PIPE_NORM_RTOL, PIPE_GRAD_RTOL = 5e-3, 2e-2, 5e-2
+PIPE_OFF_SHARE = 0.02
+PIPE_LR = 3e-4
+
+
+def _host(torch, tensors) -> list:
+    return [t.detach().to("cpu", copy=True) for t in tensors]
+
+
+def pipe_compare(torch, model, plain: dict, loss: float, gnorm: float,
+                 tag: str) -> dict:
+    """A schedule's first step (its loss, grad norm, the gradients left
+    in ``.grad`` and the updated parameters) against the plain step's
+    (`plain`: host copies), within the PIPE_* tolerances."""
+    grad_err, off = (0.0, ""), (0.0, "")
+    for (name, p), g0, p0 in zip(model.named_parameters(), plain["grads"],
+                                 plain["params"]):
+        g0, p0 = g0.to(p.device), p0.to(p.device)
+        err = ((p.grad.float() - g0.float()).norm()
+               / g0.float().norm().clamp_min(1e-30)).item()
+        grad_err = max(grad_err, (err, name))
+        moved = (p.detach() - p0).abs() > PIPE_LR / 2
+        if name.endswith("c_attn.bias"):
+            # GPT's key bias (the middle third) has a zero gradient in
+            # exact arithmetic (softmax ignores what it adds to a row):
+            # Adam moves it by rounding noise, either way
+            q, _, v = moved.chunk(3)
+            moved = torch.cat([q, v])
+        off = max(off, (moved.float().mean().item(), name))
+    out = {"loss": loss, "grad_norm": gnorm,
+           "loss_rel_err": abs(loss - plain["loss"]) / abs(plain["loss"]),
+           "grad_norm_rel_err": abs(gnorm - plain["grad_norm"])
+           / plain["grad_norm"], "worst_leaf_grad_rel_err": grad_err[0],
+           "worst_grad_leaf": grad_err[1],
+           "worst_leaf_off_share": off[0], "worst_off_leaf": off[1]}
+    check(out["loss_rel_err"] <= PIPE_LOSS_RTOL, f"{tag}: loss {loss} vs "
+          f"the plain step's {plain['loss']} (rtol {PIPE_LOSS_RTOL})")
+    check(out["grad_norm_rel_err"] <= PIPE_NORM_RTOL, f"{tag}: grad norm "
+          f"{gnorm} vs {plain['grad_norm']} (rtol {PIPE_NORM_RTOL})")
+    check(grad_err[0] <= PIPE_GRAD_RTOL, f"{tag}: {grad_err[1]}'s gradient "
+          f"is {grad_err[0]} from the plain step's (rtol {PIPE_GRAD_RTOL})")
+    check(off[0] <= PIPE_OFF_SHARE, f"{tag}: {off[0]} of {off[1]}'s "
+          f"entries moved more than lr/2 from the plain update (<= "
+          f"{PIPE_OFF_SHARE})")
+    return out
+
+
+def pipe_timed(torch, tfa, step, state, batch, n: int, pipe=None) -> dict:
+    """n timed steps (CUDA-synchronized wall per step), the launch counts
+    set to 0 just before and read just after, the peak memory over them
+    (and above the memory held before them), the ticks a step."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ticks0 = pipe.ticks if pipe is not None else 0
+    tfa.reset_launches()
+    ms, host = [], []
+    for _ in range(n):
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        host.append((time.monotonic() - t0) * 1e3)
+        m["loss"].item()
+        ms.append((time.monotonic() - t0) * 1e3)
+    launches = dict(tfa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ms_sorted = sorted(ms)
+    return {"ms": ms, "median_ms": ms_sorted[len(ms) // 2],
+            "spread_ms": ms_sorted[-1] - ms_sorted[0],
+            "host_ms": host,
+            "median_host_ms": sorted(host)[len(host) // 2],
+            "launches": launches,
+            "launches_per_step": {k: v / n for k, v in launches.items()},
+            "peak_bytes": peak, "peak_above_state_bytes": peak - base,
+            "ticks_per_step": (pipe.ticks - ticks0) / n if pipe else None}
+
+
+def pipe_profile(torch, step, state, batch, median_ms: float,
+                 tag: str) -> dict:
+    """One more step under torch.profiler: the device's busy ms (its
+    kernels and copies), its share of the unprofiled median step
+    (`median_ms`), the kernels a step and their mean length.  The op
+    table (by self CPU time) goes to
+    chiprun_out/chip_smoke_pipeline_profile.txt under `tag`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kern = device_events(torch, prof)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out",
+                           "chip_smoke_pipeline_profile.txt"), "a") as f:
+        f.write(f"===== {tag}\n" + prof.key_averages().table(
+            sort_by="self_cpu_time_total", row_limit=25) + "\n")
+    if not kern:
+        return {"device_busy_ms": "not measured"}
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / median_ms, "kernels": len(kern),
+            "mean_kernel_us": busy * 1e3 / len(kern)}
+
+
+def pipe_grad_peak(torch, model, fwd_bwd) -> int:
+    """The bytes one forward and backward (`fwd_bwd`, no update)
+    allocates at its peak above what was allocated before it (the
+    gradients included); the gradients are dropped after."""
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    model.zero_grad(set_to_none=True)
+    return peak
+
+
+def pipe_family(torch, tfa, make_model, batch, schedules, m: int, v: int,
+                timed: int, tag: str, profiled=()) -> tuple:
+    """One seeded build of `make_model()` (adamw(PIPE_LR), bf16 compute):
+    the plain one-device step, then each schedule's first step from the
+    same init, pp PIPE_PP emulated (`parallel.pipeline.EmulatedPipeline`
+    over the same model), held against it (`pipe_compare`); then
+    `timed` steps of each (`pipe_timed`), the plain step's too, and the
+    peak of one forward and backward alone (`pipe_grad_peak`); the runs
+    named in `profiled` ("plain" or a schedule) take one profiled step
+    more (`pipe_profile`).  Returns (report, {schedule: flash launches
+    of its timed steps})."""
+    import gc
+
+    from dlrover_wuqiong_tpu_torch.auto.accelerate import auto_accelerate
+    from dlrover_wuqiong_tpu_torch.parallel.pipeline import (
+        EmulatedPipeline,
+        pipeline_step,
+        schedule_ticks,
+    )
+    from dlrover_wuqiong_tpu_torch.trainer.train_step import (
+        TrainState,
+        adamw,
+        make_train_step,
+    )
+
+    res = auto_accelerate(make_model(), optimizer=adamw(PIPE_LR), seed=0)
+    model, loss_fn = res.model, res.loss_fn
+    init = _host(torch, model.parameters())
+    del res
+
+    def fresh():
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), init):
+                p.copy_(p0)
+                p.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        return TrainState.create(model, adamw(PIPE_LR))
+
+    plain_step = make_train_step(loss_fn)
+    state, met = plain_step(fresh(), batch)
+    plain = {"loss": met["loss"].item(), "grad_norm": met["grad_norm"].item(),
+             "grads": _host(torch, (p.grad for p in model.parameters())),
+             "params": _host(torch, model.parameters())}
+    out = {"plain": {"loss": plain["loss"], "grad_norm": plain["grad_norm"],
+                     **pipe_timed(torch, tfa, plain_step, state, batch,
+                                  timed)}}
+    if "plain" in profiled:
+        out["plain"]["profile"] = pipe_profile(
+            torch, plain_step, state, batch, out["plain"]["median_ms"],
+            f"{tag} plain")
+    out["plain"]["fwd_bwd_peak_bytes"] = pipe_grad_peak(
+        torch, model, lambda: loss_fn(model, batch).backward())
+    del state
+    launches = {"plain": out["plain"]["launches"]}
+    for sched in schedules:
+        vs = v if sched == "interleaved" else 1
+        pipe = EmulatedPipeline(model, PIPE_PP, m, sched, vs)
+        step = make_train_step(loss_fn, value_and_grad_fn=(
+            lambda _, b, pipe=pipe: pipeline_step(pipe, loss_fn, b)))
+        state, met = step(fresh(), batch)
+        row = pipe_compare(torch, model, plain, met["loss"].item(),
+                           met["grad_norm"].item(), f"{tag} {sched}")
+        row.update(pipe_timed(torch, tfa, step, state, batch, timed, pipe))
+        row["host_ms_per_tick"] = row["median_host_ms"] / \
+            row["ticks_per_step"]
+        if sched in profiled:
+            row["profile"] = pipe_profile(torch, step, state, batch,
+                                          row["median_ms"], f"{tag} {sched}")
+        row["fwd_bwd_peak_bytes"] = pipe_grad_peak(
+            torch, model, lambda: pipeline_step(pipe, loss_fn, batch))
+        fwd_ticks = schedule_ticks(sched, m, PIPE_PP, vs)[0]
+        row["schedule_ticks"] = fwd_ticks
+        want = m + 2 * (PIPE_PP - 1) if sched == "1f1b" else 2 * fwd_ticks
+        check(row["ticks_per_step"] == want, f"{tag} {sched}: "
+              f"{row['ticks_per_step']} ticks a step, not {want}")
+        check(row["launches"]["flash_attention_fwd"] > 0, f"{tag} {sched}: "
+              "the flash forward kernel was not launched")
+        out[sched] = row
+        launches[sched] = row["launches"]
+        del state, pipe, step
+    model.zero_grad(set_to_none=True)
+    del model, init, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def pipe_hybrid(torch) -> dict:
+    """17.3: `rl.hybrid.HybridEngine` in an NCCL world of one: GPT-2
+    124M's parameters placed for training and synced to the decode
+    placement twice, bitwise the input; `last_sync_s` of the second."""
+    from dlrover_wuqiong_tpu_torch.convert import _flatten
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPTConfig, init_params
+    from dlrover_wuqiong_tpu_torch.rl.hybrid import HybridEngine
+
+    params = init_params(GPTConfig.gpt2(), seed=0)
+    eng = HybridEngine(decode_tp=1)
+    train = eng.place_train(params)
+    syncs = []
+    for _ in range(2):
+        dec = eng.sync_to_decode(train)
+        syncs.append(eng.last_sync_s)
+    flat, got = _flatten(params), _flatten(dec)
+    check(sorted(flat) == sorted(got) and all(
+        torch.equal(got[n].to_local(), flat[n]) for n in flat),
+        "17.3: the decode placement is not bitwise the parameters")
+    n_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+    return {"leaves": len(flat), "bytes": n_bytes, "sync_s": syncs,
+            "last_sync_s": eng.last_sync_s,
+            "received_bytes": eng.last_sync_bytes}
+
+
+def pipeline_phase(torch, tfa, profiled=()) -> tuple:
+    """Phase 17: pipeline parallelism, pp PIPE_PP stages emulated in this
+    process through the schedules' own bodies.  17.1 GPT-2 124M (gpipe,
+    1F1B, interleaved), 17.2 Llama-3 8B widths at 4 layers (1F1B, gpipe),
+    17.3 the RL hybrid engine.  `profiled` names the GPT-2 runs ("plain",
+    a schedule) that take one profiled step more (`pipe_profile`; about
+    20 s each at ~25k kernels a step, so the whole script profiles
+    none).  Returns (report, {run: flash launches})."""
+    import dataclasses
+
+    from dlrover_wuqiong_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_wuqiong_tpu_torch.models.llama import Llama, LlamaConfig
+
+    t0 = time.monotonic()
+    out, walls, launches = {}, {}, {}
+    table = os.path.join(HERE, "chiprun_out",
+                         "chip_smoke_pipeline_profile.txt")
+    if os.path.exists(table):
+        os.remove(table)
+    gpt, more = pipe_family(
+        torch, tfa, lambda: GPT(GPTConfig.gpt2()),
+        train_batch(torch, 50257, seed=17, b=PIPE_B),
+        ("gpipe", "1f1b", "interleaved"), PIPE_M, PIPE_V, PIPE_TIMED, "17.1",
+        profiled)
+    out["gpt2"] = gpt
+    launches.update({f"gpt2_{k}": v for k, v in more.items()})
+    walls["17.1"] = time.monotonic() - t0
+    t = time.monotonic()
+    L = PIPE_LLAMA
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=L["layers"])
+    llama, more = pipe_family(
+        torch, tfa, lambda: Llama(cfg),
+        train_batch(torch, cfg.vocab_size, seed=172, b=L["b"], t=L["t"]),
+        ("1f1b", "gpipe"), L["m"], 1, L["timed"], "17.2")
+    out["llama"] = llama
+    launches.update({f"llama_{k}": v for k, v in more.items()})
+    walls["17.2"] = time.monotonic() - t
+    t = time.monotonic()
+    with nccl_world():
+        out["hybrid"] = pipe_hybrid(torch)
+    walls["17.3"] = time.monotonic() - t
+    out["walls_s"] = walls
+    out["phase_wall_s"] = time.monotonic() - t0
+    return out, launches
+
+
+def print_pipeline(pl: dict):
+    """Phase 17's lines: the report as JSON, then its numbers."""
+    print("pipeline: " + json.dumps(pl))
+    for fam, (name, b, t) in (("gpt2", ("GPT-2 124M", PIPE_B, TRAIN_T)),
+                              ("llama", (f"Llama-3 8B, "
+                                         f"{PIPE_LLAMA['layers']} layers",
+                                         PIPE_LLAMA["b"],
+                                         PIPE_LLAMA["t"]))):
+        d = pl[fam]
+        p = d["plain"]
+        for sched, r in d.items():
+            pr = r.get("profile")
+            if not pr or isinstance(pr["device_busy_ms"], str):
+                continue
+            print(f"pipeline: {name} {sched}, one profiled step: device "
+                  f"busy {pr['device_busy_ms']:.1f} ms, "
+                  f"{pr['device_busy_share']:.3f} of the median step "
+                  f"{r['median_ms']:.1f} ms (the host's "
+                  f"{r['median_host_ms']:.1f}); {pr['kernels']} kernels "
+                  f"(mean {pr['mean_kernel_us']:.1f} us)")
+        print(f"pipeline: {name}, B = {b}, T = {t}: the plain step "
+              f"{p['median_ms']:.1f} ms (spread {p['spread_ms']:.1f}), peak "
+              f"{p['peak_bytes'] / 1e9:.2f} GB, "
+              f"{p['peak_above_state_bytes'] / 1e9:.2f} GB above the state, "
+              f"forward + backward alone "
+              f"{p['fwd_bwd_peak_bytes'] / 1e9:.2f} GB above it")
+        for sched, r in d.items():
+            if sched == "plain":
+                continue
+            lp = r["launches_per_step"]
+            print(f"pipeline: {name} {sched} (pp {PIPE_PP} emulated): "
+                  f"first step against the plain one: loss "
+                  f"{r['loss_rel_err']:.2e}, grad norm "
+                  f"{r['grad_norm_rel_err']:.2e}, worst leaf gradient "
+                  f"{r['worst_leaf_grad_rel_err']:.2e} "
+                  f"({r['worst_grad_leaf']}), worst leaf off share "
+                  f"{r['worst_leaf_off_share']:.2e} "
+                  f"({r['worst_off_leaf']}); "
+                  f"{r['median_ms']:.1f} ms a step (spread "
+                  f"{r['spread_ms']:.1f}; the host's "
+                  f"{r['median_host_ms']:.1f}, "
+                  f"{r['host_ms_per_tick']:.2f} a tick), peak "
+                  f"{r['peak_bytes'] / 1e9:.2f} "
+                  f"GB ({r['peak_above_state_bytes'] / 1e9:.2f} above the "
+                  f"state; forward + backward alone "
+                  f"{r['fwd_bwd_peak_bytes'] / 1e9:.2f}); "
+                  f"{r['ticks_per_step']:.0f} ticks a step "
+                  f"(schedule_ticks' forward {r['schedule_ticks']}); flash "
+                  "launches a step " + ", ".join(
+                      f"{k.replace('flash_attention_', '')} {v:.0f}"
+                      for k, v in lp.items() if v))
+    h = pl["hybrid"]
+    print(f"pipeline: 17.3 HybridEngine (a world of one): sync_to_decode of "
+          f"{h['leaves']} leaves, {h['bytes']} bytes, bitwise; last_sync_s "
+          f"{h['last_sync_s']:.4f} (first {h['sync_s'][0]:.4f})")
+    print(f"pipeline: phase wall {pl['phase_wall_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in pl["walls_s"].items())
+          + ")")
+
+
+
 def main():
     t_start = time.monotonic()
     # each phase's wall, printed before the kernels line
@@ -5556,6 +5929,14 @@ def main():
           "steps of 2 groups): " + json.dumps(inter_launches))
 
     lap('16')
+    # phase 17 — pipeline parallelism (emulated stages) and the RL
+    # hybrid engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, pipe_launches = pipeline_phase(torch, tfa)
+    print_pipeline(pipe)
+
+    lap('17')
     # phase 6
     src = "dlrover_wuqiong_tpu_torch/csrc/int8_blockwise.cu"
     kernels = []
@@ -5629,6 +6010,8 @@ def main():
                                       in lc_launches.items()},
             "launches_interop": {run: counts[name] for run, counts
                                  in inter_launches.items()},
+            "launches_pipeline": {run: counts[name] for run, counts
+                                  in pipe_launches.items()},
         })
         if "llama3_8b" in t:
             kernels[-1]["llama3_8b"] = {

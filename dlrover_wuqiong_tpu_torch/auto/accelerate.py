@@ -92,9 +92,27 @@ and DiLoCo two-level training (JAX :191-196, :600-662):
         the outer trees on the device); it refuses fused_steps > 1,
         materialize=False, and tp, sp or ep above 1.
 
-"pipeline_parallel" raises until ROADMAP queue 1 item 8c.  With sp or ep
-of size 1 the build is the one without them (the attention falls
-through to flash, as in JAX).
+and pipeline parallelism (JAX :158-188, :547-595):
+
+    ("pipeline_parallel", {"size", "microbatches", "schedule",
+                           "virtual_stages", "head_loss"})
+        pp stages over the mesh's ``pp`` dim (`parallel.pipeline`): each
+        rank builds its stage's blocks (layers divisible by pp) and the
+        embedding and head leaves, in ``microbatches`` microbatches
+        (default `default_pp_microbatches`: max(grad_accum, 2 pp)).
+        ``schedule`` "gpipe" (the default) or "interleaved" (with
+        ``virtual_stages`` >= 2 chunks a stage, microbatches divisible
+        by pp) train through a whole-batch `loss_fn` and the fill-drain
+        backward; "1f1b" trains through its own step and refuses a
+        `loss_fn` (``head_loss(head_params, h, labels)``, a loss a
+        microbatch, replaces the cross-entropy; only there, and only at
+        size >= 2).  `AccelerateResult.model` is the rank's
+        `PipelinedLM` stage and `value_and_grad_fn` its step.  The
+        stage is sharded over fsdp, dp, tp, sp and ep inside its pp
+        coordinate; `local_sgd` with it is refused before any init.
+
+With sp or ep of size 1 the build is the one without them (the attention
+falls through to flash, as in JAX).
 """
 
 from __future__ import annotations
@@ -172,30 +190,14 @@ class StrategyContext:
         return {k: v for k, v in out.items() if getattr(cfg, k) != v}
 
 
-#: JAX strategy names whose port is still to come -> the ROADMAP item
-_NOT_PORTED = {"pipeline_parallel": "8c"}
-
 #: the strategies that shard the state over a mesh
 MESH_STRATEGIES = ("fsdp", "zero2", "zero3", "data_parallel", "ddp",
                    "tensor_parallel", "multi_slice", "expert_parallel",
-                   "sequence_parallel", "local_sgd", "hsdp")
+                   "sequence_parallel", "local_sgd", "hsdp",
+                   "pipeline_parallel")
 
 #: sequence_parallel's impls (`parallel.long_context.SP_ATTENTION`)
 SP_IMPLS = ("ulysses", "ring", "gspmd")
-
-
-def _not_ported(name: str, item: str) -> Callable:
-    def handler(ctx: StrategyContext, cfg: Dict, num_devices: int):
-        ported = sorted(n for n in _STRATEGY_REGISTRY
-                        if n not in _NOT_PORTED)
-        raise ValueError(f"strategy {name!r} is not ported yet (ROADMAP "
-                         f"queue 1 item {item}); the port trains with "
-                         f"{', '.join(ported)}")
-    return handler
-
-
-for _name, _item in _NOT_PORTED.items():
-    register_strategy(_name)(_not_ported(_name, _item))
 
 
 @register_strategy("fsdp")
@@ -277,6 +279,40 @@ def _s_multi_slice(ctx: StrategyContext, cfg: Dict, num_devices: int):
     ctx.extra["mesh"] = True
     if tp > 1:
         ctx.extra["tensor_parallel"] = True
+
+
+@register_strategy("pipeline_parallel")
+def _s_pp(ctx: StrategyContext, cfg: Dict, num_devices: int):
+    """cfg: size, microbatches, schedule ("gpipe" | "interleaved" | "1f1b"),
+    virtual_stages (interleaved chunk count per device), head_loss (1f1b
+    only: per-microbatch (head_params, h, labels) -> scalar loss)."""
+    from ..parallel.pipeline import check_schedule
+
+    ctx.plan.pp = cfg.get("size", 1)
+    ctx.extra["mesh"] = True
+    ctx.extra["pp_microbatches"] = cfg.get("microbatches")
+    schedule = cfg.get("schedule", "gpipe")
+    check_schedule(schedule)
+    virtual = cfg.get("virtual_stages", 2 if schedule == "interleaved" else 1)
+    if schedule == "interleaved" and virtual < 2:
+        raise ValueError("interleaved schedule needs virtual_stages >= 2 — "
+                         "with 1 chunk per device it degenerates to gpipe")
+    if schedule != "interleaved" and virtual > 1:
+        raise ValueError(f"virtual_stages={virtual} only applies to "
+                         "schedule='interleaved'")
+    ctx.extra["pp_schedule"] = schedule
+    ctx.extra["pp_virtual_stages"] = virtual
+    if cfg.get("head_loss") is not None:
+        if schedule != "1f1b":
+            raise ValueError(
+                "head_loss only applies to schedule='1f1b' (gpipe/"
+                "interleaved take a whole-batch loss_fn instead)")
+        if ctx.plan.pp <= 1:
+            raise ValueError(
+                "head_loss needs ('pipeline_parallel', {'size': >= 2, "
+                "...}) — with pp=1 no pipeline is built and the custom "
+                "objective would silently fall back to cross-entropy")
+        ctx.extra["pp_head_loss"] = cfg["head_loss"]
 
 
 @register_strategy("local_sgd")
@@ -426,6 +462,8 @@ class AccelerateResult:
     fused_steps: int = 1
     # the sharded build's mesh side (parallel.fsdp.MeshState), or None
     mesh_state: Any = None
+    # the pipeline's step (make_train_step's value_and_grad_fn), or None
+    value_and_grad_fn: Optional[Callable] = None
     _fused_cache: Dict[int, Callable] = dataclasses.field(
         default_factory=dict)
 
@@ -439,7 +477,8 @@ class AccelerateResult:
             raise ValueError(_NO_FUSED_LOCAL_SGD)
         fn = self._fused_cache.get(k)
         if fn is None:
-            fn = make_train_step(self.loss_fn, self.accum_steps, k)
+            fn = make_train_step(self.loss_fn, self.accum_steps, k,
+                                 self.value_and_grad_fn)
             self._fused_cache[k] = fn
         return fn
 
@@ -455,8 +494,10 @@ class AccelerateResult:
                 batch_axis = 1 if self.accum_steps > 1 else 0
             if seq_axis is None:
                 seq_axis = batch_axis + 1
+            micro = getattr(self.model, "num_microbatches", 1) \
+                if self.strategy.plan.pp > 1 else 1
             batch = self.mesh_state.planner.place_batch(batch, batch_axis,
-                                                        seq_axis)
+                                                        seq_axis, micro)
 
         def put(x):
             if isinstance(x, np.ndarray):
@@ -565,6 +606,8 @@ def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
     local_sgd = ctx.extra.get("local_sgd")
     if local_sgd is not None:
         _check_local_sgd(ctx, fused_steps, materialize)
+    if ctx.plan.pp > 1:
+        _check_pipeline(ctx, model, loss_fn)
     overrides = ctx.model_overrides(model)
     if overrides:
         model = type(model)(dataclasses.replace(model.config, **overrides))
@@ -604,15 +647,21 @@ def auto_accelerate(model, optimizer: Optional[OptimizerFactory] = None,
         offload_state(state.opt_state, ensure_state)
     elif mesh_state is not None:
         ensure_state(state.opt_state)  # the moments' placements, now
+    vg = None
+    if ctx.plan.pp > 1:
+        from ..parallel.pipeline import pipeline_step
+
+        def vg(model, batch):
+            return pipeline_step(model, loss, batch)
     if local_sgd is not None:
         state, step = _diloco(state, loss, ctx, local_sgd, sb)
     else:
-        step = make_train_step(loss, ctx.accum_steps, fused_steps)
+        step = make_train_step(loss, ctx.accum_steps, fused_steps, vg)
     return AccelerateResult(train_step=step, state=state, loss_fn=loss,
                             model=model, device=device, strategy=ctx,
                             accum_steps=ctx.accum_steps,
                             fused_steps=max(fused_steps, 1),
-                            mesh_state=mesh_state)
+                            mesh_state=mesh_state, value_and_grad_fn=vg)
 
 
 def _shard(model, ctx: StrategyContext, device, seed: int,
@@ -630,6 +679,22 @@ def _shard(model, ctx: StrategyContext, device, seed: int,
     if ctx.plan.ep > 1:
         planner.with_moe()
     model = _on_mesh(model, ctx, mesh)
+    if ctx.plan.pp > 1:
+        from ..parallel.pipeline import PipelinedLM
+
+        model = PipelinedLM(model, ctx.extra["pp_microbatches"],
+                            schedule=ctx.extra["pp_schedule"],
+                            virtual_stages=ctx.extra["pp_virtual_stages"],
+                            mesh=mesh,
+                            head_loss_fn=ctx.extra.get("pp_head_loss"))
+        if ctx.extra.get("tensor_parallel") or ctx.plan.tp > 1:
+            model.activation_mesh = mesh["tp"]
+        logger.info("pipeline parallel: %d stages x %d layers, %d "
+                    "microbatches, schedule=%s%s", ctx.plan.pp,
+                    model._n_layer // ctx.plan.pp, model.num_microbatches,
+                    model.schedule,
+                    f" v={model.virtual_stages}"
+                    if model.virtual_stages > 1 else "")
     if bf16:
         for p in model.parameters():
             if p.is_floating_point():
@@ -644,6 +709,32 @@ def _shard(model, ctx: StrategyContext, device, seed: int,
     logger.info("auto_accelerate: mesh=%s over %s", ctx.plan.describe(),
                 device.type)
     return model, mesh_state
+
+
+def _check_pipeline(ctx: StrategyContext, model, loss_fn) -> None:
+    """JAX's refusals of a pipelined build (:557-586), before any
+    parameter is made, and the microbatch count it settles
+    (`default_pp_microbatches` unless given)."""
+    from ..parallel.pipeline import check_layers, default_pp_microbatches
+
+    cfg = getattr(model, "config", None)
+    check_layers(getattr(cfg, "n_layer", getattr(cfg, "num_layers", None)),
+                 ctx.plan.pp)
+    ctx.extra["pp_microbatches"] = ctx.extra.get("pp_microbatches") or \
+        default_pp_microbatches(ctx.accum_steps, ctx.plan.pp)
+    if ctx.extra.get("pp_schedule") == "1f1b" and loss_fn is not None:
+        raise ValueError(
+            "pipeline schedule '1f1b' cannot honor a whole-batch "
+            "(params, batch) loss_fn — its backward seeds PER-"
+            "MICROBATCH head vjps in-schedule.  Pass a per-microbatch "
+            "head loss instead: ('pipeline_parallel', {'head_loss': "
+            "fn(head_params, h, labels) -> scalar}), or use "
+            "schedule='gpipe'/'interleaved'")
+    if ctx.extra.get("local_sgd") is not None:
+        raise ValueError(
+            "local_sgd does not compose with pipeline_parallel — a DiLoCo "
+            "replica group would hold one pipeline stage of the model, "
+            "and its outer sync averages whole replicas")
 
 
 def _diloco(state: TrainState, loss: Callable, ctx: StrategyContext,

@@ -16,6 +16,10 @@ serving engine's ``sync_from_trainer``
   parameter ``layers_0.attention.q_proj.kernel``).
 - `export_params`: a model's parameters -> the nested dict (for GPT, the
   one ``ServingEngine.sync_from_trainer`` takes), as detached copies.
+- `load_pipelined` / `export_pipelined`: JAX's ``PipelinedLM`` layout
+  (dlrover_wuqiong_tpu/parallel/pipeline.py:573-587, ``{non-layer...,
+  "blocks": stacked}``) into and out of one pipeline stage
+  (`parallel.pipeline.PipelinedLM`).
 
 The paths stay the same (``h_<i>/attn/c_attn/kernel``, ``ln_1/scale``,
 ``wte/embedding``, ``embed_tokens/embedding``, ...) and so does every
@@ -99,4 +103,39 @@ def export_params(model: torch.nn.Module) -> Dict[str, Any]:
         for k in path:
             node = node.setdefault(k, {})
         node[leaf] = p.detach().clone()
+    return tree
+
+
+@torch.no_grad()
+def load_pipelined(stage: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
+    """A JAX ``PipelinedLM`` tree (``{non-layer..., "blocks": stacked}``,
+    the stacked axis in the stage's ``_order``) into a materialized
+    `parallel.pipeline.PipelinedLM` stage: each parameter of the stage
+    (a DTensor's local piece) gets its value.  Returns `stage`."""
+    from .parallel.fsdp import is_dtensor, local_piece
+
+    flat = _flatten(stage.to_flat_params(dict(tree)))
+    for name, p in stage.named_parameters():
+        src = flat[name]
+        if not torch.is_tensor(src):
+            src = torch.from_numpy(np.array(src, copy=True))
+        dst = p.to_local() if is_dtensor(p) else p
+        dst.copy_(local_piece(p, src.to(dst.device, dst.dtype)))
+    return stage
+
+
+@torch.no_grad()
+def export_pipelined(stage: torch.nn.Module) -> Dict[str, Any]:
+    """A `parallel.pipeline.PipelinedLM` stage's parameters in JAX's
+    pipelined layout: the non-layer leaves and ``blocks`` stacked over
+    this stage's rows (`PipelinedLM.stage_rows`), detached copies; a
+    sharded leaf is gathered (a collective: every rank calls it)."""
+    from .parallel.fsdp import is_dtensor
+    from .parallel.pipeline import stack_layer_params
+    from .trainer.train_step import nest
+
+    tree = nest({n: (p.full_tensor() if is_dtensor(p) else p).detach()
+                 .clone() for n, p in stage.named_parameters()})
+    blocks = [tree.pop(f"{stage._prefix}_{i}") for i in stage.stage_layers]
+    tree["blocks"] = stack_layer_params(blocks)
     return tree

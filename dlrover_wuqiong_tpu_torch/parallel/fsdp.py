@@ -40,6 +40,15 @@ Pure ``dp`` (``ddp``, or ``data_parallel`` without ``fsdp``) runs as the
 2-D FSDP2 mesh with an ``fsdp`` size of 1: every piece is the whole
 tensor and the gradients are all-reduced over ``dp``.
 
+Under pipeline parallel (``pp`` > 1) the model is a
+`parallel.pipeline.PipelinedLM` stage: FSDP2 shards its blocks over the
+data dims of its own ``pp`` coordinate, `materialize` keeps the stage's
+leaves of the full init, and `MeshState` sums the gradient of every
+leaf outside the stage's blocks (each stage computed only its part)
+over ``pp`` before the data dims' mean, and counts a stage's blocks
+once in the norm (``pp`` shards them).  The checkpoint of such a
+state is not ported (`MeshState.piece` raises).
+
 A quantized state (adamw8bit's codes ``.../0``, (rows, 256) int8, and
 scales ``.../1``, (rows,) float32, of a parameter's piece,
 optimizers/low_bit.py) is laid out in one of two ways, chosen for each
@@ -142,6 +151,13 @@ class MeshState:
         # replica's (a local SGD mesh is dp x fsdp)
         self.norm_groups = None if replica_dim is None else \
             self.data_groups
+        # pipeline parallel: a stage's blocks are its own, every other
+        # leaf is held by each stage, which computes only its part of
+        # that leaf's gradient (parallel/pipeline.py)
+        self.n_pp = sizes["pp"]
+        self.pp_group = mesh.get_group("pp") if self.n_pp > 1 else None
+        self.stage_local = set(model.block_names()) if self.n_pp > 1 \
+            else set()
 
     # ---------------------------------------------------------------- step
 
@@ -164,16 +180,30 @@ class MeshState:
             if acc is not t:
                 t.copy_(acc)
 
+    def _sum_over_pp(self, tensors) -> None:
+        """Sum `tensors` in place over the ``pp`` group, in float32 as
+        `_mean_over` reduces them."""
+        for t in tensors:
+            acc = t if t.dtype == torch.float32 else t.float()
+            dist.all_reduce(acc, group=self.pp_group)
+            if acc is not t:
+                t.copy_(acc)
+
     @torch.no_grad()
     def reduce_grads(self) -> None:
         """Average the gradients over the token ranks that FSDP2 did not
         reduce: a replicated parameter's over dp x fsdp x sp, every other
         over sp.  A tensor-parallel gradient is first laid out as its
         parameter (a Partial or Shard gradient of a replicated parameter
-        is reduced or gathered over ``tp``)."""
+        is reduced or gathered over ``tp``).  Under pipeline parallel the
+        gradient of every leaf outside the stage's blocks is first summed
+        over ``pp`` (a stage that did not use it adds zeros)."""
         params = dict(self.model.named_parameters())
-        replicated, sharded = [], []
+        replicated, sharded, over_pp = [], [], []
         for name, p in params.items():
+            if self.pp_group is not None and name not in self.stage_local \
+                    and p.grad is None:
+                p.grad = torch.zeros_like(p)
             g = p.grad
             if g is None:
                 continue
@@ -183,6 +213,10 @@ class MeshState:
             local = g.to_local() if is_dtensor(g) else g
             (replicated if name in self.replicated else sharded).append(
                 local)
+            if self.pp_group is not None and name not in self.stage_local:
+                over_pp.append(local)
+        if self.pp_group is not None:
+            self._sum_over_pp(over_pp)
         self._mean_over(replicated, self.data_groups + self.sp_groups,
                         self.n_tokens)
         self._mean_over(sharded, self.sp_groups, self.n_sp)
@@ -198,10 +232,12 @@ class MeshState:
             dist.all_reduce(out, group=group)
         return out.div_(self.n_tokens)
 
-    def _owner(self, t) -> bool:
+    def _owner(self, t, stage_local: bool = False) -> bool:
         """Does this rank count `t`'s piece: coordinate 0 on every mesh
-        dim that does not shard it?"""
+        dim that does not shard it (``pp`` shards a stage's blocks)?"""
         sharded = {self.replica_dim}
+        if stage_local:
+            sharded.add("pp")
         if is_dtensor(t):
             names = t.device_mesh.mesh_dim_names
             sharded |= {names[i] for i, p in enumerate(t.placements)
@@ -209,16 +245,25 @@ class MeshState:
         return all(c == 0 for a, c in self.coord.items() if a not in sharded)
 
     @torch.no_grad()
-    def global_norm(self, grads) -> torch.Tensor:
-        """optax's ``global_norm`` over sharded gradients: the float32
-        sums of squares of every distinct piece (a replicated one on one
-        rank), summed over the world, then the root."""
-        grads = list(grads)
-        if not grads:
+    def global_norm(self, grads=None) -> torch.Tensor:
+        """optax's ``global_norm`` over the model's sharded gradients:
+        the float32 sums of squares of every distinct piece (a
+        replicated one on one rank), summed over the world, then the
+        root.  Each piece's owner is decided by its parameter's name (a
+        pipeline stage's blocks are its own), so the gradients are read
+        from the model; `grads`, a clip's argument, must be the same
+        tensors and is only counted against them."""
+        named = [(n, p.grad) for n, p in self.model.named_parameters()
+                 if p.grad is not None]
+        if grads is not None and len(list(grads)) != len(named):
+            raise ValueError("MeshState.global_norm: the gradients given "
+                             "are not the model's")
+        if not named:
             return torch.zeros((), dtype=torch.float32)
-        locals_ = [g.to_local() if is_dtensor(g) else g for g in grads]
+        locals_ = [g.to_local() if is_dtensor(g) else g for _, g in named]
         norms = torch._foreach_norm(locals_, dtype=torch.float32)
-        keep = [n for g, n in zip(grads, norms) if self._owner(g)]
+        keep = [norm for (n, g), norm in zip(named, norms)
+                if self._owner(g, n in self.stage_local)]
         dev = norms[0].device
         total = (torch.stack(keep).square().sum() if keep
                  else torch.zeros((), dtype=torch.float32, device=dev))
@@ -251,6 +296,12 @@ class MeshState:
         leaf (a count, the step) is replicated."""
         from ..checkpoint.shm_handler import MeshPiece
 
+        if self.n_pp > 1:
+            raise NotImplementedError(
+                "the checkpoint of a pipelined state is not ported (ROADMAP "
+                "queue 1 item 8c): a stage holds rows of the stacked "
+                "blocks/... leaves (PipelinedLM.state_layout) that no "
+                "piece of the flash format names yet")
         parts = path.split("/")
         param, child = None, None
         for k in range(len(parts)):
@@ -523,10 +574,15 @@ def local_piece(p, full: torch.Tensor) -> torch.Tensor:
 def materialize(model: nn.Module, seed: int, device) -> None:
     """Allocate the sharded parameters on `device` and fill them from the
     seeded init one leaf at a time (``model.init_leaves``: (name, full
-    float32 tensor) in init order), keeping each rank's piece."""
+    float32 tensor) in init order), keeping each rank's piece.  A
+    pipeline stage draws every leaf and keeps its own
+    (``model.holds_elsewhere``)."""
     model.to_empty(device=device)
     named = dict(model.named_parameters())
+    elsewhere = getattr(model, "holds_elsewhere", lambda name: False)
     for name, full in model.init_leaves(seed, device):
+        if name not in named and elsewhere(name):
+            continue  # another pipeline stage's block
         p = named.pop(name)
         dst = p.to_local() if is_dtensor(p) else p
         dst.copy_(local_piece(p, full))

@@ -14,8 +14,9 @@ mesh's device type follows the device: ``cuda`` meshes communicate
 through NCCL, ``cpu`` meshes through gloo.
 
 JAX's `context_mesh` and `in_manual_context` serve ``shard_map``
-nesting (the sequence- and pipeline-parallel bodies, ROADMAP items 8b
-and 8c); they come with those items.
+nesting (the sequence- and pipeline-parallel bodies); the port has no
+``shard_map``: those bodies run on each rank with their transport
+(`parallel.long_context`, `parallel.pipeline`), so it needs neither.
 """
 
 from __future__ import annotations

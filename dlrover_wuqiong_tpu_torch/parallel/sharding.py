@@ -286,11 +286,15 @@ class ShardingPlanner:
         return tuple(parts)
 
     def place_batch(self, batch: Dict[str, Any], batch_axis: int = 0,
-                    seq_axis: Optional[int] = None) -> Dict[str, Any]:
+                    seq_axis: Optional[int] = None,
+                    microbatches: int = 1) -> Dict[str, Any]:
         """This rank's slice of every leaf of a global batch (numpy
         arrays or tensors) along `batch_axis`, and along `seq_axis` over
         sp for a leaf that has that axis; leaves without the batch axis
-        pass whole."""
+        pass whole.  With `microbatches` M > 1 (a pipeline's) the rank
+        takes its slice of each of the M row blocks, in order: its
+        microbatch m is its piece of the global microbatch m, as JAX
+        shards each pipeline microbatch over the data dims."""
         sizes, coord = mesh_sizes(self.mesh), self.coordinate()
         out = {}
         for k, x in batch.items():
@@ -299,9 +303,24 @@ class ShardingPlanner:
                 continue
             seq = seq_axis if seq_axis is not None and \
                 np.ndim(x) > seq_axis else None
+            shape = tuple(x.shape)
+            if microbatches > 1:
+                b = shape[batch_axis]
+                if b % microbatches:
+                    raise ValueError(f"batch {b} not divisible by "
+                                     f"microbatches {microbatches}")
+                x = x.reshape(shape[:batch_axis] + (
+                    microbatches, b // microbatches) + shape[batch_axis + 1:])
+            shift = 1 if microbatches > 1 else 0
             idx = spec_index(x.shape, self.batch_spec(
-                np.ndim(x), seq, batch_axis), sizes, coord)
-            out[k] = x[tuple(slice(a, b) for a, b in idx)]
+                np.ndim(x), None if seq is None else seq + shift,
+                batch_axis + shift), sizes, coord)
+            piece = x[tuple(slice(a, b) for a, b in idx)]
+            if microbatches > 1:
+                ps = tuple(piece.shape)
+                piece = piece.reshape(ps[:batch_axis] + (-1,)
+                                      + ps[batch_axis + 2:])
+            out[k] = piece
         return out
 
 

@@ -390,14 +390,18 @@ def global_norm(grads) -> torch.Tensor:
 
 
 def make_train_step(loss_fn: Callable[[torch.nn.Module, Dict], torch.Tensor],
-                    accum_steps: int = 1, fused_steps: int = 1
+                    accum_steps: int = 1, fused_steps: int = 1,
+                    value_and_grad_fn: Optional[Callable] = None
                     ) -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     `loss_fn(params, batch)` is a scalar loss of the model on one batch.
     With ``accum_steps > 1`` the batch leaves carry a leading microbatch
     axis of that size.  Metrics are device tensors: ``loss`` and
-    ``grad_norm``.
+    ``grad_norm``.  `value_and_grad_fn(params, batch)`, when given,
+    replaces ``loss_fn(...).backward()``: it fills ``.grad`` and returns
+    the loss (JAX's `value_and_grad_fn` :82; the pipeline schedules of
+    parallel/pipeline.py), one call a microbatch under ``accum_steps``.
 
     ``fused_steps=K > 1`` returns the fused driver instead: its batch
     leaves carry a leading axis of size K (before the microbatch axis),
@@ -411,16 +415,17 @@ def make_train_step(loss_fn: Callable[[torch.nn.Module, Dict], torch.Tensor],
         opt = state.opt_state
         mesh = state.mesh_state
         opt.zero_grad(set_to_none=True)
-        if accum_steps == 1:
-            loss = loss_fn(model, batch)
-            loss.backward()
-            loss = loss.detach().float()
-        else:
-            def grad_fn(micro):
-                micro_loss = loss_fn(model, micro)
-                micro_loss.backward()
-                return micro_loss
 
+        def grad_fn(micro):
+            if value_and_grad_fn is not None:
+                return value_and_grad_fn(model, micro)
+            micro_loss = loss_fn(model, micro)
+            micro_loss.backward()
+            return micro_loss
+
+        if accum_steps == 1:
+            loss = grad_fn(batch).detach().float()
+        else:
             loss = accumulate_grads(grad_fn, model, batch, accum_steps)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if mesh is not None:

@@ -4,9 +4,9 @@
   ``StrategyContext.model_overrides`` gives for the same list and the
   same model family (dtypes mapped jnp -> torch), the same accumulation
   steps, and a rebuilt model that carries them.
-- Every JAX strategy name the port does not take yet raises naming its
-  ROADMAP item (pipeline_parallel, local_sgd and hsdp 8c); the mesh
-  strategies of item 8a (expert_parallel too) and 8b
+- The last strategy the port took (pipeline_parallel, ROADMAP item 8c)
+  resolves as JAX's, and no strategy raises as unported any more; the
+  mesh strategies of item 8a (expert_parallel too) and 8b
   (sequence_parallel) size the plan as JAX's do, and without a process group
   auto_accelerate asks for one; the optimizer strategies resolve as
   JAX's do and build bf16 parameters or an offloaded state; an unknown
@@ -16,6 +16,7 @@
   a nano GPT on the CPU with falling loss, its projections `Fp8Dense`.
 """
 
+import ast
 import dataclasses
 
 import jax.numpy as jnp
@@ -100,7 +101,8 @@ def test_auto_accelerate_rebuilds_the_model_with_the_overrides():
     assert res.accum_steps == 3
 
 
-NOT_PORTED = {"pipeline_parallel": "8c"}
+#: the strategies that raised as unported, with their ROADMAP item
+ONCE_UNPORTED = {"pipeline_parallel": "8c"}
 #: the mesh strategies of items 8a and 8b (a world of 8)
 MESH = {"fsdp": [("fsdp", {})], "zero2": [("zero2", {"size": 16})],
         "zero3": [("zero3", {})], "data_parallel": [("data_parallel", {})],
@@ -123,27 +125,36 @@ OPTIMIZER_STRATEGIES = {
     "optimizer_offload": ("optimizer_offload", True)}
 
 
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
+@pytest.mark.parametrize("name", sorted(ONCE_UNPORTED))
 def test_unported_strategies_raise_with_their_item(name):
-    with pytest.raises(ValueError,
-                       match=rf"queue 1 item {NOT_PORTED[name]}\)"):
-        tacc.resolve_strategy([(name, {})])
-    with pytest.raises(ValueError, match="not ported yet"):
+    """Item 8c ported pipeline_parallel: it resolves to JAX's plan and
+    schedule over 8 devices, is a mesh strategy, and without a process
+    group auto_accelerate asks for one (it no longer names the item)."""
+    strategy = [(name, {"size": 2, "schedule": "1f1b"}), ("fsdp", {})]
+    t, j = tacc.resolve_strategy(strategy, 8), jacc.resolve_strategy(
+        strategy, 8)
+    assert t.plan.sizes() == j.plan.sizes()
+    assert t.extra["pp_schedule"] == j.extra["pp_schedule"] == "1f1b"
+    assert name in tacc.MESH_STRATEGIES
+    with pytest.raises(ValueError, match="process group") as err:
         tacc.auto_accelerate(tgpt.GPT(tgpt.GPTConfig.nano()), device="cpu",
                              strategy=[("amp", {}), (name, {})])
+    assert ONCE_UNPORTED[name] not in str(err.value)
 
 
 def test_unported_message_names_every_ported_strategy():
-    """The refusal lists the strategies the port has, from its registry:
-    the mesh strategies (expert and sequence parallel, local_sgd and
-    hsdp among them) and the one-device ones, and no unported one."""
+    """No strategy is refused as unported: the unknown-name refusal
+    lists every strategy of the registry, which is JAX's, the mesh
+    strategies (pipeline, expert and sequence parallel, local_sgd and
+    hsdp among them) and the one-device ones."""
     with pytest.raises(ValueError) as err:
-        tacc.resolve_strategy([("pipeline_parallel", {})])
-    listed = str(err.value).split("trains with ")[1].split(", ")
-    assert set(tacc.MESH_STRATEGIES) <= set(listed)
+        tacc.resolve_strategy([("warp_drive", {})])
+    listed = set(ast.literal_eval(str(err.value).split("known: ")[1]))
+    assert listed == set(jacc._STRATEGY_REGISTRY)
+    assert set(tacc.MESH_STRATEGIES) <= listed
     assert {"amp", "checkpoint", "grad_accum", "stable_bf16",
-            "optimizer_offload"} <= set(listed)
-    assert "pipeline_parallel" not in listed
+            "optimizer_offload", "pipeline_parallel"} <= listed
+    assert not hasattr(tacc, "_NOT_PORTED")
 
 
 @pytest.mark.parametrize("case", sorted(MESH))

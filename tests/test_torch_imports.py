@@ -100,10 +100,11 @@ def _package_modules():
     return sorted(mods)
 
 
-#: the mesh strategies' modules (ROADMAP items 8a, 8b and 8c's local
-#: SGD) and the DCP interop of their checkpoints (item 6c)
+#: the mesh strategies' modules (ROADMAP items 8a, 8b and 8c), the DCP
+#: interop of their checkpoints (item 6c) and the RL hybrid engine
 PARALLEL = ("parallel.mesh", "parallel.sharding", "parallel.fsdp",
             "parallel.long_context", "parallel.local_sgd",
+            "parallel.pipeline", "rl.hybrid",
             "checkpoint.dcp_compat", "common.storage")
 
 

@@ -329,12 +329,16 @@ def test_emulated_groups_follow_jax(jax_runs):
 
 @pytest.mark.parametrize("case,match", [
     ("no_dp", "dp axis"), ("fused", "fused_steps > 1"),
-    ("abstract", "materialize=False"), ("pipeline", "not ported yet"),
+    ("abstract", "materialize=False"),
+    # the id is the one this case had while pipeline_parallel was not
+    # ported; its refusal is now JAX's own (tests/test_pipeline.py:659)
+    pytest.param("pipeline", "does not compose with pipeline_parallel",
+                 id="pipeline-not ported yet"),
     ("tp", "not ported")])
 def test_refusals(world, case, match):
     """JAX's refusals of a local_sgd build (dp < 2, fused steps,
-    materialize=False), pipeline_parallel while it is not ported, and
-    the port's own: tp inside a group."""
+    materialize=False, pipeline_parallel), and the port's own: tp inside
+    a group."""
     msg = world[0]["refusals"][case]
     assert msg is not None and match in msg, msg
 
